@@ -4,9 +4,10 @@
     python3 chip_smoke.py
 
 Run from the repository root on a machine with a CUDA GPU (an H100 is the
-target). It builds the port's CUDA kernel from ``satellite_pose_estimation
-_tpu_torch/csrc`` with nvcc, then runs five phases and exits non-zero if
-any fails:
+target). It builds the port's CUDA kernels from ``satellite_pose_estimation
+_tpu_torch/csrc`` with nvcc (K1, the fused attention forward, and K2, its
+backward, in parallel), then runs eight phases and exits non-zero if any
+fails:
 
 1. the card's name and power limit, and the kernel build time;
 2. the fused-attention kernel against its plain PyTorch version, bf16 and
@@ -21,7 +22,22 @@ any fails:
    solve on the CPU for comparison;
 5. eval-step throughput at batch 256 (median, min and max of 3 timed
    windows, with a per-stage breakdown) and the kernel's time against the
-   plain version's at the main-path shape (256, 8, 784, 32) bf16.
+   plain version's at the main-path shape (256, 8, 784, 32) bf16;
+6. K2 against ``attention_plain_bwd``, bf16 and float32, at (8, 8, T, 32)
+   for T = 784, 49 and 4096, and the attention Function's gradients on the
+   card against autograd through ``attention_plain`` (float32);
+7. the full-width train slice (the same DETR, float32 parameters under bf16
+   autocast, the default augmentation at 224 from 256 x 256 uint8
+   canvases, the default criterion, AdamW with EMA) through train steps of
+   batch 64: finite losses, K1 and K2 launched once per encoder layer and
+   step, the FrozenBN buffers untouched, the loss falling over 10 steps on
+   one fixed batch without augmentation, and the float32 gradients of a
+   batch-2 step on the card (K1 + K2, TF32 off) against the same step on
+   the CPU (plain versions);
+8. train-step throughput at batch 64 (median, min and max of 3 windows),
+   a per-stage device breakdown and a profile of one step, and K2's time
+   against the plain backward's at the main-path shape (64, 8, 784, 32)
+   bf16.
 
 Its last two lines are a JSON object describing the kernels and
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 1 and
@@ -35,6 +51,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 
 def log(*args):
@@ -95,9 +112,10 @@ def main() -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.device_count()} device(s)")
     t0 = time.perf_counter()
-    fa.load_library()
-    log(f"phase 1 ok: fused_attention kernel built and loaded in "
-        f"{time.perf_counter() - t0:.2f} s")
+    with ThreadPoolExecutor(2) as pool:  # one nvcc per source, started together
+        for f in [pool.submit(fa.load_library), pool.submit(fa.load_bwd_library)]:
+            f.result()
+    log(f"phase 1 ok: K1 and K2 built and loaded in {time.perf_counter() - t0:.2f} s")
 
     # -- 2. kernel against its plain version ---------------------------------
     sm_scale = 32 ** -0.5
@@ -257,16 +275,30 @@ def main() -> int:
     log(f"  K1 (256,8,784,32) bf16: kernel {k1_ms:.3f} ms, plain {plain_ms:.3f} ms "
         f"(runs plain, kernel, kernel, plain: {timings}) on {card}")
     log("phase 5 ok")
+    del pool, qkv, model
+
+    train = train_phases(torch, card, dev, g, sm_scale)
 
     log(json.dumps({"kernels": [{
         "name": "fused_attention",
         "route": "cuda",
         "source": "satellite_pose_estimation_tpu_torch/csrc/fused_attention.cu",
         "replaces": "satellite_pose_estimation_tpu/ops/fused_attention.py:31",
-        "launches": main_path_launches,
+        "launches": main_path_launches + train["k1_launches"],
+        "launches_by_path": {"eval": main_path_launches, "train": train["k1_launches"]},
         "max_abs_err": k1_err,
         "ms": k1_ms,
         "plain_ms": plain_ms,
+    }, {
+        "name": "fused_attention_bwd",
+        "route": "cuda",
+        "source": "satellite_pose_estimation_tpu_torch/csrc/fused_attention_bwd.cu",
+        "replaces": "satellite_pose_estimation_tpu/ops/fused_attention.py:141",
+        "launches": train["k2_launches"],
+        "launches_by_path": {"train": train["k2_launches"]},
+        "max_abs_err": train["k2_err"],
+        "ms": train["k2_ms"],
+        "plain_ms": train["k2_plain_ms"],
     }]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",
@@ -274,6 +306,201 @@ def main() -> int:
         "count": torch.cuda.device_count(),
     }}))
     return 0
+
+
+def train_phases(torch, card, dev, g, sm_scale):
+    """Phases 6-8: K2, the full-width train slice and its timing."""
+    from satellite_pose_estimation_tpu_torch.data.augment import AugmentConfig, augment_batch
+    from satellite_pose_estimation_tpu_torch.losses.criterion import CriterionConfig, set_criterion
+    from satellite_pose_estimation_tpu_torch.models.detr import DETRConfig, build_detr_train_model
+    from satellite_pose_estimation_tpu_torch.ops import fused_attention as fa
+    from satellite_pose_estimation_tpu_torch.ops.precision import highest_precision
+    from satellite_pose_estimation_tpu_torch.train.state import TrainConfig, create_train_state
+    from satellite_pose_estimation_tpu_torch.train.steps import make_train_step
+
+    bf16 = torch.bfloat16
+
+    # -- 6. K2 against its plain version ---------------------------------
+    tolerances = {torch.float32: 1e-4, bf16: 2e-2}  # x (1 + max|grad|)
+    for T in (784, 49, 4096):
+        for dtype, tol in tolerances.items():
+            q, k, v, go = (torch.randn(8, 8, T, 32, generator=g, device=dev).to(dtype)
+                           for _ in range(4))
+            out = fa._launch_bwd(q, k, v, go, sm_scale)
+            torch.cuda.synchronize()
+            ref = fa.attention_plain_bwd(q, k, v, go, sm_scale)
+            for name, o, r in zip(("dq", "dk", "dv"), out, ref):
+                err = max_err(o, r)
+                bound = tol * (1.0 + r.float().abs().max().item())
+                require(o.dtype == r.dtype and err <= bound,
+                        f"K2 {name} disagrees with plain at T={T} {dtype}")
+            log(f"  K2 (8,8,{T},32) {str(dtype)[6:]}: max|kernel-plain| dq/dk/dv = "
+                + "/".join(f"{max_err(o, r):.3e}" for o, r in zip(out, ref))
+                + f" (tolerance {tol:g} x (1 + max|grad|))")
+    x = [torch.randn(4, 784, 8, 32, generator=g, device=dev).transpose(1, 2).requires_grad_()
+         for _ in range(3)]
+    y = [t.detach().clone().requires_grad_() for t in x]
+    go = torch.randn(4, 8, 784, 32, generator=g, device=dev)
+    fa.fused_self_attention(*x, sm_scale).backward(go)
+    fa.attention_plain(*y, sm_scale).backward(go)
+    errs = [max_err(a.grad, b.grad) for a, b in zip(x, y)]
+    log(f"  Function float32 (4,8,784,32) grads vs autograd through attention_plain: "
+        f"dq/dk/dv {errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e} (tolerance 1e-4)")
+    require(max(errs) <= 1e-4, "Function gradients disagree with autograd")
+    del q, k, v, go, out, ref, x, y
+    log("phase 6 ok: K2 matches its plain version")
+
+    # -- 7. the full-width train slice -----------------------------------
+    cfg = DETRConfig(backbone="resnet50s8", hidden_dim=256, nheads=8, enc_layers=4,
+                     dec_layers=4, dim_feedforward=2048, num_queries=20, dropout=0.0)
+    size, pack, B = 224, 256, 64
+    crit = CriterionConfig()
+    tcfg = TrainConfig(use_ema=True)
+    no_aug = AugmentConfig(out_size=size, p_hflip=0.0, p_rotate=0.0, p_affine=0.0,
+                           p_blur=0.0, p_blur_family=0.0, p_noise=0.0, p_jpeg=0.0,
+                           p_iso=0.0, p_cutout=0.0, p_trunc=0.0)
+
+    def make_batch(n, gen):
+        off = torch.randint(0, 24, (n, 2), generator=gen, device=dev).float()
+        side = 200.0 + torch.randint(0, 32, (n, 1), generator=gen, device=dev).float()
+        bb = torch.cat([off, off + side], dim=1)
+        lm = bb[:, None, :2] + torch.rand(n, 11, 2, generator=gen, device=dev) * side[:, None]
+        return {"image": torch.randint(0, 256, (n, pack, pack, 3), generator=gen, device=dev,
+                                       dtype=torch.uint8),
+                "clip_bbox_buf": bb, "landmarks_buf": lm,
+                "labels": torch.arange(11, device=dev).repeat(n, 1)}
+
+    state = create_train_state(build_detr_train_model(cfg, seed=0, device=dev), tcfg)
+    step = make_train_step(crit, tcfg, AugmentConfig(out_size=size), compute_dtype=bf16)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    frozen = {n: b.clone() for n, b in state.model.named_buffers()}
+    batches = [make_batch(B, gen) for _ in range(3)]
+    step(state, batches[0], gen)  # warm-up (cuDNN / cuBLAS plans)
+    torch.cuda.synchronize()
+    fa.launch_count = fa.bwd_launch_count = 0
+    losses = [step(state, b, gen) for b in batches]
+    torch.cuda.synchronize()
+    k1_launches, k2_launches = fa.launch_count, fa.bwd_launch_count
+    log(f"  K1 / K2 launches in {len(batches)} train steps: {k1_launches} / {k2_launches} "
+        f"(expected {cfg.enc_layers} x {len(batches)} each)")
+    require(k1_launches == k2_launches == cfg.enc_layers * len(batches), "K1/K2 launch count")
+    for ls in losses:
+        require(all(bool(torch.isfinite(v)) for v in ls.values()), "a loss is not finite")
+    log("  losses: " + ", ".join(f"{ls['loss_total'].item():.4f}" for ls in losses)
+        + f"; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    for n, b in state.model.named_buffers():
+        require(torch.equal(b, frozen[n]), f"FrozenBN buffer {n} changed")
+    log("  FrozenBN buffers unchanged")
+
+    # The loss on one fixed batch without augmentation falls over 10 steps.
+    fixed_state = create_train_state(build_detr_train_model(cfg, seed=1, device=dev), tcfg)
+    fixed_step = make_train_step(crit, tcfg, no_aug, compute_dtype=bf16)
+    fixed = make_batch(B, gen)
+    trace = [fixed_step(fixed_state, fixed, gen)["loss_total"].item() for _ in range(10)]
+    log("  fixed-batch loss over 10 steps: " + ", ".join(f"{v:.4f}" for v in trace))
+    require(trace[-1] < 0.95 * trace[0], "the loss does not fall on a fixed batch")
+    del fixed_state, fixed_step
+
+    # float32 gradients of one batch-2 step: card (K1 + K2) against CPU.
+    small = {k: v[:2] for k, v in fixed.items()}
+    grads = {}
+    for where in ("cuda", "cpu"):
+        model = build_detr_train_model(cfg, seed=2, device=where)
+        batch = {k: v.to(where) for k, v in small.items()}
+        with highest_precision():
+            images, kp = augment_batch(torch.Generator(device=where).manual_seed(0),
+                                       batch["image"], batch["clip_bbox_buf"],
+                                       batch["landmarks_buf"], no_aug)
+            total, _ = set_criterion(model(images), {"labels": batch["labels"],
+                                                     "landmarks": kp}, crit)
+            total.backward()
+        grads[where] = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+        del model
+    num = sum(float((grads["cuda"][n] - gc).pow(2).sum()) for n, gc in grads["cpu"].items())
+    den = sum(float(gc.pow(2).sum()) for gc in grads["cpu"].values())
+    rel = (num / den) ** 0.5
+    # Per tensor, the error against the tensor's largest gradient, floored
+    # at 1e-4 of the largest gradient anywhere: the attention key biases
+    # have a gradient of exactly zero (a constant added to every score of a
+    # row leaves the softmax unchanged), so theirs is rounding noise.
+    floor = 1e-4 * max(gc.abs().max().item() for gc in grads["cpu"].values())
+    worst = sorted(((max_err(grads["cuda"][n], gc) / max(gc.abs().max().item(), floor), n)
+                    for n, gc in grads["cpu"].items()), reverse=True)[:3]
+    log(f"  float32 B=2 gradients, card vs CPU: relative L2 error {rel:.3e} (tolerance 1e-3); "
+        "worst tensors, max error / max(max |grad|, 1e-4 of the global max): "
+        + ", ".join(f"{v:.3e} {n}" for v, n in worst) + " (tolerance 1e-2)")
+    require(rel <= 1e-3 and worst[0][0] <= 1e-2, "card and CPU gradients disagree")
+    log("phase 7 ok: full-width train slice ran through K1 and K2")
+
+    # -- 8. timing ----------------------------------------------------------
+    steps_per_window, windows = 5, 3
+    pool = [make_batch(B, gen) for _ in range(steps_per_window * windows)]
+    torch.cuda.synchronize()
+    rates = []
+    for w in range(windows):
+        t0 = time.perf_counter()
+        for b in pool[w * steps_per_window:(w + 1) * steps_per_window]:
+            step(state, b, gen)
+        torch.cuda.synchronize()
+        rates.append(B * steps_per_window / (time.perf_counter() - t0))
+    log(f"  train step B={B} bf16 @224: median {statistics.median(rates):.2f} img/s "
+        f"(min {min(rates):.2f}, max {max(rates):.2f}; 3 windows of {steps_per_window} "
+        f"steps) on {card}")
+
+    names = ("augment", "forward", "loss", "backward", "optimizer")
+    per_stage = {n: [] for n in names}
+    for b in pool[:3]:
+        events = [torch.cuda.Event(enable_timing=True)]
+        events[0].record()
+
+        def mark(name):
+            events.append(torch.cuda.Event(enable_timing=True))
+            events[-1].record()
+
+        step(state, b, gen, on_stage=mark)
+        torch.cuda.synchronize()
+        for n, e0, e1 in zip(names, events, events[1:]):
+            per_stage[n].append(e0.elapsed_time(e1))
+    log("  stage times per B=64 step (CUDA events between stage ends, median of 3; "
+        "they include device idle while the host lags): "
+        + ", ".join(f"{n} {statistics.median(v):.3f} ms" for n, v in per_stage.items()))
+
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, pool[0], gen)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    log(f"  profiled step: wall {wall_ms:.3f} ms, device kernel time {busy_ms:.3f} ms "
+        f"(busy {100 * busy_ms / wall_ms:.1f}%), {sum(e.count for e in kernels)} kernels")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+        log(f"    {e.self_device_time_total / 1e3:9.3f} ms  {e.count:5d}x  {e.key[:90]}")
+
+    # K2 at the main-path shape and layout: (B, T, H, D) views of bf16.
+    qkvg = [torch.randn(B, 784, 8, 32, generator=g, device=dev, dtype=bf16).transpose(1, 2)
+            for _ in range(4)]
+    out = fa._launch_bwd(*qkvg, sm_scale)
+    ref = fa.attention_plain_bwd(*qkvg, sm_scale)
+    k2_err = max(max_err(o, r) for o, r in zip(out, ref))
+    bound = 2e-2 * (1.0 + max(r.float().abs().max().item() for r in ref))
+    log(f"  K2 (64,8,784,32) bf16: max|kernel-plain| = {k2_err:.3e} (tolerance {bound:.3e})")
+    require(k2_err <= bound, "K2 disagrees with plain at the main-path shape")
+    del out, ref
+    timings = {"plain": [], "kernel": []}
+    for name in ("plain", "kernel", "kernel", "plain"):
+        fn = (lambda: fa.attention_plain_bwd(*qkvg, sm_scale)) if name == "plain" else \
+             (lambda: fa._launch_bwd(*qkvg, sm_scale))
+        fn()
+        timings[name].append(cuda_ms(fn, 10, torch))
+    k2_ms = statistics.median(timings["kernel"])
+    k2_plain_ms = statistics.median(timings["plain"])
+    log(f"  K2 (64,8,784,32) bf16: kernel {k2_ms:.3f} ms, plain {k2_plain_ms:.3f} ms "
+        f"(runs plain, kernel, kernel, plain: {timings}) on {card}")
+    log("phase 8 ok")
+    return {"k1_launches": k1_launches, "k2_launches": k2_launches, "k2_err": k2_err,
+            "k2_ms": k2_ms, "k2_plain_ms": k2_plain_ms}
 
 
 if __name__ == "__main__":

@@ -1,0 +1,246 @@
+"""Train-time augmentation on the device (counterpart of data/augment.py
+``augment_batch``), driven by an explicit ``torch.Generator``:
+
+1. flip / scale / shift / crop-resize fold into one separable warp per
+   image: two dense per-axis interpolation matrices (``_axis_matrix``)
+   applied as batched matrix products;
+2. a fixed-count subset of round(p_rotate * B) images is rotated about the
+   crop centre (``ops.image_warp.rotate_shear3_bmm``), keypoints with it;
+3. the photometric family (blur, motion / median / box blur, gaussian
+   noise, JPEG, ISO noise, cutout, edge truncation) runs on fixed-count
+   subsets (``_apply_subset``);
+4. ImageNet normalisation.
+
+Keypoints ride the same maps analytically. Every draw comes from the
+generator, on its device (the images' device). The JAX package's other
+rotation routes (``rotate_impl`` "pallas", "shear", "gather") and its
+Pallas-fused photometric variant are not ported.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Tuple
+
+import torch
+
+from ..ops.image_warp import IMAGENET_MEAN, IMAGENET_STD, _cubic_weights, rotate_shear3_bmm
+from ..ops.photometric import (
+    box_blur,
+    iso_noise,
+    iso_noise_draw,
+    jpeg_artifacts,
+    median_blur3,
+    motion_blur,
+    motion_blur_draw,
+)
+from ..ops.precision import highest_precision
+
+
+class AugmentConfig(NamedTuple):
+    """The JAX ``AugmentConfig``, field for field."""
+    out_size: int = 256
+    interp: str = "bilinear"  # or "cubic" (cv2 INTER_CUBIC taps)
+    p_hflip: float = 0.5
+    p_rotate: float = 0.4
+    rotate_limit_deg: float = 90.0
+    p_affine: float = 0.1
+    affine_scale_jitter: float = 0.1
+    affine_shift_jitter: float = 0.05
+    p_blur: float = 0.3
+    p_blur_family: float = 0.2  # OneOf(motion .5, median .25, box .25)
+    motion_blur_max_ksize: int = 7
+    p_noise: float = 0.2
+    noise_sigma_max: float = 12.75
+    p_jpeg: float = 0.1
+    jpeg_quality_min: float = 20.0
+    jpeg_quality_max: float = 99.0
+    p_iso: float = 0.2
+    iso_color_shift: Tuple[float, float] = (0.01, 0.05)
+    iso_intensity: Tuple[float, float] = (0.1, 0.5)
+    p_cutout: float = 0.1
+    cutout_holes: int = 10
+    cutout_max: int = 40
+    p_trunc: float = 0.2
+    trunc_ratio: float = 0.2
+    rotate_impl: str = "bmm"  # the only route ported
+
+
+def _uniform(generator, shape, lo, hi):
+    return lo + (hi - lo) * torch.rand(shape, generator=generator, device=generator.device,
+                                     dtype=torch.float32)
+
+
+def _apply_subset(generator, imgs, p: float, fn):
+    """Apply ``fn(generator, sub)`` to exactly round(p * B) images chosen
+    uniformly without replacement: the marginal probability per image is
+    p, only the count is fixed."""
+    B = imgs.shape[0]
+    n = int(round(p * B))
+    if n == 0:
+        return imgs
+    idx = torch.randperm(B, generator=generator, device=generator.device)[:n]
+    return imgs.index_copy(0, idx, fn(generator, imgs[idx]))
+
+
+def _cutout(x, holes_xy, holes_wh):
+    """Zero the union of rectangles [x0, x0 + w) x [y0, y0 + h) per image;
+    holes_xy, holes_wh (n, holes, 2) integers."""
+    S = x.shape[1]
+    ar = torch.arange(S, device=x.device)
+    x0, y0 = holes_xy[..., 0, None, None], holes_xy[..., 1, None, None]
+    w, h = holes_wh[..., 0, None, None], holes_wh[..., 1, None, None]
+    xx, yy = ar[None, None, None, :], ar[None, None, :, None]
+    hit = (xx >= x0) & (xx < x0 + w) & (yy >= y0) & (yy < y0 + h)
+    return torch.where(hit.any(dim=1)[..., None], 0.0, x)
+
+
+def _truncate(x, th, tw, u):
+    """Edge blanking: for u < 0.25 the top th rows and left tw columns, for
+    u > 0.75 the bottom th rows and right tw columns; th, tw, u (n,)."""
+    S = x.shape[1]
+    ar = torch.arange(S, device=x.device)
+    xx, yy = ar[None, None, :], ar[None, :, None]
+    th, tw, u = th[:, None, None], tw[:, None, None], u[:, None, None]
+    top = (yy < th) | (xx < tw)
+    bottom = (yy >= S - th) | (xx >= S - tw)
+    mask = torch.where(u < 0.25, top, (u > 0.75) & bottom)
+    return torch.where(mask[..., None], 0.0, x)
+
+
+def _photometric_batch(generator, imgs, cfg: AugmentConfig):
+    """The corruption family on (B, S, S, 3) crops in [0, 255]."""
+    S = cfg.out_size
+    g = generator
+    imgs = _apply_subset(g, imgs, cfg.p_blur, lambda g, x: box_blur(x))
+    k = cfg.motion_blur_max_ksize
+    imgs = _apply_subset(g, imgs, cfg.p_blur_family * 0.5, lambda g, x: motion_blur(
+        x, *motion_blur_draw(g, x.shape[0], k), k))
+    imgs = _apply_subset(g, imgs, cfg.p_blur_family * 0.25, lambda g, x: median_blur3(x))
+    imgs = _apply_subset(g, imgs, cfg.p_blur_family * 0.25, lambda g, x: box_blur(x))
+
+    def add_noise(g, x):
+        sigma = _uniform(g, (x.shape[0], 1, 1, 1), 0.0, cfg.noise_sigma_max)
+        return x + torch.randn(x.shape, generator=g, device=g.device, dtype=torch.float32) * sigma
+
+    imgs = _apply_subset(g, imgs, cfg.p_noise, add_noise)
+    imgs = _apply_subset(g, imgs, cfg.p_jpeg, lambda g, x: jpeg_artifacts(
+        torch.clamp(x, 0.0, 255.0),
+        _uniform(g, (x.shape[0],), cfg.jpeg_quality_min, cfg.jpeg_quality_max)))
+    imgs = _apply_subset(g, imgs, cfg.p_iso, lambda g, x: iso_noise(
+        torch.clamp(x, 0.0, 255.0),
+        *iso_noise_draw(g, x.shape[0], S, cfg.iso_color_shift, cfg.iso_intensity)))
+
+    def cutout(g, x):
+        n, dev = x.shape[0], g.device
+        xy = torch.randint(0, S, (n, cfg.cutout_holes, 2), generator=g, device=dev)
+        wh = torch.randint(1, cfg.cutout_max, (n, cfg.cutout_holes, 2), generator=g, device=dev)
+        return _cutout(x, xy, wh)
+
+    imgs = _apply_subset(g, imgs, cfg.p_cutout, cutout)
+
+    def trunc(g, x):
+        n, dev = x.shape[0], g.device
+        hi = max(int(S * cfg.trunc_ratio), 1)
+        th = torch.randint(0, hi, (n,), generator=g, device=dev)
+        tw = torch.randint(0, hi, (n,), generator=g, device=dev)
+        return _truncate(x, th, tw, torch.rand(n, generator=g, device=dev, dtype=torch.float32))
+
+    imgs = _apply_subset(g, imgs, cfg.p_trunc, trunc)
+    return torch.clamp(imgs, 0.0, 255.0)
+
+
+def _axis_matrix(S: int, a, b, extent: int, cubic: bool):
+    """Dense (B, S, extent) interpolation matrices for the source
+    coordinates a * d + b, d = 0 .. S-1, with (B,) a and b. Taps outside
+    [0, extent) read zero (BORDER_CONSTANT)."""
+    d = torch.arange(S, dtype=torch.float32, device=a.device)
+    coords = a[:, None] * d + b[:, None]
+    base = torch.floor(coords)
+    t = coords - base
+    if cubic:
+        w = _cubic_weights(t)
+        offsets = (-1.0, 0.0, 1.0, 2.0)
+    else:
+        w = torch.stack([1.0 - t, t], dim=-1)
+        offsets = (0.0, 1.0)
+    taps = base[..., None] + torch.tensor(offsets, dtype=torch.float32, device=a.device)
+    w = w * ((taps >= 0) & (taps <= extent - 1))
+    idx = torch.clamp(taps, 0, extent - 1).to(torch.int64)
+    B = a.shape[0]
+    mat = torch.zeros(B, S * extent, dtype=torch.float32, device=a.device)
+    rows = torch.arange(S, device=a.device)[None, :, None] * extent
+    mat.scatter_add_(1, (rows + idx).reshape(B, -1), w.reshape(B, -1))
+    return mat.reshape(B, S, extent)
+
+
+@highest_precision()
+def augment_batch(generator, images, clip_bboxes, landmarks,
+                  cfg: AugmentConfig = AugmentConfig()):
+    """Augment a batch.
+
+    Args:
+        generator: a ``torch.Generator`` on the images' device.
+        images: (B, P, P, 3) uint8 canvases.
+        clip_bboxes: (B, 4) crop boxes [x1, y1, x2, y2] in canvas pixels.
+        landmarks: (B, K, 2) landmark pixels in canvas coordinates.
+    Returns:
+        (B, S, S, 3) ImageNet-normalised crops and (B, K, 2) keypoints in
+        [0, 1] crop coordinates (they may leave [0, 1]). The normalisation
+        constants take PyTorch's default dtype, as the JAX ones take float64
+        under x64.
+    """
+    if cfg.rotate_impl != "bmm":
+        raise NotImplementedError(
+            f"rotate_impl {cfg.rotate_impl!r} is not ported; only 'bmm' is")
+    g, dev = generator, images.device
+    B, H, W = images.shape[:3]
+    S = cfg.out_size
+    cubic = cfg.interp == "cubic"
+
+    # Separable flip / scale / shift / crop map per image: src = a * d + b.
+    bb = clip_bboxes.to(torch.float32)
+    x1, y1, x2, y2 = bb.unbind(-1)
+    w, h = x2 - x1, y2 - y1
+    cx, cy = (x1 + x2 - 1.0) / 2.0, (y1 + y2 - 1.0) / 2.0
+    do_flip = torch.rand(B, generator=g, device=dev) < cfg.p_hflip
+    do_aff = torch.rand(B, generator=g, device=dev) < cfg.p_affine
+    jitter = _uniform(g, (B,), -cfg.affine_scale_jitter, cfg.affine_scale_jitter)
+    scale = torch.where(do_aff, 1.0 + jitter, 1.0)
+    shift = _uniform(g, (B, 2), -1.0, 1.0) * cfg.affine_shift_jitter * torch.stack([w, h], -1)
+    shift = torch.where(do_aff[:, None], shift, 0.0)
+    a0x, a0y = w / S, h / S
+    ax = a0x / scale
+    bx = cx + (x1 + 0.5 * a0x - 0.5 - cx) / scale - shift[:, 0]
+    ay = a0y / scale
+    by = cy + (y1 + 0.5 * a0y - 0.5 - cy) / scale - shift[:, 1]
+    ax = torch.where(do_flip, -ax, ax)
+    bx = torch.where(do_flip, 2.0 * cx - bx, bx)
+
+    Wx = _axis_matrix(S, ax, bx, W, cubic)  # (B, S, W)
+    Wy = _axis_matrix(S, ay, by, H, cubic)  # (B, S, H)
+    tmp = torch.einsum("bsh,bhwc->bswc", Wy, images.to(torch.float32))
+    warped = torch.einsum("bxw,bswc->bsxc", Wx, tmp)
+    lm = landmarks.to(torch.promote_types(landmarks.dtype, torch.float32))
+    kp = torch.stack([(lm[..., 0] - bx[:, None]) / ax[:, None],
+                      (lm[..., 1] - by[:, None]) / ay[:, None]], dim=-1)
+
+    # Rotation of a fixed-count subset about the crop centre.
+    n_rot = int(round(cfg.p_rotate * B))
+    if n_rot > 0 and cfg.rotate_limit_deg > 0:
+        if cfg.rotate_limit_deg > 90.0:
+            raise NotImplementedError("rotations beyond 90 degrees are not ported")
+        idx = torch.randperm(B, generator=g, device=dev)[:n_rot]
+        thetas = _uniform(g, (n_rot,), -cfg.rotate_limit_deg,
+                          cfg.rotate_limit_deg) * (math.pi / 180.0)
+        warped = warped.index_copy(0, idx, rotate_shear3_bmm(warped[idx], thetas, cubic))
+        c = (S - 1.0) / 2.0
+        cos, sin = torch.cos(thetas)[:, None], torch.sin(thetas)[:, None]
+        rel = kp[idx] - c
+        kp = kp.index_copy(0, idx, torch.stack(
+            [cos * rel[..., 0] - sin * rel[..., 1] + c,
+             sin * rel[..., 0] + cos * rel[..., 1] + c], dim=-1))
+
+    out = _photometric_batch(g, warped, cfg)
+    mean = torch.tensor(IMAGENET_MEAN, device=dev)
+    std = torch.tensor(IMAGENET_STD, device=dev)
+    return (out / 255.0 - mean) / std, kp / S

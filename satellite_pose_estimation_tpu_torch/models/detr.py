@@ -4,8 +4,15 @@ Backbone feature map -> 1x1 input projection to hidden_dim -> transformer
 with learned query embeddings -> two heads on every decoder layer:
 ``cls_embed`` (Linear to num_keypoints + 1 classes) and ``point_embed``
 (3-layer MLP + sigmoid -> normalised (x, y)). Outputs 'pred_logits'
-(B, Q, 12), 'pred_points' (B, Q, 2) and 'aux_outputs' for every earlier
-decoder layer, all float32 whatever the model dtype.
+(B, Q, 12), 'pred_points' (B, Q, 2) and, with ``aux_loss``, 'aux_outputs'
+for every earlier decoder layer, all in the loss dtype (float32 for a bf16
+or float32 model, float64 for a float64 one).
+
+``module.training`` stands for the JAX model's ``train=True``: dropout is
+active in training mode. ``build_detr_model`` builds an eval model in one
+dtype; ``build_detr_train_model`` keeps the parameters float32 and leaves
+the compute dtype to ``torch.autocast`` (Flax's ``dtype=bf16`` means bf16
+compute on float32 parameters).
 """
 from __future__ import annotations
 
@@ -14,6 +21,7 @@ import dataclasses
 import torch
 from torch import nn
 
+from ..ops.precision import to_loss_dtype
 from .layers import MLP, conv2d, linear
 from .position_encoding import PositionEmbeddingSine
 from .resnet import Backbone8s
@@ -31,6 +39,7 @@ class DETRConfig:
     dropout: float = 0.1
     num_queries: int = 20
     num_keypoints: int = 11
+    aux_loss: bool = True
 
 
 class DETRKeypointModel(nn.Module):
@@ -63,14 +72,13 @@ class DETRKeypointModel(nn.Module):
         pos = self.pos_enc(h, w, device=src.device, dtype=src.dtype)
         hs, _ = self.transformer(src.flatten(2).transpose(1, 2), self.query_embed,
                                  pos.reshape(h * w, -1))
-        logits = self.cls_embed(hs).float()  # (L, B, Q, 12)
-        points = torch.sigmoid(self.point_embed(hs)).float()  # (L, B, Q, 2)
-        return {
-            "pred_logits": logits[-1],
-            "pred_points": points[-1],
-            "aux_outputs": [{"pred_logits": logits[i], "pred_points": points[i]}
-                            for i in range(logits.shape[0] - 1)],
-        }
+        logits = to_loss_dtype(self.cls_embed(hs))  # (L, B, Q, 12)
+        points = to_loss_dtype(torch.sigmoid(self.point_embed(hs)))  # (L, B, Q, 2)
+        out = {"pred_logits": logits[-1], "pred_points": points[-1]}
+        if self.config.aux_loss:
+            out["aux_outputs"] = [{"pred_logits": logits[i], "pred_points": points[i]}
+                                  for i in range(logits.shape[0] - 1)]
+        return out
 
 
 def build_detr_model(config: DETRConfig = DETRConfig(), seed: int = 0,
@@ -81,3 +89,12 @@ def build_detr_model(config: DETRConfig = DETRConfig(), seed: int = 0,
     generator = torch.Generator().manual_seed(seed)
     model = DETRKeypointModel(config, generator)
     return model.to(device=device, dtype=dtype).eval()
+
+
+def build_detr_train_model(config: DETRConfig = DETRConfig(), seed: int = 0,
+                           device="cpu") -> DETRKeypointModel:
+    """A DETR model with weights drawn from ``seed`` (on the CPU), float32
+    parameters on ``device``, in training mode. Run it under
+    ``torch.autocast`` for bf16 compute: AdamW steps of lr 1e-5 would vanish
+    in bf16 weights."""
+    return build_detr_model(config, seed, device, torch.float32).train()

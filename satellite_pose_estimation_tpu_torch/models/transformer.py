@@ -2,7 +2,10 @@
 
 Post-norm layers, LayerNorm eps 1e-5, positional embeddings added to q/k
 only, and one shared ``decoder_norm`` applied to every decoder
-intermediate. Sequences are (B, T, C).
+intermediate. Sequences are (B, T, C). ``module.training`` stands for the
+JAX layers' ``deterministic=False``: dropout sits where the JAX layers put
+it (on the attention weights of the plain core, after the FFN activation,
+and on each residual branch).
 """
 from __future__ import annotations
 
@@ -16,7 +19,8 @@ from .layers import linear
 class _Attention(nn.Module):
     """Multi-head attention with a selectable core:
 
-    * ``fused`` — ops/fused_attention.py (the CUDA kernel on a GPU);
+    * ``fused`` — ops/fused_attention.py (on a GPU, K1 forward and K2
+      backward);
     * ``plain`` — einsum / softmax in the model dtype, with attention-weight
       dropout and an optional mask.
 

@@ -8,6 +8,12 @@
 * ``upsample_bilinear_align_corners`` — torch ``UpsamplingBilinear2d``
   semantics as two dense per-axis matmuls whose weights take the input's
   dtype, as the JAX version does.
+* ``rotate_shear3_bmm`` — the train-time rotation of a batch of crops about
+  their centres, as the Paeth three-shear decomposition with the JAX
+  version's widened canvas and cv2 ``BORDER_CONSTANT`` taps. The JAX version
+  writes each shear as a dense per-row matrix product (a TPU form); here each
+  output sample gathers its 2 (bilinear) or 4 (cubic) taps, which are the
+  only non-zero entries of that matrix.
 """
 from __future__ import annotations
 
@@ -97,6 +103,60 @@ def crop_resize_cubic_mxu(image, clip_bbox, out_size=256, normalize=True):
         std = torch.tensor(IMAGENET_STD, dtype=out.dtype, device=out.device)
         out = (out / 255.0 - mean) / std
     return out
+
+
+def _shear_weights(d, cubic: bool):
+    """Interpolation weight of a tap at signed distance ``d``: the bilinear
+    tent or cv2's INTER_CUBIC Keys kernel (a = -0.75), in the JAX
+    ``_shear_rows_bmm`` form."""
+    ad = torch.abs(d)
+    if not cubic:
+        return torch.clamp(1.0 - ad, 0.0, 1.0)
+    a = -0.75
+    near = (a + 2.0) * ad ** 3 - (a + 3.0) * ad ** 2 + 1.0
+    far = a * ad ** 3 - 5.0 * a * ad ** 2 + 8.0 * a * ad - 4.0 * a
+    return torch.where(ad <= 1.0, near, torch.where(ad < 2.0, far, 0.0))
+
+
+def _shear_rows_bmm(im, shifts, out_w: int, cubic: bool):
+    """Per-row fractional shift of (N, R, Win, C) rows by ``shifts`` (N, R):
+    out[n, r, x] = sum_w K(x + shifts[n, r] - w) * im[n, r, w], taps outside
+    [0, Win) reading zero. Returns (N, R, out_w, C) float32."""
+    N, R, in_w, C = im.shape
+    x = torch.arange(out_w, dtype=torch.float32, device=im.device)
+    src = x + shifts[..., None]  # (N, R, out_w)
+    offsets = (-1.0, 0.0, 1.0, 2.0) if cubic else (0.0, 1.0)
+    taps = torch.floor(src)[..., None] + torch.tensor(offsets, dtype=torch.float32,
+                                                      device=im.device)
+    w = _shear_weights(src[..., None] - taps, cubic)
+    w = w * ((taps >= 0) & (taps <= in_w - 1))
+    idx = torch.clamp(taps, 0, in_w - 1).to(torch.int64)
+    idx = idx.reshape(N, R, -1, 1).expand(-1, -1, -1, C)
+    vals = torch.gather(im, 2, idx).reshape(N, R, out_w, len(offsets), C)
+    return (w[..., None] * vals).sum(dim=3)
+
+
+def rotate_shear3_bmm(image, theta, cubic: bool = False):
+    """Rotate (N, S, S, C) crops about their centre (S-1)/2 by ``theta`` (N,)
+    radians, |theta| <= pi/2, in the direction of the keypoint map
+    kp' = R(theta)(kp - c) + c: R(t) = Shx(a) Shy(b) Shx(a) with
+    a = -tan(t/2), b = sin(t), on a canvas widened to S + 2 * ceil(S/2) so
+    that nothing landing in the output is clipped. Returns float32."""
+    N, S = image.shape[0], image.shape[1]
+    img = image.to(torch.float32)
+    theta = theta.to(torch.float32)
+    c = (S - 1.0) / 2.0
+    a = -torch.tan(theta / 2.0)[:, None]
+    b = torch.sin(theta)[:, None]
+    pad = (S + 1) // 2
+    Wp = S + 2 * pad
+    y = torch.arange(S, dtype=torch.float32, device=img.device)
+    xp = torch.arange(Wp, dtype=torch.float32, device=img.device)
+
+    out1 = _shear_rows_bmm(img, -pad - a * (y - c), Wp, cubic)  # (N, S, Wp, C)
+    out2 = _shear_rows_bmm(out1.transpose(1, 2), -b * (xp - (c + pad)), S,
+                           cubic).transpose(1, 2)  # (N, S, Wp, C)
+    return _shear_rows_bmm(out2, pad - a * (y - c), S, cubic)  # (N, S, S, C)
 
 
 def _align_corners_matrix(n_in: int, n_out: int) -> np.ndarray:

@@ -1,38 +1,127 @@
-"""Eval step (counterpart of train/steps.py ``make_eval_step``).
+"""Train and eval steps (counterpart of train/steps.py).
 
-warp -> model -> softmax / pixel de-normalisation -> batched PnP -> SPEED
-scores, all on the tensors' device, with no host round trip.
+Train: augment -> model (training mode) -> set criterion -> backward ->
+global-norm clip -> AdamW step and schedule -> EMA. Eval: warp -> model ->
+softmax / pixel de-normalisation -> batched PnP -> SPEED scores (and, with a
+criterion, the eval losses). Everything runs on the tensors' device with no
+host round trip.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
+from ..data.augment import AugmentConfig, augment_batch
 from ..geometry.camera import WORLD_POINTS
 from ..geometry.scoring import speed_score_batch
 from ..geometry.solvers import SolverConfig, solve_pose_simple
+from ..losses.criterion import CriterionConfig, set_criterion
 from ..ops.image_warp import crop_resize_cubic_mxu
+from .ema import ema_update
+from .state import TrainConfig, TrainState, clip_by_global_norm_
 
 
-def make_eval_step(out_size: int = 256, solver: str = "simple",
-                   solver_cfg: SolverConfig = SolverConfig()):
-    """Build ``eval_step(model, batch) -> dict``.
+def make_train_step(criterion_cfg: CriterionConfig, train_cfg: TrainConfig,
+                    augment_cfg: AugmentConfig = AugmentConfig(),
+                    axis_name: Optional[str] = None,
+                    use_pallas_augment: bool = False,
+                    denoising: bool = False,
+                    compute_dtype: Optional[torch.dtype] = None):
+    """Build ``train_step(state, batch, generator, on_stage=None) -> losses``.
+
+    Batch dict (tensors on one device): image (B,P,P,3) uint8 canvases,
+    clip_bbox_buf (B,4), landmarks_buf (B,K,2), labels (B,K). ``generator``
+    is a ``torch.Generator`` on that device and drives the augmentation.
+    ``compute_dtype`` (e.g. ``torch.bfloat16``) runs the model under
+    ``torch.autocast`` on float32 parameters; None computes in the
+    parameters' dtype. The state is updated in place; the returned losses
+    are detached tensors (no host synchronisation).
+    """
+    if axis_name is not None:
+        raise NotImplementedError("data-parallel training (axis_name) is not ported")
+    if use_pallas_augment:
+        raise NotImplementedError("the fused photometric kernel (use_pallas_augment) "
+                                  "is not ported")
+    if denoising:
+        raise NotImplementedError("RT-DETR denoising training is not ported")
+
+    def train_step(state: TrainState, batch, generator, on_stage=None):
+        """``on_stage(name)``, if given, is called as each stage ends
+        (augment, forward, loss, backward, optimizer), e.g. to record a CUDA
+        event for a per-stage breakdown."""
+        mark = on_stage or (lambda name: None)
+        model = state.model
+        images, kp_norm = augment_batch(generator, batch["image"], batch["clip_bbox_buf"],
+                                        batch["landmarks_buf"], augment_cfg)
+        targets = {"labels": batch["labels"], "landmarks": kp_norm}
+        mark("augment")
+        model.train()
+        if compute_dtype is None:
+            images = images.to(next(model.parameters()).dtype)
+        with torch.autocast(images.device.type, dtype=compute_dtype,
+                            enabled=compute_dtype is not None):
+            outputs = model(images)
+        mark("forward")
+        total, losses = set_criterion(outputs, targets, criterion_cfg)
+        mark("loss")
+
+        state.optimizer.zero_grad(set_to_none=True)
+        total.backward()
+        mark("backward")
+        clip_by_global_norm_(model.parameters(), train_cfg.clip_max_norm)
+        state.optimizer.step()
+        state.scheduler.step()
+        if state.ema is not None:
+            ema_update(state.ema, model, state.step, train_cfg.ema_decay,
+                       tau=train_cfg.ema_warmups)
+        state.step += 1
+        mark("optimizer")
+        return {k: v.detach() for k, v in losses.items()}
+
+    return train_step
+
+
+def make_eval_step(criterion_cfg: Optional[CriterionConfig] = None,
+                   solver_cfg: SolverConfig = SolverConfig(),
+                   out_size: int = 256, solver: str = "simple",
+                   use_ema: bool = False):
+    """Build ``eval_step(model_or_state, batch) -> dict``.
 
     Batch dict: image (B,P,P,3) uint8 canvases, clip_bbox_buf (B,4) crop
     boxes in canvas pixels, clip_bbox (B,4) the same boxes in original
     image pixels, plus quat_gt (B,4) / tvec_gt (B,3) when ground truth is
-    available. Returns quat_pr, tvec_pr, valid, points, probs, sigmas
-    (ones), aux_points_<i> (raw aux-layer logits, the JAX eval-log
-    contract) and, with ground truth, score_tvec / score_quat / score.
+    available and landmarks_buf (B,K,2) / labels (B,K) for the eval losses.
+    Returns quat_pr, tvec_pr, valid, points, probs, sigmas (ones),
+    aux_points_<i> (raw aux-layer logits, the JAX eval-log contract), with
+    ground truth score_tvec / score_quat / score, and with ``criterion_cfg``
+    and landmarks ``eval_losses`` (loss_total and the criterion's dict).
+
+    Given a ``TrainState``, the step evaluates its model, with
+    ``use_ema`` on the EMA shadow (parameters and buffers) cast to the
+    model's dtype. The model runs in eval mode.
     """
     if solver != "simple":
         raise NotImplementedError(f"solver {solver!r} is not ported; only 'simple' is")
 
     @torch.inference_mode()
-    def eval_step(model, batch):
+    def eval_step(model_or_state, batch):
+        state = model_or_state if isinstance(model_or_state, TrainState) else None
+        model = state.model if state is not None else model_or_state
         images = crop_resize_cubic_mxu(batch["image"], batch["clip_bbox_buf"],
                                        out_size, True)
         dtype = next(model.parameters()).dtype
-        outputs = model(images.to(dtype))
+        images = images.to(dtype)
+        was_training = model.training
+        model.eval()
+        try:
+            if use_ema and state is not None and state.ema is not None:
+                weights = {k: v.to(dtype) for k, v in state.ema.items()}
+                outputs = torch.func.functional_call(model, weights, (images,))
+            else:
+                outputs = model(images)
+        finally:
+            model.train(was_training)
 
         probs = torch.softmax(outputs["pred_logits"], dim=-1)
         pts = outputs["pred_points"]  # (B, Q, 2) normalised to the crop
@@ -40,7 +129,7 @@ def make_eval_step(out_size: int = 256, solver: str = "simple",
         wh = clip[:, 2:4] - clip[:, 0:2]
         pts_pix = pts * wh[:, None, :] + clip[:, None, 0:2]
 
-        world = torch.as_tensor(WORLD_POINTS, dtype=torch.float32, device=pts.device)
+        world = torch.as_tensor(WORLD_POINTS, dtype=pts_pix.dtype, device=pts.device)
         quat, tvec, valid = solve_pose_simple(world, pts_pix, probs, solver_cfg)
         result = {
             "quat_pr": quat,
@@ -54,6 +143,13 @@ def make_eval_step(out_size: int = 256, solver: str = "simple",
             result[f"aux_points_{i}"] = aux["pred_logits"]
         if "quat_gt" in batch:
             result.update(speed_score_batch(quat, tvec, batch["quat_gt"], batch["tvec_gt"]))
+        if criterion_cfg is not None and "landmarks_buf" in batch:
+            bb = batch["clip_bbox_buf"]
+            kp_norm = (batch["landmarks_buf"] - bb[:, None, 0:2]) / (
+                bb[:, None, 2:4] - bb[:, None, 0:2])
+            total, losses = set_criterion(
+                outputs, {"labels": batch["labels"], "landmarks": kp_norm}, criterion_cfg)
+            result["eval_losses"] = {"loss_total": total, **losses}
         return result
 
     return eval_step

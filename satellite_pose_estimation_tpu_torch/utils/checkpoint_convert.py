@@ -2,7 +2,8 @@
 
 ``flax_detr_to_state_dict(params, batch_stats)`` takes the JAX model's
 ``params`` and ``batch_stats`` trees as nested dicts of numpy arrays (no
-JAX types) and returns a ``state_dict`` for
+JAX types) and returns a ``state_dict`` (CPU tensors of the arrays' float
+dtype) for
 ``models.detr.DETRKeypointModel``. The port's modules carry the JAX module
 names, so each leaf maps by its path; only the layouts change:
 
@@ -52,12 +53,13 @@ def _convert_param(path, x):
 
 def flax_detr_to_state_dict(params: dict, batch_stats: dict | None = None) -> dict:
     """JAX DETR ``params`` / ``batch_stats`` (nested dicts of numpy arrays)
-    -> the port's ``state_dict`` (float32 CPU tensors)."""
+    -> the port's ``state_dict`` (CPU tensors, each of its array's dtype:
+    float32 for the JAX model's parameters, float64 for a float64 tree)."""
     state = {}
     for path, x in _leaves(params):
         name, y = _convert_param(path, x)
-        state[".".join(path[:-1] + (name,))] = torch.tensor(y, dtype=torch.float32)
+        state[".".join(path[:-1] + (name,))] = torch.tensor(y)
     for path, x in _leaves(batch_stats or {}):
         name = _STAT_NAMES[path[-1]]
-        state[".".join(path[:-1] + (name,))] = torch.tensor(x, dtype=torch.float32)
+        state[".".join(path[:-1] + (name,))] = torch.tensor(x)
     return state

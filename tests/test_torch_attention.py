@@ -1,14 +1,18 @@
-"""PyTorch port, ops/fused_attention.py: the plain attention against the JAX
-reference and the Pallas kernel (interpret mode), and the CPU routing of
-the wrapper. The CUDA kernel itself is tested in test_torch_cuda.py."""
+"""PyTorch port, ops/fused_attention.py: the plain attention and its plain
+backward against the JAX reference, the Pallas kernels (interpret mode) and
+jax.vjp, the CPU routing of the wrapper and the autograd Function. The CUDA
+kernels themselves are tested in test_torch_cuda.py."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from satellite_pose_estimation_tpu.ops.fused_attention import (
+    _bwd_tpu,
     _fused_tpu,
     _reference_attention,
+    fused_self_attention,
 )
 from satellite_pose_estimation_tpu_torch.ops import fused_attention as fa
 
@@ -88,3 +92,107 @@ def test_find_nvcc_raises_without_a_toolkit(tmp_path, monkeypatch):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         cuda_build.find_nvcc()
+
+
+# -- the backward: attention_plain_bwd and the autograd Function ---------------
+
+def _qkvg(seed, T, dtype=np.float32):
+    rng = np.random.RandomState(seed)
+    return [rng.randn(2, 4, T, 32).astype(dtype) for _ in range(4)]
+
+
+# bf16 roundings of q*s, g, p and ds happen at the same places on both
+# sides; the float32 sums run in another order -> one bf16 ulp of the
+# largest gradient (2**-7 relative).
+BWD_TOL = {np.float32: 1e-5, jnp.bfloat16: 8e-3}
+
+
+@pytest.mark.parametrize("dtype", [np.float32, jnp.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("T", [49, 96])
+def test_plain_bwd_matches_pallas_bwd_kernel_interpret(T, dtype):
+    arrays = _qkvg(200 + T, T)
+    scale = 1.0 / np.sqrt(32)
+    ref = _bwd_tpu(*(jnp.asarray(a, dtype) for a in arrays), scale, interpret=True)
+    tdtype = torch.float32 if dtype is np.float32 else torch.bfloat16
+    out = fa.attention_plain_bwd(*(t.to(tdtype) for t in _torch(*arrays)), scale)
+    for o, r in zip(out, ref):
+        assert o.dtype == tdtype
+        r = np.asarray(r, np.float32)
+        tol = BWD_TOL[dtype] * (1.0 + np.abs(r).max())
+        np.testing.assert_allclose(o.float().numpy(), r, rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, jnp.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("T", [49, 96])
+def test_plain_bwd_matches_jax_vjp(T, dtype):
+    """Against jax.vjp of the JAX fused_self_attention, whose CPU backward
+    recomputes the attention in the input dtype: float32 to 1e-5, bf16 to
+    the bf16 rounding of its scores and probabilities (4e-2 of the largest
+    gradient; the port keeps the TPU kernel's float32 scores)."""
+    q, k, v, g = _qkvg(300 + T, T)
+    scale = 1.0 / np.sqrt(32)
+    _, vjp = jax.vjp(lambda a, b, c: fused_self_attention(a, b, c, scale),
+                     *(jnp.asarray(a, dtype) for a in (q, k, v)))
+    ref = vjp(jnp.asarray(g, dtype))
+    tdtype = torch.float32 if dtype is np.float32 else torch.bfloat16
+    out = fa.attention_plain_bwd(*(t.to(tdtype) for t in _torch(q, k, v, g)), scale)
+    tol = 1e-5 if dtype is np.float32 else 4e-2
+    for o, r in zip(out, ref):
+        r = np.asarray(r, np.float32)
+        np.testing.assert_allclose(o.float().numpy(), r, rtol=0,
+                                   atol=tol * (1.0 + np.abs(r).max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_function_gradients_match_autograd_through_plain(dtype):
+    """The Function's backward (attention_plain_bwd on the CPU) against
+    autograd through attention_plain: the same math in another order
+    (float32: 1e-5; float64, whose forward rounds to float32: 1e-6)."""
+    arrays = _torch(*_qkvg(7, 64))
+    q, k, v = (t.to(dtype).requires_grad_() for t in arrays[:3])
+    q2, k2, v2 = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    g = arrays[3].to(dtype)
+    before = fa.bwd_launch_count
+    fa.fused_self_attention(q, k, v, 0.2).backward(g)
+    fa.attention_plain(q2, k2, v2, 0.2).backward(g)
+    assert fa.bwd_launch_count == before
+    tol = 1e-5 if dtype == torch.float32 else 1e-6
+    for a, b in ((q, q2), (k, k2), (v, v2)):
+        assert a.grad.dtype == dtype
+        torch.testing.assert_close(a.grad, b.grad, rtol=tol, atol=tol)
+
+
+def test_kernel_branch_carries_a_gradient(monkeypatch):
+    """The fault this Function repairs: a kernel launch fills a fresh
+    buffer outside autograd, so without the Function q, k and v get no
+    gradient and nothing raises. Here the K1 launch is faked by
+    attention_plain under no_grad (as a ctypes launch behaves) and CPU
+    tensors are routed through the kernel branch: the fake alone carries
+    no graph, while fused_self_attention's result does, and its backward
+    goes through the K2 branch."""
+    calls = []
+
+    def fake_fwd(q, k, v, s):
+        with torch.no_grad():
+            return fa.attention_plain(q, k, v, s)
+
+    def fake_bwd(q, k, v, g, s):
+        calls.append(g.shape)
+        return fa.attention_plain_bwd(q, k, v, g, s)
+
+    monkeypatch.setattr(fa, "_use_kernel", lambda t: True)
+    monkeypatch.setattr(fa, "_launch_fwd", fake_fwd)
+    monkeypatch.setattr(fa, "_launch_bwd", fake_bwd)
+    q, k, v, g = _torch(*_qkvg(8, 49))
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+
+    unwrapped = fake_fwd(q, k, v, 0.2)
+    assert unwrapped.grad_fn is None  # the fault: no path back to q, k, v
+
+    out = fa.fused_self_attention(q, k, v, 0.2)
+    out.backward(g)
+    assert calls == [g.shape]
+    ref = fa.attention_plain_bwd(q.detach(), k.detach(), v.detach(), g, 0.2)
+    for t, r in zip((q, k, v), ref):
+        assert t.grad is not None
+        torch.testing.assert_close(t.grad, r, rtol=0, atol=0)
