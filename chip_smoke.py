@@ -5,9 +5,10 @@
 
 Run from the repository root on a machine with a CUDA GPU (an H100 is the
 target). It builds the port's CUDA kernels from ``satellite_pose_estimation
-_tpu_torch/csrc`` with nvcc (K1, the fused attention forward, and K2, its
-backward, in parallel), then runs eight phases and exits non-zero if any
-fails:
+_tpu_torch/csrc`` with nvcc (K1, the fused attention forward; K2, its
+backward; K3, the rotation; K4, the fused photometric chain; K5, flash
+attention -- one nvcc per source, all started together), then runs eleven
+phases and exits non-zero if any fails:
 
 1. the card's name and power limit, and the kernel build time;
 2. the fused-attention kernel against its plain PyTorch version, bf16 and
@@ -37,7 +38,28 @@ fails:
 8. train-step throughput at batch 64 (median, min and max of 3 windows),
    a per-stage device breakdown and a profile of one step, and K2's time
    against the plain backward's at the main-path shape (64, 8, 784, 32)
-   bf16.
+   bf16;
+9. K3, K4 and K5 against their plain versions: K3 at S = 224 and 49,
+   bilinear and cubic, angles 0, +-0.52, +-1.3, +-1.57; K4 with host noise
+   under every flag combination, and seeded (the same for one seed,
+   another for another seed, equal to the plain version on the PyTorch
+   Philox stream, and noise of mean 0 / std 1 with uncorrelated channels
+   over (64, 224, 224, 3)); K5's forward and backward, bf16 and float32, at
+   (8, 8, T, 32) for T = 784, 49 and 4096;
+10. the full-width train slice on the off-default routes, batch 64 bf16:
+   run A with ``rotate_impl="pallas"`` and ``use_flash_attention=True``
+   (K3 once a step, K5 forward and backward once per encoder layer and
+   step, no K1 / K2), run B with ``use_pallas_augment=True`` (K4 once a
+   step, K1 and K2 once per encoder layer and step): finite losses, the
+   loss falling over 10 steps on one fixed batch, and each run's median
+   img/s over 3 windows;
+11. eval with ``use_flash_attention=True`` at batch 256: K5 launched once
+   per encoder layer and step, the float32 flash model on the card against
+   the float32 fused (K1) model of the same weights, and the median img/s;
+   then each new kernel's time against its plain version at its main-path
+   shape: K3 at (26, 224, 224, 3) bilinear, K4 at (64, 224, 224, 3), K5's
+   forward at (256, 8, 784, 32) and its backward at (64, 8, 784, 32) bf16
+   (both padded to 896 tokens, as the main path pads them).
 
 Its last two lines are a JSON object describing the kernels and
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 1 and
@@ -86,6 +108,92 @@ def max_err(a, b):
     return (a.float() - b.float()).abs().max().item()
 
 
+def timed_pair(torch, kernel, plain, iters=10):
+    """Median device ms of ``kernel`` and ``plain`` over runs in the order
+    plain, kernel, kernel, plain (each warmed up once)."""
+    timings = {"plain": [], "kernel": []}
+    for name in ("plain", "kernel", "kernel", "plain"):
+        fn = kernel if name == "kernel" else plain
+        fn()
+        timings[name].append(cuda_ms(fn, iters, torch))
+    return statistics.median(timings["kernel"]), statistics.median(timings["plain"]), timings
+
+
+def stage_spans(torch, step, state, batches, gen):
+    """Median ms between the train step's stage ends (CUDA events), one
+    step per batch, as a printable line."""
+    names = ("augment", "forward", "loss", "backward", "optimizer")
+    per_stage = {n: [] for n in names}
+    for b in batches:
+        events = [torch.cuda.Event(enable_timing=True)]
+        events[0].record()
+
+        def mark(name):
+            events.append(torch.cuda.Event(enable_timing=True))
+            events[-1].record()
+
+        step(state, b, gen, on_stage=mark)
+        torch.cuda.synchronize()
+        for n, e0, e1 in zip(names, events, events[1:]):
+            per_stage[n].append(e0.elapsed_time(e1))
+    return ", ".join(f"{n} {statistics.median(v):.3f} ms" for n, v in per_stage.items())
+
+
+def _kernel_modules():
+    from satellite_pose_estimation_tpu_torch.ops import (
+        flash_attention,
+        fused_attention,
+        pallas_augment,
+        pallas_rotate,
+    )
+    return fused_attention, pallas_rotate, pallas_augment, flash_attention
+
+
+def zero_counts():
+    """Set every kernel's launch count to 0."""
+    fa, pr, pa, fl = _kernel_modules()
+    fa.launch_count = fa.bwd_launch_count = pr.launch_count = pa.launch_count = 0
+    fl.launch_count = fl.bwd_launch_count = 0
+
+
+def counts():
+    """Every kernel's launch count: K1, K2, K3, K4, K5 forward and backward."""
+    fa, pr, pa, fl = _kernel_modules()
+    return {"k1": fa.launch_count, "k2": fa.bwd_launch_count, "k3": pr.launch_count,
+            "k4": pa.launch_count, "k5": fl.launch_count, "k5_bwd": fl.bwd_launch_count}
+
+
+def expected(**nonzero):
+    """A launch-count dict with the given counts and 0 for every other kernel."""
+    return {**{k: 0 for k in ("k1", "k2", "k3", "k4", "k5", "k5_bwd")}, **nonzero}
+
+
+def eval_batch(torch, dev, n, gen, pack=256):
+    """An eval batch of ``n`` random 256 x 256 uint8 canvases with fixed
+    crop boxes and an identity ground-truth pose."""
+    return {
+        "image": torch.randint(0, 256, (n, pack, pack, 3), generator=gen,
+                               device=dev, dtype=torch.uint8),
+        "clip_bbox_buf": torch.tensor([[8.0, 8.0, 248.0, 248.0]], device=dev).repeat(n, 1),
+        "clip_bbox": torch.tensor([[700.0, 400.0, 1100.0, 800.0]], device=dev).repeat(n, 1),
+        "quat_gt": torch.tensor([[1.0, 0.0, 0.0, 0.0]], device=dev).repeat(n, 1),
+        "tvec_gt": torch.tensor([[0.0, 0.0, 12.0]], device=dev).repeat(n, 1),
+    }
+
+
+def train_batch(torch, dev, n, gen, pack=256):
+    """A train batch of ``n`` random 256 x 256 uint8 canvases with crop
+    boxes of 200-231 px and 11 landmarks inside them."""
+    off = torch.randint(0, 24, (n, 2), generator=gen, device=dev).float()
+    side = 200.0 + torch.randint(0, 32, (n, 1), generator=gen, device=dev).float()
+    bb = torch.cat([off, off + side], dim=1)
+    lm = bb[:, None, :2] + torch.rand(n, 11, 2, generator=gen, device=dev) * side[:, None]
+    return {"image": torch.randint(0, 256, (n, pack, pack, 3), generator=gen, device=dev,
+                                   dtype=torch.uint8),
+            "clip_bbox_buf": bb, "landmarks_buf": lm,
+            "labels": torch.arange(11, device=dev).repeat(n, 1)}
+
+
 def main() -> int:
     import torch
 
@@ -111,11 +219,15 @@ def main() -> int:
     log(f"card: {card}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.device_count()} device(s)")
+    _, pr, pa, fl = _kernel_modules()
+    loaders = [fa.load_library, fa.load_bwd_library, pr.load_library, pa.load_library,
+               fl.load_library]
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:  # one nvcc per source, started together
-        for f in [pool.submit(fa.load_library), pool.submit(fa.load_bwd_library)]:
+    with ThreadPoolExecutor(len(loaders)) as pool:  # one nvcc per source, started together
+        for f in [pool.submit(load) for load in loaders]:
             f.result()
-    log(f"phase 1 ok: K1 and K2 built and loaded in {time.perf_counter() - t0:.2f} s")
+    log(f"phase 1 ok: K1, K2, K3, K4 and K5 built and loaded in "
+        f"{time.perf_counter() - t0:.2f} s")
 
     # -- 2. kernel against its plain version ---------------------------------
     sm_scale = 32 ** -0.5
@@ -143,24 +255,17 @@ def main() -> int:
     eval_step = make_eval_step(out_size=size, solver="simple")
 
     def make_batch(B, gen):
-        return {
-            "image": torch.randint(0, 256, (B, pack, pack, 3), generator=gen,
-                                   device=dev, dtype=torch.uint8),
-            "clip_bbox_buf": torch.tensor([[8.0, 8.0, 248.0, 248.0]], device=dev).repeat(B, 1),
-            "clip_bbox": torch.tensor([[700.0, 400.0, 1100.0, 800.0]], device=dev).repeat(B, 1),
-            "quat_gt": torch.tensor([[1.0, 0.0, 0.0, 0.0]], device=dev).repeat(B, 1),
-            "tvec_gt": torch.tensor([[0.0, 0.0, 12.0]], device=dev).repeat(B, 1),
-        }
+        return eval_batch(torch, dev, B, gen, pack)
 
     batches = [make_batch(32, g) for _ in range(3)]
     torch.cuda.synchronize()
-    fa.launch_count = 0
+    zero_counts()
     results = [eval_step(model, b) for b in batches]
     torch.cuda.synchronize()
-    main_path_launches = fa.launch_count
-    log(f"  K1 launches in 3 eval steps: {main_path_launches} "
-        f"(expected {cfg.enc_layers} x 3)")
-    require(main_path_launches == cfg.enc_layers * 3, "K1 launch count")
+    seen = counts()
+    main_path_launches = seen["k1"]
+    log(f"  launches in 3 eval steps: {seen} (expected K1 {cfg.enc_layers} x 3, no other)")
+    require(seen == expected(k1=cfg.enc_layers * 3), "eval launch counts")
     shapes = {"quat_pr": (32, 4), "tvec_pr": (32, 3), "valid": (32,),
               "points": (32, 20, 2), "probs": (32, 20, 12), "score": (32,)}
     for res in results:
@@ -264,28 +369,24 @@ def main() -> int:
     log(f"  K1 (256,8,784,32) bf16: max|kernel-plain| = {k1_err:.3e} (tolerance {bound:.3e})")
     require(k1_err <= bound, "K1 disagrees with plain at the main-path shape")
     del out, ref
-    timings = {"plain": [], "kernel": []}
-    for name in ("plain", "kernel", "kernel", "plain"):
-        fn = (lambda: fa.attention_plain(*qkv, sm_scale)) if name == "plain" else \
-             (lambda: fa.fused_self_attention(*qkv, sm_scale))
-        fn()
-        timings[name].append(cuda_ms(fn, 10, torch))
-    k1_ms = statistics.median(timings["kernel"])
-    plain_ms = statistics.median(timings["plain"])
+    k1_ms, plain_ms, timings = timed_pair(torch, lambda: fa.fused_self_attention(*qkv, sm_scale),
+                                          lambda: fa.attention_plain(*qkv, sm_scale))
     log(f"  K1 (256,8,784,32) bf16: kernel {k1_ms:.3f} ms, plain {plain_ms:.3f} ms "
         f"(runs plain, kernel, kernel, plain: {timings}) on {card}")
     log("phase 5 ok")
     del pool, qkv, model
 
     train = train_phases(torch, card, dev, g, sm_scale)
+    routes = route_phases(torch, card, dev, g, sm_scale)
 
     log(json.dumps({"kernels": [{
         "name": "fused_attention",
         "route": "cuda",
         "source": "satellite_pose_estimation_tpu_torch/csrc/fused_attention.cu",
         "replaces": "satellite_pose_estimation_tpu/ops/fused_attention.py:31",
-        "launches": main_path_launches + train["k1_launches"],
-        "launches_by_path": {"eval": main_path_launches, "train": train["k1_launches"]},
+        "launches": main_path_launches + train["k1_launches"] + routes["b"]["k1"],
+        "launches_by_path": {"eval": main_path_launches, "train": train["k1_launches"],
+                             "train_pallas_augment": routes["b"]["k1"]},
         "max_abs_err": k1_err,
         "ms": k1_ms,
         "plain_ms": plain_ms,
@@ -294,11 +395,47 @@ def main() -> int:
         "route": "cuda",
         "source": "satellite_pose_estimation_tpu_torch/csrc/fused_attention_bwd.cu",
         "replaces": "satellite_pose_estimation_tpu/ops/fused_attention.py:141",
-        "launches": train["k2_launches"],
-        "launches_by_path": {"train": train["k2_launches"]},
+        "launches": train["k2_launches"] + routes["b"]["k2"],
+        "launches_by_path": {"train": train["k2_launches"],
+                             "train_pallas_augment": routes["b"]["k2"]},
         "max_abs_err": train["k2_err"],
         "ms": train["k2_ms"],
         "plain_ms": train["k2_plain_ms"],
+    }, {
+        "name": "rotate_shear3",
+        "route": "cuda",
+        "source": "satellite_pose_estimation_tpu_torch/csrc/rotate_shear3.cu",
+        "replaces": "satellite_pose_estimation_tpu/ops/pallas_rotate.py:90",
+        "launches": routes["a"]["k3"],
+        "launches_by_path": {"train_rotate_pallas_flash": routes["a"]["k3"]},
+        **routes["times"]["k3"],
+    }, {
+        "name": "fused_photometric",
+        "route": "cuda",
+        "source": "satellite_pose_estimation_tpu_torch/csrc/fused_photometric.cu",
+        "replaces": "satellite_pose_estimation_tpu/ops/pallas_augment.py:33",
+        "launches": routes["b"]["k4"],
+        "launches_by_path": {"train_pallas_augment": routes["b"]["k4"]},
+        **routes["times"]["k4"],
+    }, {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "satellite_pose_estimation_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "satellite_pose_estimation_tpu/ops/flash_attention.py:27",
+        "stock_kernel": "jax/experimental/pallas/ops/tpu/flash_attention.py:331",
+        "launches": routes["a"]["k5"] + routes["eval_k5"],
+        "launches_by_path": {"train_rotate_pallas_flash": routes["a"]["k5"],
+                             "eval_flash": routes["eval_k5"]},
+        **routes["times"]["k5"],
+    }, {
+        "name": "flash_attention_bwd",
+        "route": "cuda",
+        "source": "satellite_pose_estimation_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "satellite_pose_estimation_tpu/ops/flash_attention.py:27",
+        "stock_kernel": "jax/experimental/pallas/ops/tpu/flash_attention.py:941",
+        "launches": routes["a"]["k5_bwd"],
+        "launches_by_path": {"train_rotate_pallas_flash": routes["a"]["k5_bwd"]},
+        **routes["times"]["k5_bwd"],
     }]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",
@@ -361,14 +498,7 @@ def train_phases(torch, card, dev, g, sm_scale):
                            p_iso=0.0, p_cutout=0.0, p_trunc=0.0)
 
     def make_batch(n, gen):
-        off = torch.randint(0, 24, (n, 2), generator=gen, device=dev).float()
-        side = 200.0 + torch.randint(0, 32, (n, 1), generator=gen, device=dev).float()
-        bb = torch.cat([off, off + side], dim=1)
-        lm = bb[:, None, :2] + torch.rand(n, 11, 2, generator=gen, device=dev) * side[:, None]
-        return {"image": torch.randint(0, 256, (n, pack, pack, 3), generator=gen, device=dev,
-                                       dtype=torch.uint8),
-                "clip_bbox_buf": bb, "landmarks_buf": lm,
-                "labels": torch.arange(11, device=dev).repeat(n, 1)}
+        return train_batch(torch, dev, n, gen, pack)
 
     state = create_train_state(build_detr_train_model(cfg, seed=0, device=dev), tcfg)
     step = make_train_step(crit, tcfg, AugmentConfig(out_size=size), compute_dtype=bf16)
@@ -377,13 +507,15 @@ def train_phases(torch, card, dev, g, sm_scale):
     batches = [make_batch(B, gen) for _ in range(3)]
     step(state, batches[0], gen)  # warm-up (cuDNN / cuBLAS plans)
     torch.cuda.synchronize()
-    fa.launch_count = fa.bwd_launch_count = 0
+    zero_counts()
     losses = [step(state, b, gen) for b in batches]
     torch.cuda.synchronize()
-    k1_launches, k2_launches = fa.launch_count, fa.bwd_launch_count
-    log(f"  K1 / K2 launches in {len(batches)} train steps: {k1_launches} / {k2_launches} "
-        f"(expected {cfg.enc_layers} x {len(batches)} each)")
-    require(k1_launches == k2_launches == cfg.enc_layers * len(batches), "K1/K2 launch count")
+    seen = counts()
+    k1_launches, k2_launches = seen["k1"], seen["k2"]
+    log(f"  launches in {len(batches)} train steps: {seen} "
+        f"(expected K1 and K2 {cfg.enc_layers} x {len(batches)} each, no other)")
+    n = cfg.enc_layers * len(batches)
+    require(seen == expected(k1=n, k2=n), "train launch counts")
     for ls in losses:
         require(all(bool(torch.isfinite(v)) for v in ls.values()), "a loss is not finite")
     log("  losses: " + ", ".join(f"{ls['loss_total'].item():.4f}" for ls in losses)
@@ -447,23 +579,9 @@ def train_phases(torch, card, dev, g, sm_scale):
         f"(min {min(rates):.2f}, max {max(rates):.2f}; 3 windows of {steps_per_window} "
         f"steps) on {card}")
 
-    names = ("augment", "forward", "loss", "backward", "optimizer")
-    per_stage = {n: [] for n in names}
-    for b in pool[:3]:
-        events = [torch.cuda.Event(enable_timing=True)]
-        events[0].record()
-
-        def mark(name):
-            events.append(torch.cuda.Event(enable_timing=True))
-            events[-1].record()
-
-        step(state, b, gen, on_stage=mark)
-        torch.cuda.synchronize()
-        for n, e0, e1 in zip(names, events, events[1:]):
-            per_stage[n].append(e0.elapsed_time(e1))
     log("  stage times per B=64 step (CUDA events between stage ends, median of 3; "
         "they include device idle while the host lags): "
-        + ", ".join(f"{n} {statistics.median(v):.3f} ms" for n, v in per_stage.items()))
+        + stage_spans(torch, step, state, pool[:3], gen))
 
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -488,19 +606,297 @@ def train_phases(torch, card, dev, g, sm_scale):
     log(f"  K2 (64,8,784,32) bf16: max|kernel-plain| = {k2_err:.3e} (tolerance {bound:.3e})")
     require(k2_err <= bound, "K2 disagrees with plain at the main-path shape")
     del out, ref
-    timings = {"plain": [], "kernel": []}
-    for name in ("plain", "kernel", "kernel", "plain"):
-        fn = (lambda: fa.attention_plain_bwd(*qkvg, sm_scale)) if name == "plain" else \
-             (lambda: fa._launch_bwd(*qkvg, sm_scale))
-        fn()
-        timings[name].append(cuda_ms(fn, 10, torch))
-    k2_ms = statistics.median(timings["kernel"])
-    k2_plain_ms = statistics.median(timings["plain"])
+    k2_ms, k2_plain_ms, timings = timed_pair(torch, lambda: fa._launch_bwd(*qkvg, sm_scale),
+                                             lambda: fa.attention_plain_bwd(*qkvg, sm_scale))
     log(f"  K2 (64,8,784,32) bf16: kernel {k2_ms:.3f} ms, plain {k2_plain_ms:.3f} ms "
         f"(runs plain, kernel, kernel, plain: {timings}) on {card}")
     log("phase 8 ok")
     return {"k1_launches": k1_launches, "k2_launches": k2_launches, "k2_err": k2_err,
             "k2_ms": k2_ms, "k2_plain_ms": k2_plain_ms}
+
+
+def route_phases(torch, card, dev, g, sm_scale):
+    """Phases 9-11: K3, K4 and K5 against their plain versions, the train
+    slice on the rotation / flash and fused-augmentation routes, eval on the
+    flash route, and the new kernels' times."""
+    from satellite_pose_estimation_tpu_torch.data.augment import (
+        AugmentConfig,
+        pallas_augment_draw,
+    )
+    from satellite_pose_estimation_tpu_torch.losses.criterion import CriterionConfig
+    from satellite_pose_estimation_tpu_torch.models.detr import (
+        DETRConfig,
+        build_detr_model,
+        build_detr_train_model,
+    )
+    from satellite_pose_estimation_tpu_torch.ops import flash_attention as fl
+    from satellite_pose_estimation_tpu_torch.ops import pallas_augment as pa
+    from satellite_pose_estimation_tpu_torch.ops import pallas_rotate as pr
+    from satellite_pose_estimation_tpu_torch.ops.image_warp import (
+        crop_resize_cubic_mxu,
+        rotate_shear3,
+    )
+    from satellite_pose_estimation_tpu_torch.ops.precision import highest_precision
+    from satellite_pose_estimation_tpu_torch.train.state import TrainConfig, create_train_state
+    from satellite_pose_estimation_tpu_torch.train.steps import make_eval_step, make_train_step
+
+    bf16 = torch.bfloat16
+
+    # -- 9. K3, K4 and K5 against their plain versions ----------------------
+    thetas = torch.tensor([0.0, 0.52, -0.52, 1.3, -1.3, 1.57, -1.57], device=dev)
+    for S in (224, 49):
+        for cubic in (False, True):
+            x = torch.rand(len(thetas), S, S, 3, generator=g, device=dev) * 255
+            out = pr.rotate_shear3_pallas(x, thetas, cubic)
+            torch.cuda.synchronize()
+            err = max_err(out, rotate_shear3(x, thetas, cubic))
+            log(f"  K3 ({len(thetas)},{S},{S},3) {'cubic' if cubic else 'bilinear'}: "
+                f"max|kernel-plain| = {err:.3e} (tolerance 5e-3 on values in [0, 255])")
+            require(err <= 5e-3, f"K3 disagrees with plain at S={S} cubic={cubic}")
+
+    B4, S4 = 8, 224
+    imgs = torch.rand(B4, S4, S4, 3, generator=g, device=dev) * 255
+    holes = torch.cat([torch.randint(0, S4, (B4, 10, 2), generator=g, device=dev),
+                       torch.randint(1, 40, (B4, 10, 2), generator=g, device=dev)], -1)
+    base = torch.stack([torch.zeros(B4, device=dev), torch.full((B4,), 9.0, device=dev),
+                        torch.zeros(B4, device=dev), torch.zeros(B4, device=dev),
+                        torch.zeros(B4, device=dev), torch.linspace(0, 1, B4, device=dev),
+                        torch.full((B4,), 17.0, device=dev), torch.full((B4,), 30.0, device=dev)],
+                       dim=1)
+    noise = torch.randn(B4, S4, S4, generator=g, device=dev)
+    worst = 0.0
+    for combo in range(16):  # every subset of blur, noise, cutout, truncation
+        sc = base.clone()
+        for bit, j in enumerate((0, 2, 3, 4)):
+            if combo >> bit & 1:
+                sc[:, j] = 1.0
+        out = pa.fused_photometric_pallas(imgs, sc, holes, 0, noise=noise)
+        torch.cuda.synchronize()
+        worst = max(worst, max_err(out, pa.fused_photometric_plain(imgs, sc, holes, noise)))
+    log(f"  K4 ({B4},{S4},{S4},3) host noise, all 16 flag combinations: max|kernel-plain| = "
+        f"{worst:.3e} (tolerance 1e-5)")
+    require(worst <= 1e-5, "K4 disagrees with plain (host noise)")
+    sc = base.clone()
+    sc[:, [0, 2, 3, 4]] = 1.0
+    first = pa.fused_photometric_pallas(imgs, sc, holes, 11)
+    again = pa.fused_photometric_pallas(imgs, sc, holes, 11)
+    other = pa.fused_photometric_pallas(imgs, sc, holes, 12)
+    torch.cuda.synchronize()
+    seeded_err = max_err(first, pa.fused_photometric_plain(
+        imgs, sc, holes, pa.philox_gaussian(11, B4, S4, device=dev)))
+    log(f"  K4 seeded: same seed equal {torch.equal(first, again)}, other seed differs "
+        f"{not torch.equal(first, other)}, max|kernel-plain on the PyTorch Philox stream| = "
+        f"{seeded_err:.3e} (tolerance 1e-5)")
+    require(torch.equal(first, again) and not torch.equal(first, other) and seeded_err <= 1e-5,
+            "K4's seeded noise")
+    flat = torch.full((64, 224, 224, 3), 128.0, device=dev)
+    sc = torch.zeros(64, 8, device=dev)
+    sc[:, 1], sc[:, 2] = 1.0, 1.0  # sigma 1, noise only
+    out = pa.fused_photometric_pallas(flat, sc, torch.zeros(64, 1, 4, dtype=torch.int32,
+                                                            device=dev), 2024)
+    mean = torch.tensor([0.485, 0.456, 0.406], device=dev)
+    std = torch.tensor([0.229, 0.224, 0.225], device=dev)
+    gauss = ((out * std + mean) * 255.0 - 128.0).reshape(-1, 3)
+    corr = torch.corrcoef(gauss.T.double())
+    off_diag = (corr - torch.eye(3, device=dev, dtype=torch.float64)).abs().max().item()
+    log(f"  K4 seeded noise over (64,224,224,3): mean {gauss.mean().item():.5f}, std "
+        f"{gauss.std().item():.5f}, max |channel correlation| {off_diag:.2e}")
+    require(abs(gauss.mean().item()) <= 0.02 and abs(gauss.std().item() - 1.0) <= 0.02
+            and off_diag <= 0.01, "K4's noise statistics")
+    del imgs, flat, out, gauss
+
+    tolerances = {torch.float32: 1e-5, bf16: 2e-2}  # x (1 + max |value|)
+    for T in (784, 49, 4096):
+        seg = fl.segment_ids(8, T, dev)
+        Tp = T if seg is None else seg.shape[1]
+        for dtype, tol in tolerances.items():
+            q, k, v, go = (torch.randn(8, 8, Tp, 32, generator=g, device=dev).to(dtype)
+                           for _ in range(4))
+            res = fl._launch_fwd(q, k, v, seg, sm_scale)
+            grads = fl._launch_bwd(q, k, v, seg, *res, go, sm_scale)
+            torch.cuda.synchronize()
+            ref = fl.attention_flash_plain(q, k, v, seg, sm_scale)
+            ref_grads = fl.attention_flash_plain_bwd(q, k, v, seg, *ref, go, sm_scale)
+            errs = []
+            for name, o, r in zip(("o", "l", "m", "dq", "dk", "dv"), res + grads,
+                                  ref + ref_grads):
+                errs.append(max_err(o, r))
+                require(o.dtype == r.dtype and errs[-1] <= tol * (1 + r.float().abs().max().item()),
+                        f"K5 {name} disagrees with plain at T={T} {dtype}")
+            log(f"  K5 (8,8,{T}->{Tp},32) {str(dtype)[6:]}: max|kernel-plain| o/l/m/dq/dk/dv = "
+                + "/".join(f"{e:.2e}" for e in errs) + f" (tolerance {tol:g} x (1 + max))")
+    log("phase 9 ok: K3, K4 and K5 match their plain versions")
+
+    # -- 10. the train slice on the off-default routes --------------------
+    size, B = 224, 64
+    base_cfg = dict(backbone="resnet50s8", hidden_dim=256, nheads=8, enc_layers=4,
+                    dec_layers=4, dim_feedforward=2048, num_queries=20, dropout=0.0)
+    crit = CriterionConfig()
+    tcfg = TrainConfig(use_ema=True)
+    no_p = dict(p_hflip=0.0, p_rotate=0.0, p_affine=0.0, p_blur=0.0, p_blur_family=0.0,
+                p_noise=0.0, p_jpeg=0.0, p_iso=0.0, p_cutout=0.0, p_trunc=0.0)
+    runs = {
+        "a": dict(name="A (rotate_impl='pallas', use_flash_attention=True)", flash=True,
+                  pallas_augment=False, rotate_impl="pallas",
+                  expect=expected(k3=3, k5=12, k5_bwd=12)),
+        "b": dict(name="B (use_pallas_augment=True, seeded)", flash=False,
+                  pallas_augment=True, rotate_impl="bmm",
+                  expect=expected(k1=12, k2=12, k4=3)),
+    }
+    result = {}
+    gen = torch.Generator(device=dev).manual_seed(17)
+    for key, run in runs.items():
+        cfg = DETRConfig(use_flash_attention=run["flash"], **base_cfg)
+        state = create_train_state(build_detr_train_model(cfg, seed=0, device=dev), tcfg)
+        step = make_train_step(crit, tcfg, AugmentConfig(out_size=size,
+                                                         rotate_impl=run["rotate_impl"]),
+                               use_pallas_augment=run["pallas_augment"], compute_dtype=bf16)
+        batches = [train_batch(torch, dev, B, gen) for _ in range(3)]
+        step(state, batches[0], gen)  # warm-up
+        torch.cuda.synchronize()
+        zero_counts()
+        losses = [step(state, b, gen) for b in batches]
+        torch.cuda.synchronize()
+        seen = counts()
+        log(f"  run {run['name']}: launches in 3 steps {seen} (expected {run['expect']})")
+        require(seen == run["expect"], f"run {key} launch counts")
+        for ls in losses:
+            require(all(bool(torch.isfinite(v)) for v in ls.values()), "a loss is not finite")
+        log("  losses: " + ", ".join(f"{ls['loss_total'].item():.4f}" for ls in losses))
+
+        fixed_state = create_train_state(build_detr_train_model(cfg, seed=1, device=dev), tcfg)
+        fixed_step = make_train_step(crit, tcfg, AugmentConfig(
+            out_size=size, rotate_impl=run["rotate_impl"], **no_p),
+            use_pallas_augment=run["pallas_augment"], compute_dtype=bf16)
+        fixed = train_batch(torch, dev, B, gen)
+        trace = [fixed_step(fixed_state, fixed, gen)["loss_total"].item() for _ in range(10)]
+        log("  fixed-batch loss over 10 steps: " + ", ".join(f"{v:.4f}" for v in trace))
+        require(trace[-1] < 0.95 * trace[0], f"run {key}: the loss does not fall")
+        del fixed_state, fixed_step
+
+        steps_per_window, windows = 5, 3
+        pool = [train_batch(torch, dev, B, gen) for _ in range(steps_per_window * windows)]
+        torch.cuda.synchronize()
+        rates = []
+        for w in range(windows):
+            t0 = time.perf_counter()
+            for b in pool[w * steps_per_window:(w + 1) * steps_per_window]:
+                step(state, b, gen)
+            torch.cuda.synchronize()
+            rates.append(B * steps_per_window / (time.perf_counter() - t0))
+        log(f"  train step run {key.upper()} B={B} bf16 @224: median "
+            f"{statistics.median(rates):.2f} img/s (min {min(rates):.2f}, max {max(rates):.2f}; "
+            f"3 windows of {steps_per_window} steps) on {card}")
+        log(f"  run {key.upper()} stage times per B={B} step (median of 3): "
+            + stage_spans(torch, step, state, pool[:3], gen))
+        result[key] = seen
+        del state, step, pool, batches
+    log("phase 10 ok: the train slice ran through K3 and K5 (run A) and K4 (run B)")
+
+    # -- 11. eval on the flash route, and the new kernels' times -----------
+    eval_cfg = DETRConfig(use_flash_attention=True, **base_cfg)
+    model = build_detr_model(eval_cfg, seed=0, device=dev, dtype=bf16)
+    eval_step = make_eval_step(out_size=size, solver="simple")
+
+    EB, steps, windows = 256, 5, 3
+    pool = [eval_batch(torch, dev, EB, g) for _ in range(steps * windows + 3)]
+    eval_step(model, pool[0])  # warm-up
+    torch.cuda.synchronize()
+    zero_counts()
+    results = [eval_step(model, b) for b in pool[:3]]
+    torch.cuda.synchronize()
+    seen = counts()
+    expect = expected(k5=12)
+    log(f"  flash eval: launches in 3 steps of B={EB} {seen} (expected {expect})")
+    require(seen == expect, "flash eval launch counts")
+    for res in results:
+        for key_, val in res.items():
+            if val.is_floating_point():
+                require(bool(torch.isfinite(val).all()), f"{key_} not finite")
+    rates = []
+    for w in range(windows):
+        chunk = pool[3 + w * steps: 3 + (w + 1) * steps]
+        t0 = time.perf_counter()
+        for b in chunk:
+            eval_step(model, b)
+        torch.cuda.synchronize()
+        rates.append(EB * steps / (time.perf_counter() - t0))
+    log(f"  flash eval step B={EB} bf16 @224: median {statistics.median(rates):.2f} img/s "
+        f"(min {min(rates):.2f}, max {max(rates):.2f}; 3 windows of {steps} steps) on {card}")
+
+    # The same weights in float32 on the card: flash (K5) against fused (K1).
+    x = crop_resize_cubic_mxu(pool[0]["image"][:4], pool[0]["clip_bbox_buf"][:4], size)
+    flash32 = build_detr_model(eval_cfg, seed=0, device=dev, dtype=torch.float32)
+    fused32 = build_detr_model(DETRConfig(**base_cfg), seed=0, device=dev, dtype=torch.float32)
+    with torch.inference_mode(), highest_precision():
+        out_flash, out_fused = flash32(x), fused32(x)
+    for key_ in ("pred_logits", "pred_points"):
+        err = max_err(out_flash[key_], out_fused[key_])
+        log(f"  {key_}: float32 flash vs fused max err {err:.3e} (tolerance 2e-3)")
+        require(err <= 2e-3, f"flash and fused models disagree ({key_})")
+    del model, flash32, fused32, pool, results
+
+    times = {}
+    x = torch.rand(26, 224, 224, 3, generator=g, device=dev) * 255
+    th = (torch.rand(26, generator=g, device=dev) * 2 - 1) * (torch.pi / 2)
+    err = max_err(pr.rotate_shear3_pallas(x, th), rotate_shear3(x, th))
+    require(err <= 5e-3, f"K3 disagrees with plain at the main-path shape ({err:.3e})")
+    ms, plain_ms, runs_ = timed_pair(torch, lambda: pr.rotate_shear3_pallas(x, th),
+                                     lambda: rotate_shear3(x, th))
+    log(f"  K3 (26,224,224,3) bilinear: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+        f"max|kernel-plain| {err:.3e} (tolerance 5e-3; runs plain, kernel, kernel, plain: "
+        f"{runs_}) on {card}")
+    times["k3"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+
+    imgs = torch.rand(64, 224, 224, 3, generator=g, device=dev) * 255
+    draws = pallas_augment_draw(gen, 64, AugmentConfig(out_size=224, p_blur=0.5, p_noise=0.5,
+                                                       p_cutout=0.5, p_trunc=0.5))
+    sc, hl, seed = draws["scalars"], draws["holes"], draws["seed"]
+    noise = torch.randn(64, 224, 224, generator=g, device=dev)
+    err = max_err(pa.fused_photometric_pallas(imgs, sc, hl, seed),
+                  pa.fused_photometric_plain(imgs, sc, hl,
+                                             pa.philox_gaussian(seed, 64, 224, device=dev)))
+    require(err <= 1e-5, f"K4 disagrees with plain at the main-path shape ({err:.3e})")
+    ms, plain_ms, runs_ = timed_pair(torch, lambda: pa.fused_photometric_pallas(imgs, sc, hl, seed),
+                                     lambda: pa.fused_photometric_plain(imgs, sc, hl, noise))
+    host_ms = statistics.median(cuda_ms(lambda: pa.fused_photometric_pallas(
+        imgs, sc, hl, seed, noise=noise), 10, torch) for _ in range(2))
+    log(f"  K4 (64,224,224,3): kernel (seeded, the main path) {ms:.3f} ms, kernel with host "
+        f"noise {host_ms:.3f} ms, plain with host noise {plain_ms:.3f} ms, max|kernel-plain| "
+        f"{err:.3e} (tolerance 1e-5; runs plain, kernel, kernel, plain: {runs_}) on {card}")
+    times["k4"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    del imgs, noise, x
+
+    for key_, Bk in (("k5", 256), ("k5_bwd", 64)):
+        seg = fl.segment_ids(Bk, 784, dev)
+        qkvg = [torch.nn.functional.pad(
+            torch.randn(Bk, 784, 8, 32, generator=g, device=dev, dtype=bf16).transpose(1, 2),
+            (0, 0, 0, 112)) for _ in range(4)]
+        q, k, v, go = qkvg
+        if key_ == "k5":
+            out = fl._launch_fwd(q, k, v, seg, sm_scale)
+            ref = fl.attention_flash_plain(q, k, v, seg, sm_scale)
+            kernel = lambda: fl._launch_fwd(q, k, v, seg, sm_scale)  # noqa: E731
+            plain = lambda: fl.attention_flash_plain(q, k, v, seg, sm_scale)  # noqa: E731
+        else:
+            res = fl.attention_flash_plain(q, k, v, seg, sm_scale)
+            out = fl._launch_bwd(q, k, v, seg, *res, go, sm_scale)
+            ref = fl.attention_flash_plain_bwd(q, k, v, seg, *res, go, sm_scale)
+            kernel = lambda: fl._launch_bwd(q, k, v, seg, *res, go, sm_scale)  # noqa: E731
+            plain = lambda: fl.attention_flash_plain_bwd(q, k, v, seg, *res, go,  # noqa: E731
+                                                         sm_scale)
+        err = max(max_err(o[:, :, :784], r[:, :, :784]) for o, r in zip(out, ref))
+        bound = 2e-2 * (1.0 + max(r.float().abs().max().item() for r in ref))
+        require(err <= bound, f"{key_} disagrees with plain at the main-path shape")
+        del out, ref
+        ms, plain_ms, runs_ = timed_pair(torch, kernel, plain)
+        log(f"  K5 {'forward' if key_ == 'k5' else 'backward'} ({Bk},8,784->896,32) bf16: "
+            f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, max|kernel-plain| {err:.3e} "
+            f"(tolerance {bound:.3e}; runs plain, kernel, kernel, plain: {runs_}) on {card}")
+        times[key_] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        del qkvg, q, k, v, go
+    log("phase 11 ok")
+    return {"a": result["a"], "b": result["b"], "eval_k5": seen["k5"], "times": times}
 
 
 if __name__ == "__main__":

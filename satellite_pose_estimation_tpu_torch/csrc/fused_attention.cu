@@ -35,39 +35,14 @@
 // token strides (in elements) and a unit stride on the head dimension, so
 // the (B, T, H, 32) views that the projections produce need no copy.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
+
+#include "attention_common.cuh"
 
 namespace {
 
-constexpr int kD = 32;                   // head dim
-constexpr int kRows = 64;                // q rows per block
-constexpr int kSplit = 4;                // threads per q row
-constexpr int kThreads = kRows * kSplit;  // 256
 constexpr int kKeys = 64;                // keys per shared-memory tile
 constexpr int kKeysPerThread = kKeys / kSplit;
-constexpr int kLd = kD + 4;              // padded shared row, 16-byte aligned
-
-struct Strides {
-  long long b, h, t;
-};
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// Round a float32 value to T and back (identity for float).
-template <typename T>
-__device__ __forceinline__ float round_to(float x) { return to_float(from_float<T>(x)); }
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -179,7 +154,6 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   if (row_ok) {
     T* ob = o + b * so.b + h * so.h + qi * so.t;
-    constexpr int kCols = kD / kSplit;  // each of the row's threads stores 8
 #pragma unroll
     for (int d = 0; d < kD; ++d)
       if (d / kCols == sub) ob[d] = from_float<T>(acc[d] / l);

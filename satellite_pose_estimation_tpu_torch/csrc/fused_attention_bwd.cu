@@ -46,97 +46,11 @@
 // Layout: q, k, v, g, dq, dk and dv are (B, H, T, 32) with arbitrary batch,
 // head and token strides (in elements) and a unit stride on the head dimension.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
 
+#include "attention_common.cuh"
+
 namespace {
-
-constexpr int kD = 32;                    // head dim
-constexpr int kRows = 64;                 // q rows (pass 1) or keys (pass 2) per block
-constexpr int kSplit = 4;                 // threads per row or key
-constexpr int kThreads = kRows * kSplit;  // 256
-constexpr int kTile = 64;                 // keys (pass 1) or q rows (pass 2) per tile
-constexpr int kPerThread = kTile / kSplit;
-constexpr int kLd = kD + 4;               // padded shared row, 16-byte aligned
-constexpr int kCols = kD / kSplit;        // head dims each thread stores
-
-struct Strides {
-  long long b, h, t;
-};
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// Round a float32 value to T and back (identity for float).
-template <typename T>
-__device__ __forceinline__ float round_to(float x) { return to_float(from_float<T>(x)); }
-
-// Dot product of a register row with a padded shared-memory row.
-__device__ __forceinline__ float dot_row(const float* r, const float* smem_row) {
-  const float4* s4 = reinterpret_cast<const float4*>(smem_row);
-  float acc = 0.f;
-#pragma unroll
-  for (int d4 = 0; d4 < kD / 4; ++d4) {
-    const float4 x = s4[d4];
-    acc = fmaf(r[4 * d4 + 0], x.x, acc);
-    acc = fmaf(r[4 * d4 + 1], x.y, acc);
-    acc = fmaf(r[4 * d4 + 2], x.z, acc);
-    acc = fmaf(r[4 * d4 + 3], x.w, acc);
-  }
-  return acc;
-}
-
-// acc[d] += w * smem_row[d] for the 32 head dims.
-__device__ __forceinline__ void axpy_row(float* acc, float w, const float* smem_row) {
-  const float4* s4 = reinterpret_cast<const float4*>(smem_row);
-#pragma unroll
-  for (int d4 = 0; d4 < kD / 4; ++d4) {
-    const float4 x = s4[d4];
-    acc[4 * d4 + 0] = fmaf(w, x.x, acc[4 * d4 + 0]);
-    acc[4 * d4 + 1] = fmaf(w, x.y, acc[4 * d4 + 1]);
-    acc[4 * d4 + 2] = fmaf(w, x.z, acc[4 * d4 + 2]);
-    acc[4 * d4 + 3] = fmaf(w, x.w, acc[4 * d4 + 3]);
-  }
-}
-
-// Sum a value over the kSplit adjacent lanes that share a row or key.
-__device__ __forceinline__ float split_sum(float x) {
-#pragma unroll
-  for (int off = 1; off < kSplit; off <<= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-// Load a (kTile, 32) tile of rows [r0, r0 + kTile) of two (T, 32) matrices
-// into shared memory as float32, zero past T. Row values of `a` are
-// multiplied by a_scale and rounded to T first (the pre-scaled q).
-template <typename T>
-__device__ __forceinline__ void load_tile(float (*as)[kLd], float (*bs)[kLd], const T* a,
-                                          const T* b, long long sa, long long sb, int r0,
-                                          int T_len, float a_scale, bool scale_a) {
-  for (int idx = threadIdx.x; idx < kTile * kD; idx += kThreads) {
-    const int j = idx / kD;
-    const int d = idx % kD;
-    const int r = r0 + j;
-    float av = 0.f, bv = 0.f;
-    if (r < T_len) {
-      av = to_float(a[r * sa + d]);
-      if (scale_a) av = round_to<T>(av * a_scale);
-      bv = to_float(b[r * sb + d]);
-    }
-    as[j][d] = av;
-    bs[j][d] = bv;
-  }
-}
 
 // Pass 1: per (batch, head, 64 q rows), the row statistics and dq.
 template <typename T>

@@ -5,16 +5,25 @@
    image: two dense per-axis interpolation matrices (``_axis_matrix``)
    applied as batched matrix products;
 2. a fixed-count subset of round(p_rotate * B) images is rotated about the
-   crop centre (``ops.image_warp.rotate_shear3_bmm``), keypoints with it;
+   crop centre, keypoints with it: ``rotate_impl="bmm"``
+   (``ops.image_warp.rotate_shear3_bmm``) or ``"pallas"``
+   (``ops.pallas_rotate.rotate_shear3_pallas``: the rotation kernel K3 on
+   the GPU, the "shear" semantics);
 3. the photometric family (blur, motion / median / box blur, gaussian
    noise, JPEG, ISO noise, cutout, edge truncation) runs on fixed-count
    subsets (``_apply_subset``);
 4. ImageNet normalisation.
 
+``augment_batch_pallas`` is the JAX package's fused variant: one bilinear
+affine warp per image (flip, rotation and scale / shift in one matrix), then
+blur, noise, cutout, truncation and normalisation in one pass of the
+photometric kernel K4 (``ops.pallas_augment``).
+
 Keypoints ride the same maps analytically. Every draw comes from the
-generator, on its device (the images' device). The JAX package's other
-rotation routes (``rotate_impl`` "pallas", "shear", "gather") and its
-Pallas-fused photometric variant are not ported.
+generator, on its device (the images' device); the draws and their
+application are separate functions (``geometry_draw``,
+``pallas_augment_draw``), so a test can replay another generator's draws.
+The JAX package's rotation routes "shear" and "gather" are not ported.
 """
 from __future__ import annotations
 
@@ -23,7 +32,15 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from ..ops.image_warp import IMAGENET_MEAN, IMAGENET_STD, _cubic_weights, rotate_shear3_bmm
+from ..ops.image_warp import (
+    IMAGENET_MEAN,
+    IMAGENET_STD,
+    _cubic_weights,
+    affine_warp_bilinear,
+    rotate_shear3_bmm,
+)
+from ..ops.pallas_augment import fused_photometric_pallas
+from ..ops.pallas_rotate import rotate_shear3_pallas
 from ..ops.photometric import (
     box_blur,
     iso_noise,
@@ -62,7 +79,7 @@ class AugmentConfig(NamedTuple):
     cutout_max: int = 40
     p_trunc: float = 0.2
     trunc_ratio: float = 0.2
-    rotate_impl: str = "bmm"  # the only route ported
+    rotate_impl: str = "bmm"  # or "pallas" (K3); "shear" / "gather" are not ported
 
 
 def _uniform(generator, shape, lo, hi):
@@ -173,9 +190,30 @@ def _axis_matrix(S: int, a, b, extent: int, cubic: bool):
     return mat.reshape(B, S, extent)
 
 
+def geometry_draw(generator, B: int, cfg: AugmentConfig = AugmentConfig()):
+    """The random draws of ``augment_batch``'s geometry, in its order: per
+    image a flip flag, an affine flag, a scale jitter and a unit shift (B, 2),
+    then the rotated subset's indices (n_rot,) and angles in radians."""
+    g, dev = generator, generator.device
+    draws = {
+        "do_flip": torch.rand(B, generator=g, device=dev) < cfg.p_hflip,
+        "do_aff": torch.rand(B, generator=g, device=dev) < cfg.p_affine,
+        "jitter": _uniform(g, (B,), -cfg.affine_scale_jitter, cfg.affine_scale_jitter),
+        "shift": _uniform(g, (B, 2), -1.0, 1.0),
+    }
+    n_rot = int(round(cfg.p_rotate * B))
+    if n_rot > 0 and cfg.rotate_limit_deg > 0:
+        if cfg.rotate_limit_deg > 90.0:
+            raise NotImplementedError("rotations beyond 90 degrees are not ported")
+        draws["rot_idx"] = torch.randperm(B, generator=g, device=dev)[:n_rot]
+        draws["thetas"] = _uniform(g, (n_rot,), -cfg.rotate_limit_deg,
+                                   cfg.rotate_limit_deg) * (math.pi / 180.0)
+    return draws
+
+
 @highest_precision()
 def augment_batch(generator, images, clip_bboxes, landmarks,
-                  cfg: AugmentConfig = AugmentConfig()):
+                  cfg: AugmentConfig = AugmentConfig(), geometry=None):
     """Augment a batch.
 
     Args:
@@ -183,30 +221,32 @@ def augment_batch(generator, images, clip_bboxes, landmarks,
         images: (B, P, P, 3) uint8 canvases.
         clip_bboxes: (B, 4) crop boxes [x1, y1, x2, y2] in canvas pixels.
         landmarks: (B, K, 2) landmark pixels in canvas coordinates.
+        geometry: the geometric draws (``geometry_draw``); drawn from the
+            generator when None.
     Returns:
         (B, S, S, 3) ImageNet-normalised crops and (B, K, 2) keypoints in
         [0, 1] crop coordinates (they may leave [0, 1]). The normalisation
         constants take PyTorch's default dtype, as the JAX ones take float64
         under x64.
     """
-    if cfg.rotate_impl != "bmm":
+    rotate = {"bmm": rotate_shear3_bmm, "pallas": rotate_shear3_pallas}.get(cfg.rotate_impl)
+    if rotate is None:
         raise NotImplementedError(
-            f"rotate_impl {cfg.rotate_impl!r} is not ported; only 'bmm' is")
+            f"rotate_impl {cfg.rotate_impl!r} is not ported; 'bmm' and 'pallas' are")
     g, dev = generator, images.device
     B, H, W = images.shape[:3]
     S = cfg.out_size
     cubic = cfg.interp == "cubic"
+    draws = geometry if geometry is not None else geometry_draw(g, B, cfg)
 
     # Separable flip / scale / shift / crop map per image: src = a * d + b.
     bb = clip_bboxes.to(torch.float32)
     x1, y1, x2, y2 = bb.unbind(-1)
     w, h = x2 - x1, y2 - y1
     cx, cy = (x1 + x2 - 1.0) / 2.0, (y1 + y2 - 1.0) / 2.0
-    do_flip = torch.rand(B, generator=g, device=dev) < cfg.p_hflip
-    do_aff = torch.rand(B, generator=g, device=dev) < cfg.p_affine
-    jitter = _uniform(g, (B,), -cfg.affine_scale_jitter, cfg.affine_scale_jitter)
-    scale = torch.where(do_aff, 1.0 + jitter, 1.0)
-    shift = _uniform(g, (B, 2), -1.0, 1.0) * cfg.affine_shift_jitter * torch.stack([w, h], -1)
+    do_flip, do_aff = draws["do_flip"], draws["do_aff"]
+    scale = torch.where(do_aff, 1.0 + draws["jitter"], 1.0)
+    shift = draws["shift"] * cfg.affine_shift_jitter * torch.stack([w, h], -1)
     shift = torch.where(do_aff[:, None], shift, 0.0)
     a0x, a0y = w / S, h / S
     ax = a0x / scale
@@ -225,14 +265,9 @@ def augment_batch(generator, images, clip_bboxes, landmarks,
                       (lm[..., 1] - by[:, None]) / ay[:, None]], dim=-1)
 
     # Rotation of a fixed-count subset about the crop centre.
-    n_rot = int(round(cfg.p_rotate * B))
-    if n_rot > 0 and cfg.rotate_limit_deg > 0:
-        if cfg.rotate_limit_deg > 90.0:
-            raise NotImplementedError("rotations beyond 90 degrees are not ported")
-        idx = torch.randperm(B, generator=g, device=dev)[:n_rot]
-        thetas = _uniform(g, (n_rot,), -cfg.rotate_limit_deg,
-                          cfg.rotate_limit_deg) * (math.pi / 180.0)
-        warped = warped.index_copy(0, idx, rotate_shear3_bmm(warped[idx], thetas, cubic))
+    if "rot_idx" in draws:
+        idx, thetas = draws["rot_idx"], draws["thetas"]
+        warped = warped.index_copy(0, idx, rotate(warped[idx], thetas, cubic))
         c = (S - 1.0) / 2.0
         cos, sin = torch.cos(thetas)[:, None], torch.sin(thetas)[:, None]
         rel = kp[idx] - c
@@ -244,3 +279,111 @@ def augment_batch(generator, images, clip_bboxes, landmarks,
     mean = torch.tensor(IMAGENET_MEAN, device=dev)
     std = torch.tensor(IMAGENET_STD, device=dev)
     return (out / 255.0 - mean) / std, kp / S
+
+
+def pallas_augment_draw(generator, B: int, cfg: AugmentConfig = AugmentConfig()):
+    """The random draws of ``augment_batch_pallas``: per image the affine
+    parameters (flip flag, rotation angle in radians or 0, scale, affine
+    flag and unit shift (B, 2)), the photometric scalars (B, 8) =
+    [do_blur, sigma, do_noise, do_cut, do_trunc, trunc_sel, th, tw], the
+    cutout holes (B, NH, 4) = (x, y, w, h) and a noise seed (a 0-d int64
+    tensor on the generator's device, read by the kernel there)."""
+    g, dev = generator, generator.device
+    S = cfg.out_size
+
+    def bern(p):
+        return torch.rand(B, generator=g, device=dev) < p
+
+    do_flip = bern(cfg.p_hflip)
+    do_rot = bern(cfg.p_rotate)
+    theta = _uniform(g, (B,), -cfg.rotate_limit_deg, cfg.rotate_limit_deg) * (math.pi / 180.0)
+    do_aff = bern(cfg.p_affine)
+    jitter = _uniform(g, (B,), -cfg.affine_scale_jitter, cfg.affine_scale_jitter)
+    shift = _uniform(g, (B, 2), -1.0, 1.0)
+    hi = max(int(S * cfg.trunc_ratio), 1)
+    scalars = torch.stack([
+        bern(cfg.p_blur).float(),
+        _uniform(g, (B,), 0.0, cfg.noise_sigma_max),
+        bern(cfg.p_noise).float(),
+        bern(cfg.p_cutout).float(),
+        bern(cfg.p_trunc).float(),
+        torch.rand(B, generator=g, device=dev),
+        torch.randint(0, hi, (B,), generator=g, device=dev).float(),
+        torch.randint(0, hi, (B,), generator=g, device=dev).float(),
+    ], dim=1)
+    holes = torch.cat([
+        torch.randint(0, S, (B, cfg.cutout_holes, 2), generator=g, device=dev),
+        torch.randint(1, cfg.cutout_max, (B, cfg.cutout_holes, 2), generator=g, device=dev),
+    ], dim=-1).to(torch.int32)
+    return {
+        "do_flip": do_flip,
+        "theta": torch.where(do_rot, theta, 0.0),
+        "do_aff": do_aff,
+        "scale": torch.where(do_aff, 1.0 + jitter, 1.0),
+        "shift": shift,
+        "scalars": scalars,
+        "holes": holes,
+        "seed": torch.randint(0, 2 ** 31 - 1, (), generator=g, device=dev),
+    }
+
+
+def _sample_affine(clip_bboxes, draws, cfg: AugmentConfig):
+    """Compose flip / rotation / scale / shift / crop-resize into (B, 2, 3)
+    output-to-source matrices in canvas pixels, and the (B, 2, 2) inverse
+    of their linear part for the keypoint forward map (the JAX
+    ``_sample_affine``, batched)."""
+    S = cfg.out_size
+    bb = clip_bboxes.to(torch.float32)
+    x1, y1, x2, y2 = bb.unbind(-1)
+    w, h = x2 - x1, y2 - y1
+    cx, cy = (x1 + x2 - 1.0) / 2.0, (y1 + y2 - 1.0) / 2.0
+    theta = draws["theta"].to(torch.float32)
+    scale = draws["scale"].to(torch.float32)
+    shift = torch.where(draws["do_aff"][:, None],
+                        draws["shift"] * cfg.affine_shift_jitter * torch.stack([w, h], -1), 0.0)
+
+    a_x, a_y = w / S, h / S
+    b_x, b_y = x1 + 0.5 * a_x - 0.5, y1 + 0.5 * a_y - 0.5
+    cos_t, sin_t = torch.cos(theta) / scale, torch.sin(theta) / scale
+    m00, m01 = cos_t * a_x, sin_t * a_y
+    m10, m11 = -sin_t * a_x, cos_t * a_y
+    t0 = cos_t * (b_x - cx) + sin_t * (b_y - cy) + cx - shift[:, 0]
+    t1 = -sin_t * (b_x - cx) + cos_t * (b_y - cy) + cy - shift[:, 1]
+    flip = draws["do_flip"]
+    m00, m01 = torch.where(flip, -m00, m00), torch.where(flip, -m01, m01)
+    t0 = torch.where(flip, 2.0 * cx - t0, t0)
+    M = torch.stack([torch.stack([m00, m01, t0], -1), torch.stack([m10, m11, t1], -1)], 1)
+
+    det = m00 * m11 - m01 * m10
+    det = torch.where(torch.abs(det) < 1e-9, 1e-9, det)
+    inv = torch.stack([torch.stack([m11 / det, -m01 / det], -1),
+                       torch.stack([-m10 / det, m00 / det], -1)], 1)
+    return M, inv
+
+
+@highest_precision()
+def augment_batch_pallas(generator, images, clip_bboxes, landmarks,
+                         cfg: AugmentConfig = AugmentConfig(), draws=None):
+    """The fused-kernel variant of ``augment_batch`` (the JAX
+    ``augment_batch_pallas``): one bilinear affine warp per image (flip,
+    rotation with probability p_rotate, scale / shift), then blur, gaussian
+    noise, cutout, edge truncation, clipping and normalisation in one pass
+    of ``fused_photometric_pallas`` (K4 on the GPU), its noise drawn from a
+    seed. The other corruptions of ``augment_batch`` (motion / median blur,
+    JPEG, ISO noise) are not in this variant, as in the JAX package.
+
+    ``draws`` (``pallas_augment_draw``) are drawn from the generator when
+    None; a "noise" entry of (B, S, S) planes replaces the seeded noise.
+    Returns (B, S, S, 3) ImageNet-normalised crops and (B, K, 2) keypoints
+    in [0, 1] crop coordinates."""
+    B = images.shape[0]
+    S = cfg.out_size
+    draws = draws if draws is not None else pallas_augment_draw(generator, B, cfg)
+    M, inv = _sample_affine(clip_bboxes, draws, cfg)
+    warped = affine_warp_bilinear(images, M, S, normalize=False)
+    rel = landmarks.to(torch.float32) - M[:, None, :, 2]
+    kp = torch.stack([inv[:, None, 0, 0] * rel[..., 0] + inv[:, None, 0, 1] * rel[..., 1],
+                      inv[:, None, 1, 0] * rel[..., 0] + inv[:, None, 1, 1] * rel[..., 1]], -1)
+    out = fused_photometric_pallas(warped, draws["scalars"], draws["holes"], draws["seed"],
+                                   noise=draws.get("noise"))
+    return out, kp / S

@@ -40,6 +40,7 @@ class DETRConfig:
     num_queries: int = 20
     num_keypoints: int = 11
     aux_loss: bool = True
+    use_flash_attention: bool = False  # encoder self-attention through K5
 
 
 class DETRKeypointModel(nn.Module):
@@ -60,7 +61,8 @@ class DETRKeypointModel(nn.Module):
         self.transformer = Transformer(
             d_model=cfg.hidden_dim, nhead=cfg.nheads,
             num_encoder_layers=cfg.enc_layers, num_decoder_layers=cfg.dec_layers,
-            dim_feedforward=cfg.dim_feedforward, dropout=cfg.dropout, generator=g)
+            dim_feedforward=cfg.dim_feedforward, dropout=cfg.dropout, generator=g,
+            use_flash=cfg.use_flash_attention)
         self.cls_embed = linear(cfg.hidden_dim, cfg.num_keypoints + 1, g)
         self.point_embed = MLP(cfg.hidden_dim, cfg.hidden_dim, 2, 3, generator=g)
 

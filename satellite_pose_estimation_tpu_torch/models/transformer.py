@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..ops.flash_attention import flash_self_attention
 from ..ops.fused_attention import fused_self_attention
 from .layers import linear
 
@@ -21,11 +22,14 @@ class _Attention(nn.Module):
 
     * ``fused`` — ops/fused_attention.py (on a GPU, K1 forward and K2
       backward);
+    * ``flash`` — ops/flash_attention.py (on a GPU, K5 forward and
+      backward);
     * ``plain`` — einsum / softmax in the model dtype, with attention-weight
       dropout and an optional mask.
 
-    ``fused`` falls to ``plain`` for sequences shorter than 256 tokens, for
-    a mask, and for dropout in training (the JAX routing rule).
+    ``fused`` and ``flash`` fall to ``plain`` for a mask and for dropout in
+    training, and ``fused`` also for sequences shorter than 256 tokens (the
+    JAX routing rule).
     """
 
     def __init__(self, d_model, nhead, dropout=0.1, impl="fused", generator=None):
@@ -61,6 +65,8 @@ class _Attention(nn.Module):
             impl = "plain"
         if impl == "fused":
             out = fused_self_attention(qh, kh, vh, sm_scale)
+        elif impl == "flash":
+            out = flash_self_attention(qh, kh, vh, sm_scale)
         else:
             s = torch.einsum("bhqd,bhkd->bhqk", qh, kh) * sm_scale
             if attn_mask is not None:
@@ -75,9 +81,11 @@ def _ffn(layer, x):
 
 
 class EncoderLayer(nn.Module):
-    def __init__(self, d_model, nhead, dim_feedforward=2048, dropout=0.1, generator=None):
+    def __init__(self, d_model, nhead, dim_feedforward=2048, dropout=0.1, generator=None,
+                 use_flash=False):
         super().__init__()
-        self.self_attn = _Attention(d_model, nhead, dropout, "fused", generator)
+        self.self_attn = _Attention(d_model, nhead, dropout,
+                                    "flash" if use_flash else "fused", generator)
         self.linear1 = linear(d_model, dim_feedforward, generator)
         self.linear2 = linear(dim_feedforward, d_model, generator)
         self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
@@ -117,13 +125,13 @@ class Transformer(nn.Module):
 
     def __init__(self, d_model=256, nhead=8, num_encoder_layers=6,
                  num_decoder_layers=6, dim_feedforward=2048, dropout=0.1,
-                 generator=None):
+                 generator=None, use_flash=False):
         super().__init__()
         self.num_encoder_layers = num_encoder_layers
         self.num_decoder_layers = num_decoder_layers
         for i in range(num_encoder_layers):
             self.add_module(f"encoder_layer_{i}", EncoderLayer(
-                d_model, nhead, dim_feedforward, dropout, generator))
+                d_model, nhead, dim_feedforward, dropout, generator, use_flash))
         for i in range(num_decoder_layers):
             self.add_module(f"decoder_layer_{i}", DecoderLayer(
                 d_model, nhead, dim_feedforward, dropout, generator))

@@ -14,6 +14,12 @@
   writes each shear as a dense per-row matrix product (a TPU form); here each
   output sample gathers its 2 (bilinear) or 4 (cubic) taps, which are the
   only non-zero entries of that matrix.
+* ``rotate_shear3`` — the same three shears with the JAX ``rotate_shear3``
+  ("shear" form) border rule, the semantics of the rotation kernel
+  (ops/pallas_rotate.py); it differs from ``rotate_shear3_bmm`` at content
+  edges.
+* ``affine_warp_bilinear`` — inverse-affine bilinear warp of a batch, one
+  (2, 3) output-to-source matrix per image, outside samples zero.
 """
 from __future__ import annotations
 
@@ -157,6 +163,94 @@ def rotate_shear3_bmm(image, theta, cubic: bool = False):
     out2 = _shear_rows_bmm(out1.transpose(1, 2), -b * (xp - (c + pad)), S,
                            cubic).transpose(1, 2)  # (N, S, Wp, C)
     return _shear_rows_bmm(out2, pad - a * (y - c), S, cubic)  # (N, S, S, C)
+
+
+def _shear_rows(im, shifts, out_w: int, lo: int, hi: int, cubic: bool):
+    """Per-row fractional shift of (N, R, Win, C) rows by ``shifts`` (N, R)
+    with the JAX ``_shear_rows`` semantics: out[n, r, x] blends the 2 or 4
+    taps around base = x + clip(floor(shifts[n, r]), lo, hi), taps outside
+    [0, Win) reading zero, and is zero outright once the base tap itself
+    leaves [0, Win). Returns (N, R, out_w, C) float32."""
+    N, R, in_w, C = im.shape
+    m = torch.floor(shifts)
+    t = shifts - m
+    base = torch.arange(out_w, dtype=torch.float32, device=im.device) \
+        + torch.clamp(m, lo, hi)[..., None]  # (N, R, out_w)
+    if cubic:
+        w = _cubic_weights(t)[:, :, None, :]
+        offsets = _TAP_OFFSETS
+    else:
+        w = torch.stack([1.0 - t, t], dim=-1)[:, :, None, :]
+        offsets = (0.0, 1.0)
+    taps = base[..., None] + torch.tensor(offsets, dtype=torch.float32, device=im.device)
+    inside = (taps >= 0) & (taps <= in_w - 1)
+    idx = torch.clamp(taps, 0, in_w - 1).to(torch.int64).reshape(N, R, -1, 1).expand(-1, -1, -1, C)
+    vals = torch.gather(im, 2, idx).reshape(N, R, out_w, len(offsets), C)
+    vals = vals * inside[..., None]
+    out = w[..., 0, None] * vals[..., 0, :]
+    for j in range(1, len(offsets)):
+        out = out + w[..., j, None] * vals[..., j, :]
+    return out * ((base >= 0) & (base <= in_w - 1))[..., None]
+
+
+def rotate_shear3(image, theta, cubic: bool = False):
+    """Rotate (N, S, S, C) crops about their centres by ``theta`` (N,)
+    radians, |theta| <= pi/2: the JAX ``rotate_shear3`` (the "shear" form,
+    and the semantics of its Pallas kernel ``rotate_shear3_pallas``) as a
+    plain gather. Same shears, canvas and taps as ``rotate_shear3_bmm``; the
+    two differ at content edges only: here a sample is zero once its base
+    tap floor(x + shift) leaves the input row, where the bmm form keeps that
+    sample's taps that still lie inside. Returns float32."""
+    N, S = image.shape[0], image.shape[1]
+    img = image.to(torch.float32)
+    theta = theta.to(torch.float32)
+    c = (S - 1.0) / 2.0
+    a = -torch.tan(theta / 2.0)[:, None]
+    b = torch.sin(theta)[:, None]
+    pad = (S + 1) // 2
+    Wp = S + 2 * pad
+    y = torch.arange(S, dtype=torch.float32, device=img.device)
+    xp = torch.arange(Wp, dtype=torch.float32, device=img.device)
+
+    out1 = _shear_rows(img, -pad - a * (y - c), Wp, -S - 1, 0, cubic)  # (N, S, Wp, C)
+    out2 = _shear_rows(out1.transpose(1, 2), -b * (xp - (c + pad)), S, -S - 1, S + 1,
+                       cubic).transpose(1, 2)  # (N, S, Wp, C)
+    return _shear_rows(out2, pad - a * (y - c), S, -1, S + 1, cubic)  # (N, S, S, C)
+
+
+def affine_warp_bilinear(images, matrices, out_size: int = 256, normalize: bool = True):
+    """Inverse-affine bilinear warp of a batch: out[b, y, x] =
+    img_b(M_b @ [x, y, 1]) with (B, 2, 3) output-to-source ``matrices`` in
+    pixel coordinates; each of the four taps outside the image reads zero.
+    (B, H, W, C) -> (B, S, S, C) float32, optionally /255 and
+    ImageNet-normalised."""
+    B, H, W, C = images.shape
+    flat = images.to(torch.float32).reshape(B, H * W, C)
+    m = matrices.to(torch.float32)[:, :, :, None, None]  # (B, 2, 3, 1, 1)
+    d = torch.arange(out_size, dtype=torch.float32, device=images.device)
+    dx, dy = d[None, :], d[:, None]
+    sx = m[:, 0, 0] * dx + m[:, 0, 1] * dy + m[:, 0, 2]  # (B, S, S)
+    sy = m[:, 1, 0] * dx + m[:, 1, 1] * dy + m[:, 1, 2]
+    x0, y0 = torch.floor(sx), torch.floor(sy)
+    tx, ty = sx - x0, sy - y0
+
+    def sample(xi, yi):
+        inside = (xi >= 0) & (xi <= W - 1) & (yi >= 0) & (yi <= H - 1)
+        xc = torch.clamp(xi, 0, W - 1).to(torch.int64)
+        yc = torch.clamp(yi, 0, H - 1).to(torch.int64)
+        idx = (yc * W + xc).reshape(B, -1, 1).expand(-1, -1, C)
+        v = torch.gather(flat, 1, idx).reshape(B, out_size, out_size, C)
+        return v * inside[..., None]
+
+    out = (sample(x0, y0) * ((1 - tx) * (1 - ty))[..., None]
+           + sample(x0 + 1, y0) * (tx * (1 - ty))[..., None]
+           + sample(x0, y0 + 1) * ((1 - tx) * ty)[..., None]
+           + sample(x0 + 1, y0 + 1) * (tx * ty)[..., None])
+    if normalize:
+        mean = torch.tensor(IMAGENET_MEAN, dtype=out.dtype, device=out.device)
+        std = torch.tensor(IMAGENET_STD, dtype=out.dtype, device=out.device)
+        out = (out / 255.0 - mean) / std
+    return out
 
 
 def _align_corners_matrix(n_in: int, n_out: int) -> np.ndarray:

@@ -12,7 +12,7 @@ from typing import Optional
 
 import torch
 
-from ..data.augment import AugmentConfig, augment_batch
+from ..data.augment import AugmentConfig, augment_batch, augment_batch_pallas
 from ..geometry.camera import WORLD_POINTS
 from ..geometry.scoring import speed_score_batch
 from ..geometry.solvers import SolverConfig, solve_pose_simple
@@ -35,14 +35,15 @@ def make_train_step(criterion_cfg: CriterionConfig, train_cfg: TrainConfig,
     is a ``torch.Generator`` on that device and drives the augmentation.
     ``compute_dtype`` (e.g. ``torch.bfloat16``) runs the model under
     ``torch.autocast`` on float32 parameters; None computes in the
-    parameters' dtype. The state is updated in place; the returned losses
-    are detached tensors (no host synchronisation).
+    parameters' dtype. ``use_pallas_augment`` augments with
+    ``augment_batch_pallas`` (one affine warp, then the fused photometric
+    kernel K4 on the GPU) instead of ``augment_batch``. The state is updated
+    in place; the returned losses are detached tensors (no host
+    synchronisation).
     """
+    augment = augment_batch_pallas if use_pallas_augment else augment_batch
     if axis_name is not None:
         raise NotImplementedError("data-parallel training (axis_name) is not ported")
-    if use_pallas_augment:
-        raise NotImplementedError("the fused photometric kernel (use_pallas_augment) "
-                                  "is not ported")
     if denoising:
         raise NotImplementedError("RT-DETR denoising training is not ported")
 
@@ -52,8 +53,8 @@ def make_train_step(criterion_cfg: CriterionConfig, train_cfg: TrainConfig,
         event for a per-stage breakdown."""
         mark = on_stage or (lambda name: None)
         model = state.model
-        images, kp_norm = augment_batch(generator, batch["image"], batch["clip_bbox_buf"],
-                                        batch["landmarks_buf"], augment_cfg)
+        images, kp_norm = augment(generator, batch["image"], batch["clip_bbox_buf"],
+                                  batch["landmarks_buf"], augment_cfg)
         targets = {"labels": batch["labels"], "landmarks": kp_norm}
         mark("augment")
         model.train()

@@ -42,9 +42,12 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str, sources: list[str]) -> Path:
-    """Where the library built from ``sources`` (names under csrc/) lives."""
+    """Where the library built from ``sources`` (names under csrc/) lives.
+    The hash covers every header in csrc/ too, since any source may include
+    one."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    headers = sorted(p.name for p in CSRC_DIR.glob("*.cuh"))
+    for src in [*sources, *headers]:
         digest.update(src.encode())
         digest.update((CSRC_DIR / src).read_bytes())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"

@@ -82,7 +82,23 @@ def test_build_key_follows_the_sources(tmp_path, monkeypatch):
     assert first == cuda_build.library_path("k", ["k.cu"])
     assert first.parent == cuda_build.BUILD_DIR and first.name.startswith("k-")
     (tmp_path / "k.cu").write_text("// two")
-    assert cuda_build.library_path("k", ["k.cu"]) != first
+    second = cuda_build.library_path("k", ["k.cu"])
+    assert second != first
+    (tmp_path / "common.cuh").write_text("// a shared header")
+    assert cuda_build.library_path("k", ["k.cu"]) != second
+
+
+def test_attention_kernels_share_one_header():
+    from satellite_pose_estimation_tpu_torch.utils import cuda_build
+
+    helpers = ("__device__ __forceinline__ float to_float", "float dot_row(",
+               "void axpy_row(", "float split_sum(", "void load_tile(")
+    for src in ("fused_attention.cu", "fused_attention_bwd.cu", "flash_attention.cu"):
+        text = (cuda_build.CSRC_DIR / src).read_text()
+        assert '#include "attention_common.cuh"' in text
+        assert not any(h in text for h in helpers), src
+    common = (cuda_build.CSRC_DIR / "attention_common.cuh").read_text()
+    assert all(h in common for h in helpers)
 
 
 def test_find_nvcc_raises_without_a_toolkit(tmp_path, monkeypatch):

@@ -171,11 +171,12 @@ def test_rotation_subset_is_fixed_count():
     assert int((kp != kp0).flatten(1).any(1).sum()) == 4
 
 
-def test_unported_rotation_routes_raise():
+@pytest.mark.parametrize("impl", ["shear", "gather"])
+def test_unported_rotation_routes_raise(impl):
     img, bb, lm = _batch(8)
     with pytest.raises(NotImplementedError):
         augment.augment_batch(torch.Generator(), _t(img), _t(bb), _t(lm),
-                              augment.AugmentConfig(out_size=48, rotate_impl="pallas"))
+                              augment.AugmentConfig(out_size=48, rotate_impl=impl))
 
 
 def test_keypoints_follow_the_content_under_random_augmentation():

@@ -1,6 +1,8 @@
-"""PyTorch port on the GPU: each CUDA kernel (K1, the attention forward,
-and K2, its backward) against its plain PyTorch version. These tests need a CUDA device and skip without one. The file
-imports no JAX, so on a machine without JAX it runs on its own:
+"""PyTorch port on the GPU: each CUDA kernel (K1, the attention forward;
+K2, its backward; K3, the rotation; K4, the fused photometric chain; K5,
+flash attention forward and backward) against its plain PyTorch version.
+These tests need a CUDA device and skip without one. The file imports no
+JAX, so on a machine without JAX it runs on its own:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
@@ -8,6 +10,8 @@ import pytest
 import torch
 
 from satellite_pose_estimation_tpu_torch.ops import fused_attention as fa
+from satellite_pose_estimation_tpu_torch.ops import flash_attention as fl
+from satellite_pose_estimation_tpu_torch.ops import image_warp, pallas_augment, pallas_rotate
 
 
 @pytest.fixture
@@ -126,3 +130,133 @@ def test_cuda_bwd_kernel_raises_on_unsupported_input(cuda_device):
     q = torch.randn(1, 1, 16, 32, device=cuda_device)
     with pytest.raises(ValueError):
         fa._launch_bwd(q, q, q[..., :8, :], q[..., :8, :], 0.1)
+
+
+# -- K3, the rotation --------------------------------------------------------------
+
+ROT_THETAS = [0.0, 0.52, -0.52, 1.3, -1.3, 1.57, -1.57]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cubic", [False, True], ids=["bilinear", "cubic"])
+@pytest.mark.parametrize("S", [224, 49])
+def test_cuda_rotate_kernel_matches_plain(cuda_device, S, cubic):
+    g = torch.Generator(device=cuda_device).manual_seed(S)
+    x = torch.rand(len(ROT_THETAS), S, S, 3, generator=g, device=cuda_device) * 255
+    th = torch.tensor(ROT_THETAS, device=cuda_device)
+    before = pallas_rotate.launch_count
+    out = pallas_rotate.rotate_shear3_pallas(x, th, cubic)
+    torch.cuda.synchronize()
+    assert pallas_rotate.launch_count == before + 1
+    # float32 tap sums in another order, values in [0, 255] (the JAX
+    # kernel test's tolerance).
+    torch.testing.assert_close(out, image_warp.rotate_shear3(x, th, cubic), rtol=0, atol=5e-3)
+
+
+# -- K4, the fused photometric chain -----------------------------------------------
+
+def _photometric_inputs(dev, B=4, S=224, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    imgs = torch.rand(B, S, S, 3, generator=g, device=dev) * 255
+    scalars = torch.stack([
+        torch.ones(B, device=dev), torch.full((B,), 9.0, device=dev),
+        torch.ones(B, device=dev), torch.ones(B, device=dev), torch.ones(B, device=dev),
+        torch.linspace(0.0, 1.0, B, device=dev), torch.full((B,), 17.0, device=dev),
+        torch.full((B,), 30.0, device=dev)], dim=1)
+    holes = torch.cat([torch.randint(0, S, (B, 10, 2), generator=g, device=dev),
+                       torch.randint(1, 40, (B, 10, 2), generator=g, device=dev)], -1)
+    noise = torch.randn(B, S, S, generator=g, device=dev)
+    return imgs, scalars, holes.to(torch.int32), noise
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flags", [[], [0], [2], [3], [4], [0, 2, 3, 4]],
+                         ids=["none", "blur", "noise", "cutout", "trunc", "all"])
+def test_cuda_photometric_kernel_matches_plain_with_host_noise(cuda_device, flags):
+    imgs, scalars, holes, noise = _photometric_inputs(cuda_device)
+    for j in (0, 2, 3, 4):
+        if j not in flags:
+            scalars[:, j] = 0.0
+    before = pallas_augment.launch_count
+    out = pallas_augment.fused_photometric_pallas(imgs, scalars, holes, 0, noise=noise)
+    torch.cuda.synchronize()
+    assert pallas_augment.launch_count == before + 1
+    ref = pallas_augment.fused_photometric_plain(imgs, scalars, holes, noise)
+    torch.testing.assert_close(out, ref, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_photometric_kernel_seeded_stream(cuda_device):
+    """With a seed the kernel draws the Philox stream that
+    ``philox_gaussian`` computes in PyTorch: the same result, the same
+    again for the same seed, another for another seed."""
+    imgs, scalars, holes, _ = _photometric_inputs(cuda_device, seed=1)
+    out = pallas_augment.fused_photometric_pallas(imgs, scalars, holes, 11)
+    again = pallas_augment.fused_photometric_pallas(imgs, scalars, holes, 11)
+    other = pallas_augment.fused_photometric_pallas(imgs, scalars, holes, 12)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, again, rtol=0, atol=0)
+    assert not torch.equal(out, other)
+    noise = pallas_augment.philox_gaussian(11, *imgs.shape[:2], device=cuda_device)
+    ref = pallas_augment.fused_photometric_plain(imgs, scalars, holes, noise)
+    torch.testing.assert_close(out, ref, rtol=0, atol=1e-5)
+
+
+# -- K5, flash attention -----------------------------------------------------------
+
+FLASH_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}  # x (1 + max |value|)
+
+
+def _close(out, ref, tol):
+    assert out.dtype == ref.dtype and out.shape == ref.shape
+    bound = tol * (1.0 + ref.float().abs().max().item())
+    assert (out.float() - ref.float()).abs().max().item() <= bound
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,H,T", [(8, 8, 784), (2, 4, 49), (1, 2, 4096)])
+def test_cuda_flash_kernels_match_plain(cuda_device, dtype, B, H, T):
+    g = torch.Generator(device=cuda_device).manual_seed(T + 2)
+    seg = fl.segment_ids(B, T, cuda_device)
+    Tp = T if seg is None else seg.shape[1]
+    q, k, v, go = (torch.randn(B, H, Tp, 32, generator=g, device=cuda_device).to(dtype)
+                   for _ in range(4))
+    before = (fl.launch_count, fl.bwd_launch_count)
+    o, l, m = fl._launch_fwd(q, k, v, seg, 32 ** -0.5)
+    grads = fl._launch_bwd(q, k, v, seg, o, l, m, go, 32 ** -0.5)
+    torch.cuda.synchronize()
+    assert (fl.launch_count, fl.bwd_launch_count) == (before[0] + 1, before[1] + 1)
+    ref = fl.attention_flash_plain(q, k, v, seg, 32 ** -0.5)
+    for a, b in zip((o, l, m), ref):
+        _close(a, b, FLASH_TOL[dtype])
+    # The backward from the plain residuals, so that only the kernel differs.
+    ref_grads = fl.attention_flash_plain_bwd(q, k, v, seg, *ref, go, 32 ** -0.5)
+    for a, b in zip(grads, ref_grads):
+        _close(a, b, FLASH_TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_cuda_flash_function_gradients_match_autograd(cuda_device):
+    """The padded Function on the card (K5 forward and backward) against
+    autograd through softmax attention, float32 with TF32 off."""
+    x = [torch.randn(2, 300, 4, 32, device=cuda_device).transpose(1, 2).requires_grad_()
+         for _ in range(3)]
+    y = [t.detach().clone().requires_grad_() for t in x]
+    go = torch.randn(2, 4, 300, 32, device=cuda_device)
+    fl.flash_self_attention(*x, 0.2).backward(go)
+    torch.cuda.synchronize()
+    s = torch.einsum("bhqd,bhkd->bhqk", y[0], y[1]) * 0.2
+    torch.einsum("bhqk,bhkd->bhqd", torch.softmax(s, -1), y[2]).backward(go)
+    for a, b in zip(x, y):
+        torch.testing.assert_close(a.grad, b.grad, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_function_under_autocast_runs_bf16(cuda_device):
+    x = [torch.randn(2, 4, 300, 32, device=cuda_device, requires_grad=True) for _ in range(3)]
+    with torch.autocast("cuda", dtype=torch.bfloat16):
+        out = fl.flash_self_attention(*x, 0.2)
+    assert out.dtype == torch.bfloat16 and out.shape == (2, 4, 300, 32)
+    out.float().sum().backward()
+    assert all(t.grad is not None and t.grad.dtype == torch.float32 for t in x)

@@ -15,6 +15,7 @@ from satellite_pose_estimation_tpu.models.detr import DETRKeypointModel as JaxDE
 from satellite_pose_estimation_tpu.train.state import TrainState
 from satellite_pose_estimation_tpu.train.steps import make_eval_step as jax_make_eval_step
 from satellite_pose_estimation_tpu_torch.models.detr import DETRConfig, DETRKeypointModel
+from satellite_pose_estimation_tpu_torch.ops import flash_attention
 from satellite_pose_estimation_tpu_torch.train.steps import make_eval_step
 from satellite_pose_estimation_tpu_torch.utils.checkpoint_convert import (
     flax_detr_to_state_dict,
@@ -62,6 +63,31 @@ def test_detr_model_matches_jax(models):
         for key in ("pred_logits", "pred_points"):
             np.testing.assert_allclose(o[key].numpy(), np.asarray(r[key]),
                                        rtol=2e-5, atol=2e-5)
+
+
+def test_flash_detr_matches_jax_fused_route(models):
+    """``use_flash_attention=True`` routes the encoder through the padded
+    flash Function (its plain version on the CPU); the converter's weights
+    carry over unchanged and, on the real tokens, the result is the JAX
+    model's on its default fused route (the JAX flash route cannot run on
+    the CPU)."""
+    jmodel, jvars, _ = models
+    fmodel = DETRKeypointModel(DETRConfig(backbone="resnet50s8", use_flash_attention=True,
+                                          **SIZES))
+    fmodel.load_state_dict(flax_detr_to_state_dict(jvars["params"], jvars["batch_stats"]),
+                           strict=True)
+    fmodel.eval()
+    assert all(getattr(fmodel.transformer, f"encoder_layer_{i}").self_attn.impl == "flash"
+               for i in range(SIZES["enc_layers"]))
+    x = np.random.RandomState(1).randn(2, INPUT, INPUT, 3).astype(np.float32)
+    ref = jax.jit(jmodel.apply)(jvars, jnp.asarray(x))
+    before = flash_attention.launch_count
+    with torch.no_grad():
+        out = fmodel(torch.from_numpy(x))
+    assert flash_attention.launch_count == before  # the CPU takes the plain version
+    for o, r in [(out, ref)] + list(zip(out["aux_outputs"], ref["aux_outputs"])):
+        for key in ("pred_logits", "pred_points"):
+            np.testing.assert_allclose(o[key].numpy(), np.asarray(r[key]), rtol=2e-5, atol=2e-5)
 
 
 def test_eval_step_matches_jax(models):

@@ -74,6 +74,45 @@ print("OK", losses["loss_total"].item())
 """
 
 
+_TINY_ROUTES = r"""
+import sys
+for name in ("jax", "jaxlib", "flax", "optax", "satellite_pose_estimation_tpu"):
+    sys.modules[name] = None  # any import of these now raises ImportError
+
+import torch
+from satellite_pose_estimation_tpu_torch.data.augment import AugmentConfig
+from satellite_pose_estimation_tpu_torch.losses.criterion import CriterionConfig
+from satellite_pose_estimation_tpu_torch.models.detr import DETRConfig, build_detr_train_model
+from satellite_pose_estimation_tpu_torch.ops import flash_attention, pallas_augment, pallas_rotate
+from satellite_pose_estimation_tpu_torch.train.state import TrainConfig, create_train_state
+from satellite_pose_estimation_tpu_torch.train.steps import make_train_step
+
+g = torch.Generator().manual_seed(0)
+batch = {
+    "image": torch.randint(0, 256, (2, 80, 80, 3), generator=g, dtype=torch.uint8),
+    "clip_bbox_buf": torch.tensor([[4.0, 4.0, 76.0, 76.0]] * 2),
+    "landmarks_buf": torch.rand(2, 11, 2, generator=g) * 60 + 10,
+    "labels": torch.arange(11).repeat(2, 1),
+}
+cfg = TrainConfig(use_ema=True)
+for flash, aug, fused in [(True, AugmentConfig(out_size=64, p_rotate=1.0, rotate_impl="pallas"),
+                           False),
+                          (False, AugmentConfig(out_size=64, p_noise=1.0), True)]:
+    model = build_detr_train_model(DETRConfig(hidden_dim=32, nheads=4, enc_layers=1,
+                                              dec_layers=1, dim_feedforward=64, dropout=0.0,
+                                              use_flash_attention=flash), seed=0)
+    state = create_train_state(model, cfg)
+    losses = make_train_step(CriterionConfig(), cfg, aug, use_pallas_augment=fused)(state, batch, g)
+    assert state.step == 1 and torch.isfinite(losses["loss_total"])
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
+                                       "satellite_pose_estimation_tpu")
+                and sys.modules[m] is not None)
+assert not loaded, loaded
+print("OK")
+"""
+
+
 def test_port_runs_an_eval_step_with_jax_blocked():
     proc = subprocess.run([sys.executable, "-c", _TINY_EVAL], cwd=ROOT,
                           capture_output=True, text=True, timeout=300)
@@ -83,6 +122,15 @@ def test_port_runs_an_eval_step_with_jax_blocked():
 
 def test_port_runs_a_train_step_with_jax_blocked():
     proc = subprocess.run([sys.executable, "-c", _TINY_TRAIN], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.startswith("OK")
+
+
+def test_port_runs_the_kernel_routes_with_jax_blocked():
+    """The rotation (K3), fused photometric (K4) and flash (K5) modules, on
+    the train step's routes that reach them."""
+    proc = subprocess.run([sys.executable, "-c", _TINY_ROUTES], cwd=ROOT,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.startswith("OK")
