@@ -1,13 +1,19 @@
 // Device helpers shared by the attention kernels (fused_attention.cu,
 // fused_attention_bwd.cu, flash_attention.cu): the block shape, type
-// conversions, and the head-dim-32 row products on padded shared-memory rows.
+// conversions, the head-dim-32 row products on padded shared-memory rows, and
+// the bf16 tensor-core pieces (cp.async, ldmatrix, mma.sync).
 //
-// Every kernel here gives a block of kThreads threads kRows rows (or keys),
-// kSplit adjacent lanes to a row, and streams kTile-row tiles of (T, 32)
-// matrices through shared memory as float32 rows padded to kLd floats, so that
-// the four rows a warp reads at once fall in distinct banks.
+// The float32 (CUDA-core) kernels give a block of kThreads threads kRows rows
+// (or keys), kSplit adjacent lanes to a row, and stream kTile-row tiles of
+// (T, 32) matrices through shared memory as float32 rows padded to kLd
+// floats, so that the four rows a warp reads at once fall in distinct banks.
+// The bf16 (tensor-core) kernels give a block of kMmaThreads threads (four
+// warps) kTile rows or keys, 16 to a warp, and stream kTile-row bf16 tiles
+// padded to kLdh elements.
 
 #pragma once
+
+#include <stdint.h>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -98,6 +104,175 @@ __device__ __forceinline__ void load_tile(float (*as)[kLd], float (*bs)[kLd], co
     as[j][d] = scale_a ? round_to<T>(av * a_scale) : av;  // round_to(0) = 0 past T
     bs[j][d] = r < T_len ? to_float(b[r * sb + d]) : 0.f;
   }
+}
+
+// ---- bf16 tensor-core helpers ----------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kMmaThreads = 128;  // four warps, 16 rows (or keys) each
+constexpr int kLdh = kD + 8;      // padded bf16 shared row: 80 B, so the eight
+                                  // 16-byte rows of an ldmatrix hit distinct banks
+constexpr float kLog2e = 1.4426950408889634f;
+
+// True when every row of a (B, H, T, 32) bf16 tensor starts on 16 bytes, so
+// that a row is four 16-byte cp.async copies.
+inline bool rows_16b(const void* p, long long sb, long long sh, long long st) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && sb % 8 == 0 && sh % 8 == 0 &&
+         st % 8 == 0;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 2^x on the SFU (ex2.approx, flush to zero; 2^-inf = 0).
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Two floats rounded to nearest bf16, packed low | high << 16 (an mma operand).
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Stage rows [r0, r0 + kTile) of a (T, 32) bf16 matrix with token stride st
+// into a padded shared tile, zero past T. With vec (rows_16b) each row is four
+// 16-byte cp.async copies that zero-fill past T (call cp_async_commit after);
+// otherwise plain element loads, visible after the next __syncthreads.
+__device__ __forceinline__ void stage_tile(bf16 (*dst)[kLdh], const bf16* src, long long st,
+                                           int r0, int T_len, bool vec) {
+  if (vec) {
+    for (int i = threadIdx.x; i < kTile * 4; i += kMmaThreads) {
+      const int r = i / 4, c = (i % 4) * 8;
+      const bool ok = r0 + r < T_len;
+      const bf16* s = src + (ok ? r0 + r : 0) * st + c;
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(&dst[r][c])),
+                   "l"(s), "r"(ok ? 16 : 0)
+                   : "memory");
+    }
+  } else {
+    for (int i = threadIdx.x; i < kTile * kD; i += kMmaThreads) {
+      const int r = i / kD, d = i % kD;
+      dst[r][d] = r0 + r < T_len ? src[(r0 + r) * st + d] : __float2bfloat16(0.f);
+    }
+  }
+}
+
+// Stage kTile float32 row statistics [r0, r0 + kTile) (4-byte cp.async, zero
+// past T).
+__device__ __forceinline__ void stage_stats(float* dst, const float* src, int r0, int T_len) {
+  if (threadIdx.x < kTile) {
+    const int r = r0 + threadIdx.x;
+    const bool ok = r < T_len;
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(&dst[threadIdx.x])),
+                 "l"(src + (ok ? r : 0)), "r"(ok ? 4 : 0)
+                 : "memory");
+  }
+}
+
+// Four 8x8 bf16 matrices from shared memory; lane l gives the address of row
+// l % 8 of matrix l / 8. Without .trans lane t receives row t / 4, columns
+// 2 (t % 4) and 2 (t % 4) + 1 of each; with .trans the transpose.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// d += a b on the tensor cores: a is 16 x 16 (row-major fragment), b 16 x 8
+// (column-major fragment), d 16 x 8 in float32. Lane t holds a at rows t / 4
+// (+8) and columns 2 (t % 4) (+1, +8, +9), b at rows 2 (t % 4) (+1, +8, +9)
+// and column t / 4, d at rows t / 4 (d[0..1]) and t / 4 + 8 (d[2..3]),
+// columns 2 (t % 4) and 2 (t % 4) + 1.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// S (16 x 64) += A (16 x 32, in registers) B^T, with B a (64, 32) shared
+// tile: the eight 8-column blocks of S, two k-steps of 16 each.
+__device__ __forceinline__ void mma_abt(float (&s)[8][4], const uint32_t (&a)[2][4],
+                                        const bf16 (*b)[kLdh]) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+    uint32_t f[4];
+    ldmatrix_x4(f, &b[nt * 8 + (lane & 7)][(lane >> 3) * 8]);
+    mma_bf16(s[nt], a[0], f[0], f[1]);
+    mma_bf16(s[nt], a[1], f[2], f[3]);
+  }
+}
+
+// O (16 x 32) += P (16 x 64, four k-steps of A fragments) B, with B a
+// (64, 32) shared tile read transposed.
+__device__ __forceinline__ void mma_ab(float (&o)[4][4], const uint32_t (&p)[4][4],
+                                       const bf16 (*b)[kLdh]) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+    for (int dp = 0; dp < 2; ++dp) {
+      uint32_t f[4];
+      ldmatrix_x4_trans(f, &b[kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8][dp * 16 + (lane >> 4) * 8]);
+      mma_bf16(o[2 * dp], p[kk], f[0], f[1]);
+      mma_bf16(o[2 * dp + 1], p[kk], f[2], f[3]);
+    }
+  }
+}
+
+// The A fragments of a warp's 16 rows [r0, r0 + 16) of a (T, 32) bf16 matrix
+// in global memory, each value times `scale` and rounded to bf16 (scale 1:
+// as stored), zero past T.
+__device__ __forceinline__ void load_a_frags(uint32_t (&a)[2][4], const bf16* src, long long st,
+                                             int r0, int T_len, float scale) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int ks = 0; ks < 2; ++ks) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = r0 + lane / 4 + (i & 1) * 8;
+      const int c = ks * 16 + 2 * (lane % 4) + (i >> 1) * 8;
+      float x0 = 0.f, x1 = 0.f;
+      if (r < T_len) {
+        x0 = __bfloat162float(src[r * st + c]) * scale;
+        x1 = __bfloat162float(src[r * st + c + 1]) * scale;
+      }
+      a[ks][i] = pack_bf16(x0, x1);
+    }
+  }
+}
+
+// Values at the accumulator positions of 8-column block nt of a 16 x 64
+// product (x0, x1 in row t / 4, x2, x3 in row t / 4 + 8), rounded to bf16 into
+// the A fragments of a 16 x 64 operand: block 2 kk (+1) fills registers 0, 1
+// (2, 3) of k-step kk. nt must be a compile-time index (an unrolled loop).
+__device__ __forceinline__ void set_a(uint32_t (&a)[4][4], int nt, float x0, float x1, float x2,
+                                      float x3) {
+  a[nt / 2][(nt & 1) * 2] = pack_bf16(x0, x1);
+  a[nt / 2][(nt & 1) * 2 + 1] = pack_bf16(x2, x3);
 }
 
 }  // namespace

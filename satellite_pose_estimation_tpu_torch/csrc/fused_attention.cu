@@ -1,39 +1,49 @@
-// Forward self-attention, softmax(q k^T * sm_scale) v, for head dim 32.
+// Forward self-attention, softmax(q k^T * sm_scale) v, for head dim 32, and
+// the float32 row log-sum-exp of the scores that the backward (K2) reuses.
 //
 // Replaces: satellite_pose_estimation_tpu/ops/fused_attention.py::_attn_kernel
 // (the Pallas TPU kernel behind fused_self_attention), with its numerics:
 // q is pre-scaled by sm_scale and rounded to the input type, scores and the
-// softmax are float32 with exp (not exp2), the unnormalised probabilities are
-// rounded to v's type for the PV product, PV accumulates in float32, and the
-// output is divided by the float32 row sum and cast to the input type.
+// softmax are float32, the unnormalised probabilities are rounded to v's type
+// for the PV product, PV accumulates in float32, and the output is divided by
+// the float32 row sum and cast to the input type. lse = m + log(l) per row.
 //
-// What bounds it on an H100 at the DETR encoder shape (T = 784, D = 32, bf16):
-// per (batch, head) it reads q, k, v and writes o, 4 * 784 * 32 * 2 B = 200 KB,
-// and does 2 * 2 * 784^2 * 32 = 79 MFLOP, about 390 FLOP per byte. At batch
-// 256 x 8 heads that is 411 MB (0.12 ms of HBM time at 3.35 TB/s) against
-// 161 GFLOP (0.16 ms at the 989 TFLOP/s of bf16 tensor cores, 2.4 ms at the
-// 67 TFLOP/s of float32 CUDA-core FMAs). So the products bound it, never
-// device memory -- provided the (T, T) score matrix (2.4 MB in float32 per
-// head) stays on chip; the unfused PyTorch version writes and re-reads all
-// B*H*T*T*4 B = 5 GB of it at batch 256.
+// What bounds it on an H100 at the DETR encoder shape (256, 8, 784, 32), bf16:
+// 4 * 256 * 8 * 784^2 * 32 = 161 GFLOP of products (0.163 ms at the 989
+// TFLOP/s of bf16 tensor cores) against 411 MB of q, k, v and o (0.123 ms at
+// 3.35 TB/s): the products, provided the (T, T) scores stay on chip. Beside
+// them, 784^2 * 2048 = 1.26e9 exponentials at 16 a clock per SM on the SFU
+// take ~0.34 ms: at D = 32 the exponentials, not the products, are the floor,
+// so mma.sync (below wgmma's peak, but no warpgroup-wide tile shapes to fit)
+// costs little.
 //
-// Design: the TPU kernel keeps the whole (T, T) float32 score block of one
-// (batch, head) in its 16-128 MB VMEM; an SM block has 227 KB of shared
-// memory, so this kernel streams instead. One block of 256 threads owns 64 q
-// rows of one (batch, head); four threads share a q row, each holding the
-// row in registers and taking every fourth key. K and V stream through shared
-// memory in tiles of 64 keys (float32, rows padded to 36 floats so that the
-// four keys a warp reads at once fall in distinct banks). Each thread keeps an
-// online softmax (running max, running sum, 32 float32 accumulators); the four
-// partial states of a row are merged with warp shuffles at the end. Ragged
-// edges (T = 784 = 12 * 64 + 16, any T >= 1) are masked: keys past T score
-// -inf, rows past T are computed on zeros and not stored. The products run on
-// the CUDA cores in float32 (FMA); moving them onto wgmma tensor-core tiles is
-// the next step for speed.
+// bf16 design (tensor cores): one block of four warps owns 64 q rows of one
+// (batch, head), 16 rows a warp. A warp keeps its pre-scaled, rounded q rows
+// as mma A fragments in registers and streams 64-key K and V tiles, double
+// buffered in shared memory through 16-byte cp.async (rows padded to 80 B so
+// ldmatrix is free of bank conflicts). Per tile: S = qs K^T with
+// mma.sync.m16n8k16 (bf16 in, float32 out), an online softmax on the S
+// accumulators (running max and sum per row, quad shuffles), exp taken as
+// ex2.approx of s log2(e) - m log2(e) (one FMA and one SFU op), the
+// unnormalised P rounded to bf16 straight into A fragments (the m16n8
+// accumulator layout is the m16k16 A layout), and O += P V with V read by
+// ldmatrix.trans. Keys past T score -inf; rows past T run on zeros and are
+// not stored. Inputs whose rows do not start on 16 bytes take plain loads.
+//
+// float32 design (CUDA cores, FMA): kept for the float32 parity checks, which
+// TF32 would miss. One block of 256 threads owns 64 q rows; four threads share
+// a row, each holding it in registers and taking every fourth key of 64-key
+// float32 tiles (load_tile); an online softmax per thread, merged with warp
+// shuffles at the end.
+//
+// ptxas (sm_90a, nvcc -Xptxas -v, as chip_smoke.py phase 1 prints it): the
+// bf16 kernel 83 registers, 20480 B of shared memory, no spills (five blocks,
+// 20 warps an SM); the float32 kernel 147 registers, 18432 B, no spills.
 //
 // Layout: q, k, v and o are (B, H, T, 32) with arbitrary batch, head and
 // token strides (in elements) and a unit stride on the head dimension, so
-// the (B, T, H, 32) views that the projections produce need no copy.
+// the (B, T, H, 32) views that the projections produce need no copy; lse is a
+// contiguous (B * H, T) float32 buffer.
 
 #include <math.h>
 
@@ -41,35 +51,142 @@
 
 namespace {
 
-constexpr int kKeys = 64;                // keys per shared-memory tile
-constexpr int kKeysPerThread = kKeys / kSplit;
+__global__ void __launch_bounds__(kMmaThreads)
+attn_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
+                     int H, int T_len, Strides sq, Strides sk, Strides sv, Strides so,
+                     float sm_scale, bool vec) {
+  __shared__ __align__(16) bf16 ks[2][kTile][kLdh];
+  __shared__ __align__(16) bf16 vs[2][kTile][kLdh];
 
-template <typename T>
+  const int lane = threadIdx.x % 32;
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh % H;
+  const int row0 = blockIdx.x * kTile + (threadIdx.x / 32) * 16;  // the warp's rows
+
+  const bf16* kb = k + b * sk.b + h * sk.h;
+  const bf16* vb = v + b * sv.b + h * sv.h;
+  const int n_tiles = (T_len + kTile - 1) / kTile;
+  stage_tile(ks[0], kb, sk.t, 0, T_len, vec);
+  stage_tile(vs[0], vb, sv.t, 0, T_len, vec);
+  cp_async_commit();
+
+  uint32_t qf[2][4];
+  load_a_frags(qf, q + b * sq.b + h * sq.h, sq.t, row0, T_len, sm_scale);
+
+  float m[2] = {-INFINITY, -INFINITY};  // running max of rows lane/4, lane/4 + 8
+  float l[2] = {0.f, 0.f};              // this lane's part of the running sum
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int buf = t & 1;
+    if (t + 1 < n_tiles) {
+      stage_tile(ks[buf ^ 1], kb, sk.t, (t + 1) * kTile, T_len, vec);
+      stage_tile(vs[buf ^ 1], vb, sv.t, (t + 1) * kTile, T_len, vec);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+
+    float s[8][4];
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[nt][j] = 0.f;
+    mma_abt(s, qf, ks[buf]);
+
+    const int k0 = t * kTile;
+    if (k0 + kTile > T_len) {  // the ragged last tile
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (k0 + nt * 8 + 2 * (lane % 4) + (j & 1) >= T_len) s[nt][j] = -INFINITY;
+    }
+
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) mx[j >> 1] = fmaxf(mx[j >> 1], s[nt][j]);
+    float ml[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      // Every row has key 0, so mx is finite; alpha = 0 on the first tile.
+      const float alpha = fast_exp2((m[r] - mx[r]) * kLog2e);
+      m[r] = mx[r];
+      ml[r] = mx[r] * kLog2e;
+      l[r] *= alpha;
+#pragma unroll
+      for (int dn = 0; dn < 4; ++dn) {
+        acc[dn][2 * r] *= alpha;
+        acc[dn][2 * r + 1] *= alpha;
+      }
+    }
+
+    uint32_t pf[4][4];
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      float p[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) p[j] = fast_exp2(fmaf(s[nt][j], kLog2e, -ml[j >> 1]));
+      l[0] += p[0] + p[1];
+      l[1] += p[2] + p[3];
+      set_a(pf, nt, p[0], p[1], p[2], p[3]);
+    }
+    mma_ab(acc, pf, vs[buf]);
+    __syncthreads();  // the next iteration refills this buffer
+  }
+
+  bf16* ob = o + b * so.b + h * so.h;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const int row = row0 + lane / 4 + r * 8;
+    if (row < T_len) {
+#pragma unroll
+      for (int dn = 0; dn < 4; ++dn) {
+        const __nv_bfloat162 val =
+            __floats2bfloat162_rn(acc[dn][2 * r] / l[r], acc[dn][2 * r + 1] / l[r]);
+        *reinterpret_cast<__nv_bfloat162*>(&ob[row * so.t + dn * 8 + 2 * (lane % 4)]) = val;
+      }
+      if (lane % 4 == 0) lse[static_cast<long long>(bh) * T_len + row] = m[r] + logf(l[r]);
+    }
+  }
+}
+
 __global__ void __launch_bounds__(kThreads)
-attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                const T* __restrict__ v, T* __restrict__ o, int H, int T_len,
-                Strides sq, Strides sk, Strides sv, Strides so, float sm_scale) {
-  __shared__ __align__(16) float ks[kKeys][kLd];
-  __shared__ __align__(16) float vs[kKeys][kLd];
+attn_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
+                    int H, int T_len, Strides sq, Strides sk, Strides sv, Strides so,
+                    float sm_scale) {
+  __shared__ __align__(16) float ks[kTile][kLd];
+  __shared__ __align__(16) float vs[kTile][kLd];
 
   const int tid = threadIdx.x;
   const int row = tid / kSplit;
   const int sub = tid % kSplit;
-  const int b = blockIdx.y / H;
-  const int h = blockIdx.y % H;
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh % H;
   const int qi = blockIdx.x * kRows + row;
   const bool row_ok = qi < T_len;
 
-  const T* qb = q + b * sq.b + h * sq.h;
-  const T* kb = k + b * sk.b + h * sk.h;
-  const T* vb = v + b * sv.b + h * sv.h;
+  const float* qb = q + b * sq.b + h * sq.h;
+  const float* kb = k + b * sk.b + h * sk.h;
+  const float* vb = v + b * sv.b + h * sv.h;
 
   float qr[kD];
 #pragma unroll
-  for (int d = 0; d < kD; ++d) {
-    const float x = row_ok ? to_float(qb[qi * sq.t + d]) : 0.f;
-    qr[d] = round_to<T>(x * sm_scale);
-  }
+  for (int d = 0; d < kD; ++d) qr[d] = row_ok ? qb[qi * sq.t + d] * sm_scale : 0.f;
 
   float m = -INFINITY;  // running max of this thread's keys
   float l = 0.f;        // running sum of exp(s - m)
@@ -77,38 +194,17 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int d = 0; d < kD; ++d) acc[d] = 0.f;
 
-  for (int k0 = 0; k0 < T_len; k0 += kKeys) {
+  for (int k0 = 0; k0 < T_len; k0 += kTile) {
     __syncthreads();  // the previous tile is consumed
-    for (int idx = tid; idx < kKeys * kD; idx += kThreads) {
-      const int j = idx / kD;
-      const int d = idx % kD;
-      const int key = k0 + j;
-      float kv = 0.f, vv = 0.f;
-      if (key < T_len) {
-        kv = to_float(kb[key * sk.t + d]);
-        vv = to_float(vb[key * sv.t + d]);
-      }
-      ks[j][d] = kv;
-      vs[j][d] = vv;
-    }
+    load_tile<float>(ks, vs, kb, vb, sk.t, sv.t, k0, T_len);
     __syncthreads();
 
-    float s[kKeysPerThread];
+    float s[kPerThread];
     float tile_max = -INFINITY;
 #pragma unroll
-    for (int i = 0; i < kKeysPerThread; ++i) {
+    for (int i = 0; i < kPerThread; ++i) {
       const int j = sub + kSplit * i;
-      const float4* kr = reinterpret_cast<const float4*>(&ks[j][0]);
-      float dot = 0.f;
-#pragma unroll
-      for (int d4 = 0; d4 < kD / 4; ++d4) {
-        const float4 kk = kr[d4];
-        dot = fmaf(qr[4 * d4 + 0], kk.x, dot);
-        dot = fmaf(qr[4 * d4 + 1], kk.y, dot);
-        dot = fmaf(qr[4 * d4 + 2], kk.z, dot);
-        dot = fmaf(qr[4 * d4 + 3], kk.w, dot);
-      }
-      s[i] = (k0 + j < T_len) ? dot : -INFINITY;
+      s[i] = (k0 + j < T_len) ? dot_row(qr, &ks[j][0]) : -INFINITY;
       tile_max = fmaxf(tile_max, s[i]);
     }
     const float m_new = fmaxf(m, tile_max);
@@ -118,19 +214,10 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int d = 0; d < kD; ++d) acc[d] *= alpha;
 #pragma unroll
-    for (int i = 0; i < kKeysPerThread; ++i) {
+    for (int i = 0; i < kPerThread; ++i) {
       const float p = expf(s[i] - m_new);  // 0 for masked keys
       l += p;
-      const float pv = round_to<T>(p);
-      const float4* vr = reinterpret_cast<const float4*>(&vs[sub + kSplit * i][0]);
-#pragma unroll
-      for (int d4 = 0; d4 < kD / 4; ++d4) {
-        const float4 vv = vr[d4];
-        acc[4 * d4 + 0] = fmaf(pv, vv.x, acc[4 * d4 + 0]);
-        acc[4 * d4 + 1] = fmaf(pv, vv.y, acc[4 * d4 + 1]);
-        acc[4 * d4 + 2] = fmaf(pv, vv.z, acc[4 * d4 + 2]);
-        acc[4 * d4 + 3] = fmaf(pv, vv.w, acc[4 * d4 + 3]);
-      }
+      axpy_row(acc, p, &vs[sub + kSplit * i][0]);
     }
     m = m_new;
   }
@@ -142,21 +229,16 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int off = 1; off < kSplit; off <<= 1)
     m_row = fmaxf(m_row, __shfl_xor_sync(0xffffffffu, m_row, off));
   const float f = (m == -INFINITY) ? 0.f : expf(m - m_row);
-  l *= f;
+  const float l_row = split_sum(l * f);
 #pragma unroll
-  for (int d = 0; d < kD; ++d) acc[d] *= f;
-#pragma unroll
-  for (int off = 1; off < kSplit; off <<= 1) {
-    l += __shfl_xor_sync(0xffffffffu, l, off);
-#pragma unroll
-    for (int d = 0; d < kD; ++d) acc[d] += __shfl_xor_sync(0xffffffffu, acc[d], off);
-  }
+  for (int d = 0; d < kD; ++d) acc[d] = split_sum(acc[d] * f);
 
   if (row_ok) {
-    T* ob = o + b * so.b + h * so.h + qi * so.t;
+    float* ob = o + b * so.b + h * so.h + qi * so.t;
 #pragma unroll
     for (int d = 0; d < kD; ++d)
-      if (d / kCols == sub) ob[d] = from_float<T>(acc[d] / l);
+      if (d / kCols == sub) ob[d] = acc[d] / l_row;
+    if (sub == 0) lse[static_cast<long long>(bh) * T_len + qi] = m_row + logf(l_row);
   }
 }
 
@@ -164,10 +246,11 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. Strides are in elements. Returns the
-// cudaError_t of the launch (0 on success). Launches on `stream`, does not
-// synchronise and allocates nothing.
-int spe_fused_attention_fwd(const void* q, const void* k, const void* v, void* o,
+// dtype: 0 = float32, 1 = bfloat16. Strides are in elements; lse is a
+// contiguous (B * H, T) float32 output. Returns the cudaError_t of the launch
+// (0 on success). Launches on `stream`, does not synchronise and allocates
+// nothing.
+int spe_fused_attention_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                             int dtype, int B, int H, int T_len,
                             long long q_sb, long long q_sh, long long q_st,
                             long long k_sb, long long k_sh, long long k_st,
@@ -175,20 +258,24 @@ int spe_fused_attention_fwd(const void* q, const void* k, const void* v, void* o
                             long long o_sb, long long o_sh, long long o_st,
                             float sm_scale, void* stream) {
   if (B < 1 || H < 1 || T_len < 1 || B * H > 65535) return (int)cudaErrorInvalidValue;
-  const dim3 grid((T_len + kRows - 1) / kRows, B * H);
+  const dim3 grid((T_len + kTile - 1) / kTile, B * H);
   const Strides sq{q_sb, q_sh, q_st}, sk{k_sb, k_sh, k_st};
   const Strides sv{v_sb, v_sh, v_st}, so{o_sb, o_sh, o_st};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* lsef = static_cast<float*>(lse);
   if (dtype == 0) {
-    attn_fwd_kernel<float><<<grid, kThreads, 0, s>>>(
+    attn_fwd_f32_kernel<<<grid, kThreads, 0, s>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o), H, T_len, sq, sk, sv, so,
+        static_cast<const float*>(v), static_cast<float*>(o), lsef, H, T_len, sq, sk, sv, so,
         sm_scale);
   } else if (dtype == 1) {
-    attn_fwd_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), H, T_len, sq,
-        sk, sv, so, sm_scale);
+    // The output's rows are written as 4-byte pairs.
+    if (reinterpret_cast<uintptr_t>(o) % 4 != 0 || o_sb % 2 || o_sh % 2 || o_st % 2)
+      return (int)cudaErrorMisalignedAddress;
+    const bool vec = rows_16b(k, k_sb, k_sh, k_st) && rows_16b(v, v_sb, v_sh, v_st);
+    attn_fwd_bf16_kernel<<<grid, kMmaThreads, 0, s>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        static_cast<bf16*>(o), lsef, H, T_len, sq, sk, sv, so, sm_scale, vec);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -92,13 +92,49 @@ def test_attention_kernels_share_one_header():
     from satellite_pose_estimation_tpu_torch.utils import cuda_build
 
     helpers = ("__device__ __forceinline__ float to_float", "float dot_row(",
-               "void axpy_row(", "float split_sum(", "void load_tile(")
+               "void axpy_row(", "float split_sum(", "void load_tile(", "void stage_tile(",
+               "void mma_bf16(", "void ldmatrix_x4(", "void mma_abt(", "void mma_ab(",
+               "void load_a_frags(", "void set_a(")
     for src in ("fused_attention.cu", "fused_attention_bwd.cu", "flash_attention.cu"):
         text = (cuda_build.CSRC_DIR / src).read_text()
         assert '#include "attention_common.cuh"' in text
         assert not any(h in text for h in helpers), src
     common = (cuda_build.CSRC_DIR / "attention_common.cuh").read_text()
     assert all(h in common for h in helpers)
+
+
+_PTXAS_REPORT = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__ce03ee70_18_fused_attention_cu_bd00120119attn_fwd_f32_kernelEPKfS1_S1_PfS2_iiNS_7StridesES3_S3_S3_f' for 'sm_90a'
+ptxas info    : Function properties for _ZN51_GLOBAL__N__ce03ee70_18_fused_attention_cu_bd00120119attn_fwd_f32_kernelEPKfS1_S1_PfS2_iiNS_7StridesES3_S3_S3_f
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 147 registers, used 1 barriers, 18432 bytes smem
+ptxas info    : Compiling entry function '_ZN55_GLOBAL__N__ad5dd36d_22_fused_attention_bwd_cu_ba09badd23attn_bwd_dq_bf16_kernelEPK13__nv_bfloat16S2_S2_S2_S2_PKfPfS5_PS0_S6_iiNS_7StridesES7_S7_S7_S7_S7_fb' for 'sm_90a'
+ptxas info    : Function properties for _ZN55_GLOBAL__N__ad5dd36d_22_fused_attention_bwd_cu_ba09badd23attn_bwd_dq_bf16_kernelEPK13__nv_bfloat16S2_S2_S2_S2_PKfPfS5_PS0_S6_iiNS_7StridesES7_S7_S7_S7_S7_fb
+    24 bytes stack frame, 28 bytes spill stores, 48 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers, 24 bytes cumulative stack size, 20480 bytes smem
+"""
+
+
+def test_kernel_resources_reads_the_ptxas_report(tmp_path, monkeypatch):
+    """The build keeps nvcc -Xptxas -v's report beside each library;
+    kernel_resources gives each kernel's registers, shared memory and
+    spills from it (chip_smoke.py prints them)."""
+    from satellite_pose_estimation_tpu_torch.utils import cuda_build
+
+    monkeypatch.setattr(cuda_build, "CSRC_DIR", tmp_path)
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path / "build")
+    (tmp_path / "k.cu").write_text("// k")
+    report = cuda_build.library_path("k", ["k.cu"]).with_suffix(".ptxas.txt")
+    report.parent.mkdir()
+    report.write_text(_PTXAS_REPORT)
+    assert "-v" in cuda_build.NVCC_FLAGS
+    assert cuda_build.kernel_resources("k", ["k.cu"]) == {
+        "attn_fwd_f32_kernel": "147 registers, 18432 bytes smem, 0 bytes spill stores, "
+                               "0 bytes spill loads",
+        "attn_bwd_dq_bf16_kernel": "128 registers, 20480 bytes smem, 28 bytes spill stores, "
+                                   "48 bytes spill loads",
+    }
 
 
 def test_find_nvcc_raises_without_a_toolkit(tmp_path, monkeypatch):
@@ -182,19 +218,25 @@ def test_kernel_branch_carries_a_gradient(monkeypatch):
     """The fault this Function repairs: a kernel launch fills a fresh
     buffer outside autograd, so without the Function q, k and v get no
     gradient and nothing raises. Here the K1 launch is faked by
-    attention_plain under no_grad (as a ctypes launch behaves) and CPU
-    tensors are routed through the kernel branch: the fake alone carries
-    no graph, while fused_self_attention's result does, and its backward
-    goes through the K2 branch."""
+    attention_plain and attention_plain_lse under no_grad (as a ctypes
+    launch behaves) and CPU tensors are routed through the kernel branch:
+    the fake alone carries no graph, while fused_self_attention's result
+    does, and its backward goes through the K2 branch with K1's output and
+    log-sum-exp as residuals; the gradients from them (the bf16 K2's plain
+    form) match attention_plain_bwd (float32, sums in another order:
+    1e-5)."""
     calls = []
+    forwards = []
 
     def fake_fwd(q, k, v, s):
         with torch.no_grad():
-            return fa.attention_plain(q, k, v, s)
+            forwards.append((fa.attention_plain(q, k, v, s), fa.attention_plain_lse(q, k, s)))
+        return forwards[-1]
 
-    def fake_bwd(q, k, v, g, s):
+    def fake_bwd(q, k, v, o, lse, g, s):
         calls.append(g.shape)
-        return fa.attention_plain_bwd(q, k, v, g, s)
+        assert torch.equal(o, forwards[-1][0]) and torch.equal(lse, forwards[-1][1])
+        return fa.attention_plain_bwd_lse(q, k, v, o, lse, g, s)
 
     monkeypatch.setattr(fa, "_use_kernel", lambda t: True)
     monkeypatch.setattr(fa, "_launch_fwd", fake_fwd)
@@ -202,13 +244,67 @@ def test_kernel_branch_carries_a_gradient(monkeypatch):
     q, k, v, g = _torch(*_qkvg(8, 49))
     q, k, v = (t.requires_grad_() for t in (q, k, v))
 
-    unwrapped = fake_fwd(q, k, v, 0.2)
+    unwrapped, lse = fake_fwd(q, k, v, 0.2)
     assert unwrapped.grad_fn is None  # the fault: no path back to q, k, v
+    assert lse.dtype == torch.float32 and lse.shape == q.shape[:3]
 
     out = fa.fused_self_attention(q, k, v, 0.2)
+    assert len(out.grad_fn.saved_tensors) == 5  # q, k, v, out, lse
     out.backward(g)
     assert calls == [g.shape]
     ref = fa.attention_plain_bwd(q.detach(), k.detach(), v.detach(), g, 0.2)
     for t, r in zip((q, k, v), ref):
         assert t.grad is not None
-        torch.testing.assert_close(t.grad, r, rtol=0, atol=0)
+        torch.testing.assert_close(t.grad, r, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("T", [1, 49, 96])
+def test_plain_lse_is_the_softmax_normaliser(T):
+    """exp(s - lse) sums to 1 over the keys of every row, s = qs k^T with
+    q pre-scaled and rounded as K1 does."""
+    q, k, _ = _torch(*_qkv(400 + T, 2, 3, T))
+    scale = 1.0 / np.sqrt(32)
+    lse = fa.attention_plain_lse(q, k, scale)
+    assert lse.dtype == torch.float32 and lse.shape == (2, 3, T)
+    s = torch.einsum("bhqd,bhkd->bhqk", q * scale, k)
+    torch.testing.assert_close(torch.exp(s - lse[..., None]).sum(-1), torch.ones(2, 3, T),
+                               rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("T", [49, 96])
+def test_plain_bwd_lse_matches_plain_bwd_float32(T):
+    """In float32 the residual form (p from lse, delta = rowsum(o * g))
+    is the TPU form to rounding (1e-5 of the largest gradient)."""
+    q, k, v, g = _torch(*_qkvg(500 + T, T))
+    scale = 1.0 / np.sqrt(32)
+    o, lse = fa.attention_plain(q, k, v, scale), fa.attention_plain_lse(q, k, scale)
+    out = fa.attention_plain_bwd_lse(q, k, v, o, lse, g, scale)
+    for o_, r in zip(out, fa.attention_plain_bwd(q, k, v, g, scale)):
+        assert o_.dtype == torch.float32
+        torch.testing.assert_close(o_, r, rtol=0, atol=TOL * (1.0 + r.abs().max().item()))
+
+
+def test_bf16_row_sum_from_output_holds_the_tolerance():
+    """The bf16 K2 takes delta = rowsum(o * g) from K1's bf16 output, where
+    the TPU kernel takes rowsum(p * dp). At the encoder's T = 784 in bf16,
+    gradients that way, from a bf16-rounded attention_plain output, stay
+    within K2's card tolerance 2e-2 (1 + max|grad|) of attention_plain_bwd,
+    and within 4e-2 (1 + max|grad|) of jax.vjp of the JAX function (the
+    tolerance of test_plain_bwd_matches_jax_vjp)."""
+    rng = np.random.RandomState(784)
+    arrays = [rng.randn(1, 2, 784, 32).astype(np.float32) for _ in range(4)]
+    scale = 1.0 / np.sqrt(32)
+    q, k, v, g = (t.to(torch.bfloat16) for t in _torch(*arrays))
+    o = fa.attention_plain(q, k, v, scale)
+    assert o.dtype == torch.bfloat16
+    out = fa.attention_plain_bwd_lse(q, k, v, o, fa.attention_plain_lse(q, k, scale), g, scale)
+    _, vjp = jax.vjp(lambda a, b, c: fused_self_attention(a, b, c, scale),
+                     *(jnp.asarray(a, jnp.bfloat16) for a in arrays[:3]))
+    jax_ref = vjp(jnp.asarray(arrays[3], jnp.bfloat16))
+    for o_, r, j in zip(out, fa.attention_plain_bwd(q, k, v, g, scale), jax_ref):
+        assert o_.dtype == torch.bfloat16
+        r = r.float()
+        assert (o_.float() - r).abs().max().item() <= 2e-2 * (1.0 + r.abs().max().item())
+        j = np.asarray(j, np.float32)
+        np.testing.assert_allclose(o_.float().numpy(), j, rtol=0,
+                                   atol=4e-2 * (1.0 + np.abs(j).max()))

@@ -21,9 +21,21 @@ def cuda_device():
     return torch.device("cuda")
 
 
+SHAPES = [(8, 8, 784), (2, 4, 49), (2, 2, 100), (1, 2, 4096), (1, 1, 1)]
+
+
+def _views(dev, dtype, n, B=2, T=300, H=4, pad=0, seed=0):
+    """``n`` (B, H, T, 32) head views of (B, T, H, 32 + pad) buffers: pad 0
+    is the projections' layout (rows on 16 bytes); an odd pad gives rows
+    that are not, which the bf16 kernels load without cp.async."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(B, T, H, 32 + pad, generator=g, device=dev).to(dtype)[..., :32]
+            .transpose(1, 2) for _ in range(n)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("B,H,T", [(8, 8, 784), (2, 4, 49), (1, 2, 4096), (1, 1, 1)])
+@pytest.mark.parametrize("B,H,T", SHAPES)
 def test_cuda_kernel_matches_plain(cuda_device, dtype, tol, B, H, T):
     g = torch.Generator(device=cuda_device).manual_seed(T)
     q, k, v = (torch.randn(B, H, T, 32, generator=g, device=cuda_device).to(dtype)
@@ -37,11 +49,27 @@ def test_cuda_kernel_matches_plain(cuda_device, dtype, tol, B, H, T):
 
 
 @pytest.mark.cuda
-def test_cuda_kernel_takes_strided_head_views(cuda_device):
-    x = torch.randn(2, 300, 4, 32, device=cuda_device).transpose(1, 2)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,H,T", SHAPES)
+def test_cuda_kernel_lse_matches_plain(cuda_device, dtype, B, H, T):
+    """K1's float32 row log-sum-exp, which K2 takes its softmax from."""
+    q, k, v = (torch.randn(B, H, T, 32, device=cuda_device).to(dtype) for _ in range(3))
+    _, lse = fa._launch_fwd(q, k, v, 32 ** -0.5)
+    torch.cuda.synchronize()
+    ref = fa.attention_plain_lse(q, k, 32 ** -0.5)
+    assert lse.dtype == torch.float32 and lse.shape == (B, H, T)
+    torch.testing.assert_close(lse, ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("pad", [0, 3], ids=["aligned", "unaligned"])
+def test_cuda_kernel_takes_strided_head_views(cuda_device, dtype, tol, pad):
+    x = _views(cuda_device, dtype, 1, pad=pad)[0]
     out = fa.fused_self_attention(x, x, x, 0.2)
     torch.cuda.synchronize()
-    torch.testing.assert_close(out, fa.attention_plain(x, x, x, 0.2), rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(out.float(), fa.attention_plain(x, x, x, 0.2).float(),
+                               rtol=tol, atol=tol)
 
 
 @pytest.mark.cuda
@@ -69,27 +97,45 @@ def _assert_grads_close(out, ref, tol):
         assert (o.float() - r.float()).abs().max().item() <= bound
 
 
+def _bwd(q, k, v, go, sm_scale):
+    """K2 from the residuals K1 gives it."""
+    o, lse = fa._launch_fwd(q, k, v, sm_scale)
+    return fa._launch_bwd(q, k, v, o, lse, go, sm_scale)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,H,T", [(8, 8, 784), (2, 4, 49), (1, 2, 4096), (1, 1, 1)])
+@pytest.mark.parametrize("B,H,T", SHAPES)
 def test_cuda_bwd_kernel_matches_plain(cuda_device, dtype, B, H, T):
     g = torch.Generator(device=cuda_device).manual_seed(T + 1)
     q, k, v, go = (torch.randn(B, H, T, 32, generator=g, device=cuda_device).to(dtype)
                    for _ in range(4))
     before = fa.bwd_launch_count
-    out = fa._launch_bwd(q, k, v, go, 32 ** -0.5)
+    out = _bwd(q, k, v, go, 32 ** -0.5)
     torch.cuda.synchronize()
     assert fa.bwd_launch_count == before + 1
     _assert_grads_close(out, fa.attention_plain_bwd(q, k, v, go, 32 ** -0.5), BWD_TOL[dtype])
 
 
 @pytest.mark.cuda
-def test_cuda_bwd_kernel_takes_strided_head_views(cuda_device):
-    q, k, v, go = (torch.randn(2, 300, 4, 32, device=cuda_device).transpose(1, 2)
-                   for _ in range(4))
-    out = fa._launch_bwd(q, k, v, go, 0.2)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("pad", [0, 3], ids=["aligned", "unaligned"])
+def test_cuda_bwd_kernel_takes_strided_head_views(cuda_device, dtype, pad):
+    q, k, v, go = _views(cuda_device, dtype, 4, pad=pad, seed=1)
+    out = _bwd(q, k, v, go, 0.2)
     torch.cuda.synchronize()
-    _assert_grads_close(out, fa.attention_plain_bwd(q, k, v, go, 0.2), 1e-5)
+    _assert_grads_close(out, fa.attention_plain_bwd(q, k, v, go, 0.2), BWD_TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_cuda_bwd_kernel_is_deterministic(cuda_device):
+    """Two passes and no atomics: two runs give the same bits."""
+    q, k, v, go = _views(cuda_device, torch.bfloat16, 4, B=4, T=784, H=8, seed=2)
+    o, lse = fa._launch_fwd(q, k, v, 32 ** -0.5)
+    first = fa._launch_bwd(q, k, v, o, lse, go, 32 ** -0.5)
+    second = fa._launch_bwd(q, k, v, o, lse, go, 32 ** -0.5)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 @pytest.mark.cuda
@@ -110,26 +156,44 @@ def test_cuda_function_gradients_match_autograd(cuda_device):
 
 
 @pytest.mark.cuda
-def test_cuda_function_under_autocast_runs_bf16(cuda_device):
+def test_cuda_function_under_autocast_runs_bf16(cuda_device, monkeypatch):
+    """Under autocast the Function runs the bf16 kernels, saves K1's output
+    and log-sum-exp, and K2 takes exactly those."""
     x = [torch.randn(2, 4, 300, 32, device=cuda_device, requires_grad=True) for _ in range(3)]
     with torch.autocast("cuda", dtype=torch.bfloat16):
         out = fa.fused_self_attention(*x, 0.2)
     assert out.dtype == torch.bfloat16
+    saved = out.grad_fn.saved_tensors
+    assert len(saved) == 5 and saved[4].dtype == torch.float32
+    torch.testing.assert_close(saved[4], fa.attention_plain_lse(*saved[:2], 0.2),
+                               rtol=1e-5, atol=1e-5)
+    seen = []
+    launch = fa._launch_bwd
+
+    def spy(q, k, v, o, lse, g, s):
+        seen.append((o.data_ptr(), lse.data_ptr(), q.dtype))
+        return launch(q, k, v, o, lse, g, s)
+
+    monkeypatch.setattr(fa, "_launch_bwd", spy)
     out.float().sum().backward()
+    assert seen == [(out.data_ptr(), saved[4].data_ptr(), torch.bfloat16)]
     assert all(t.grad is not None and t.grad.dtype == torch.float32 for t in x)
 
 
 @pytest.mark.cuda
 def test_cuda_bwd_kernel_raises_on_unsupported_input(cuda_device):
     q = torch.randn(1, 1, 16, 64, device=cuda_device)
+    lse = torch.zeros(1, 1, 16, device=cuda_device)
     with pytest.raises(ValueError):
-        fa._launch_bwd(q, q, q, q, 0.1)
+        fa._launch_bwd(q, q, q, q, lse, q, 0.1)
     q = torch.randn(1, 1, 16, 32, device=cuda_device, dtype=torch.float16)
     with pytest.raises(TypeError):
-        fa._launch_bwd(q, q, q, q.float().to(torch.float16), 0.1)
+        fa._launch_bwd(q, q, q, q, lse, q.float().to(torch.float16), 0.1)
     q = torch.randn(1, 1, 16, 32, device=cuda_device)
     with pytest.raises(ValueError):
-        fa._launch_bwd(q, q, q[..., :8, :], q[..., :8, :], 0.1)
+        fa._launch_bwd(q, q, q[..., :8, :], q, lse, q[..., :8, :], 0.1)
+    with pytest.raises(ValueError):
+        fa._launch_bwd(q, q, q, q, lse[..., :8], q, 0.1)
 
 
 # -- K3, the rotation --------------------------------------------------------------

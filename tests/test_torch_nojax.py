@@ -152,3 +152,18 @@ def _imported_roots(path):
 def test_port_sources_import_no_jax(path):
     banned = {"jax", "jaxlib", "flax", "optax", "satellite_pose_estimation_tpu"}
     assert not (_imported_roots(path) & banned)
+
+
+# Library attention that the port must not call: its attention is the
+# hand-written K1/K2/K5 (chip_smoke.py times SDPA only as a yardstick).
+_LIBRARY_ATTENTION = ("scaled_dot_product_attention", "MultiheadAttention",
+                      "multi_head_attention_forward", "_efficient_attention_forward",
+                      "flash_attn", "xformers", "flex_attention")
+
+
+@pytest.mark.parametrize(
+    "path", sorted(p for p in PORT.rglob("*") if p.suffix in (".py", ".cu", ".cuh")),
+    ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_sources_call_no_library_attention(path):
+    text = path.read_text()
+    assert not [name for name in _LIBRARY_ATTENTION if name in text]
