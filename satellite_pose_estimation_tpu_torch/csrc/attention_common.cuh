@@ -8,8 +8,8 @@
 // (T, 32) matrices through shared memory as float32 rows padded to kLd
 // floats, so that the four rows a warp reads at once fall in distinct banks.
 // The bf16 (tensor-core) kernels give a block of kMmaThreads threads (four
-// warps) kTile rows or keys, 16 to a warp, and stream kTile-row bf16 tiles
-// padded to kLdh elements.
+// warps) kTile rows or keys, 16 to a warp (K1: 2 kTile rows, two groups of 16
+// a warp), and stream kTile-row bf16 tiles padded to kLdh elements.
 
 #pragma once
 
@@ -212,23 +212,30 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// S (16 x 64) += A (16 x 32, in registers) B^T, with B a (64, 32) shared
-// tile: the eight 8-column blocks of S, two k-steps of 16 each.
-__device__ __forceinline__ void mma_abt(float (&s)[8][4], const uint32_t (&a)[2][4],
+// S[g] (16 x 64) += A[g] (16 x 32, in registers) B^T for M groups of 16 rows,
+// with B a (64, 32) shared tile: the eight 8-column blocks of S, two k-steps
+// of 16 each. Each B fragment is read from shared memory once for all groups.
+template <int M>
+__device__ __forceinline__ void mma_abt(float (&s)[M][8][4], const uint32_t (&a)[M][2][4],
                                         const bf16 (*b)[kLdh]) {
   const int lane = threadIdx.x % 32;
 #pragma unroll
   for (int nt = 0; nt < 8; ++nt) {
     uint32_t f[4];
     ldmatrix_x4(f, &b[nt * 8 + (lane & 7)][(lane >> 3) * 8]);
-    mma_bf16(s[nt], a[0], f[0], f[1]);
-    mma_bf16(s[nt], a[1], f[2], f[3]);
+#pragma unroll
+    for (int g = 0; g < M; ++g) {
+      mma_bf16(s[g][nt], a[g][0], f[0], f[1]);
+      mma_bf16(s[g][nt], a[g][1], f[2], f[3]);
+    }
   }
 }
 
-// O (16 x 32) += P (16 x 64, four k-steps of A fragments) B, with B a
-// (64, 32) shared tile read transposed.
-__device__ __forceinline__ void mma_ab(float (&o)[4][4], const uint32_t (&p)[4][4],
+// O[g] (16 x 32) += P[g] (16 x 64, four k-steps of A fragments) B for M
+// groups of 16 rows, with B a (64, 32) shared tile read transposed, once for
+// all groups.
+template <int M>
+__device__ __forceinline__ void mma_ab(float (&o)[M][4][4], const uint32_t (&p)[M][4][4],
                                        const bf16 (*b)[kLdh]) {
   const int lane = threadIdx.x % 32;
 #pragma unroll
@@ -237,10 +244,26 @@ __device__ __forceinline__ void mma_ab(float (&o)[4][4], const uint32_t (&p)[4][
     for (int dp = 0; dp < 2; ++dp) {
       uint32_t f[4];
       ldmatrix_x4_trans(f, &b[kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8][dp * 16 + (lane >> 4) * 8]);
-      mma_bf16(o[2 * dp], p[kk], f[0], f[1]);
-      mma_bf16(o[2 * dp + 1], p[kk], f[2], f[3]);
+#pragma unroll
+      for (int g = 0; g < M; ++g) {
+        mma_bf16(o[g][2 * dp], p[g][kk], f[0], f[1]);
+        mma_bf16(o[g][2 * dp + 1], p[g][kk], f[2], f[3]);
+      }
     }
   }
+}
+
+// The same for one group of 16 rows.
+__device__ __forceinline__ void mma_abt(float (&s)[8][4], const uint32_t (&a)[2][4],
+                                        const bf16 (*b)[kLdh]) {
+  mma_abt<1>(reinterpret_cast<float(&)[1][8][4]>(s),
+             reinterpret_cast<const uint32_t(&)[1][2][4]>(a), b);
+}
+
+__device__ __forceinline__ void mma_ab(float (&o)[4][4], const uint32_t (&p)[4][4],
+                                       const bf16 (*b)[kLdh]) {
+  mma_ab<1>(reinterpret_cast<float(&)[1][4][4]>(o),
+            reinterpret_cast<const uint32_t(&)[1][4][4]>(p), b);
 }
 
 // The A fragments of a warp's 16 rows [r0, r0 + 16) of a (T, 32) bf16 matrix

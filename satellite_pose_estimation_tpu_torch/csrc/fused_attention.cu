@@ -17,11 +17,13 @@
 // so mma.sync (below wgmma's peak, but no warpgroup-wide tile shapes to fit)
 // costs little.
 //
-// bf16 design (tensor cores): one block of four warps owns 64 q rows of one
-// (batch, head), 16 rows a warp. A warp keeps its pre-scaled, rounded q rows
-// as mma A fragments in registers and streams 64-key K and V tiles, double
-// buffered in shared memory through 16-byte cp.async (rows padded to 80 B so
-// ldmatrix is free of bank conflicts). Per tile: S = qs K^T with
+// bf16 design (tensor cores): one block of four warps owns 128 q rows of one
+// (batch, head), two groups of 16 rows a warp. A warp keeps its pre-scaled,
+// rounded q rows as mma A fragments in registers and streams 64-key K and V
+// tiles, double buffered in shared memory through 16-byte cp.async (rows
+// padded to 80 B so ldmatrix is free of bank conflicts); each K or V fragment
+// it reads by ldmatrix serves both of its groups, which halves the shared
+// memory reads of one group a warp. Per tile: S = qs K^T with
 // mma.sync.m16n8k16 (bf16 in, float32 out), an online softmax on the S
 // accumulators (running max and sum per row, quad shuffles), exp taken as
 // ex2.approx of s log2(e) - m log2(e) (one FMA and one SFU op), the
@@ -37,8 +39,10 @@
 // shuffles at the end.
 //
 // ptxas (sm_90a, nvcc -Xptxas -v, as chip_smoke.py phase 1 prints it): the
-// bf16 kernel 83 registers, 20480 B of shared memory, no spills (five blocks,
-// 20 warps an SM); the float32 kernel 147 registers, 18432 B, no spills.
+// bf16 kernel 164 registers, 20480 B of shared memory, no spills (three
+// blocks, 12 warps an SM; one group a warp took 83 registers and ran five
+// blocks an SM, and was slower: PERF.md has both times); the float32 kernel
+// 147 registers, 18432 B, no spills.
 //
 // Layout: q, k, v and o are (B, H, T, 32) with arbitrary batch, head and
 // token strides (in elements) and a unit stride on the head dimension, so
@@ -50,6 +54,11 @@
 #include "attention_common.cuh"
 
 namespace {
+
+// The bf16 kernel's 16-row groups a warp owns, and so the q rows a block owns:
+// group g of warp w holds rows g * kTile + 16 w + [0, 16) of the block's.
+constexpr int kFwdGroups = 2;
+constexpr int kFwdRows = kFwdGroups * kTile;
 
 __global__ void __launch_bounds__(kMmaThreads)
 attn_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -63,7 +72,7 @@ attn_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int bh = blockIdx.y;
   const int b = bh / H;
   const int h = bh % H;
-  const int row0 = blockIdx.x * kTile + (threadIdx.x / 32) * 16;  // the warp's rows
+  const int warp_row0 = blockIdx.x * kFwdRows + (threadIdx.x / 32) * 16;  // + g * kTile
 
   const bf16* kb = k + b * sk.b + h * sk.h;
   const bf16* vb = v + b * sv.b + h * sv.h;
@@ -72,16 +81,23 @@ attn_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   stage_tile(vs[0], vb, sv.t, 0, T_len, vec);
   cp_async_commit();
 
-  uint32_t qf[2][4];
-  load_a_frags(qf, q + b * sq.b + h * sq.h, sq.t, row0, T_len, sm_scale);
+  uint32_t qf[kFwdGroups][2][4];
+#pragma unroll
+  for (int g = 0; g < kFwdGroups; ++g)
+    load_a_frags(qf[g], q + b * sq.b + h * sq.h, sq.t, warp_row0 + g * kTile, T_len, sm_scale);
 
-  float m[2] = {-INFINITY, -INFINITY};  // running max of rows lane/4, lane/4 + 8
-  float l[2] = {0.f, 0.f};              // this lane's part of the running sum
-  float acc[4][4];
+  // Per group, the running max of rows lane / 4 and lane / 4 + 8, this lane's
+  // part of their running sums, and the output accumulators.
+  float m[kFwdGroups][2], l[kFwdGroups][2], acc[kFwdGroups][4][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int g = 0; g < kFwdGroups; ++g) {
+    m[g][0] = m[g][1] = -INFINITY;
+    l[g][0] = l[g][1] = 0.f;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[g][i][j] = 0.f;
+  }
 
   for (int t = 0; t < n_tiles; ++t) {
     const int buf = t & 1;
@@ -93,53 +109,59 @@ attn_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     cp_async_wait<1>();
     __syncthreads();
 
-    float s[8][4];
+    float s[kFwdGroups][8][4];
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
+    for (int g = 0; g < kFwdGroups; ++g)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[nt][j] = 0.f;
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[g][nt][j] = 0.f;
     mma_abt(s, qf, ks[buf]);
 
     const int k0 = t * kTile;
     if (k0 + kTile > T_len) {  // the ragged last tile
 #pragma unroll
+      for (int g = 0; g < kFwdGroups; ++g)
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            if (k0 + nt * 8 + 2 * (lane % 4) + (j & 1) >= T_len) s[g][nt][j] = -INFINITY;
+    }
+
+    uint32_t pf[kFwdGroups][4][4];
+#pragma unroll
+    for (int g = 0; g < kFwdGroups; ++g) {
+      float mx[2] = {m[g][0], m[g][1]};
+#pragma unroll
       for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
-          if (k0 + nt * 8 + 2 * (lane % 4) + (j & 1) >= T_len) s[nt][j] = -INFINITY;
-    }
-
-    float mx[2] = {m[0], m[1]};
+        for (int j = 0; j < 4; ++j) mx[j >> 1] = fmaxf(mx[j >> 1], s[g][nt][j]);
+      float ml[2];
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        // Every row has key 0, so mx is finite; alpha = 0 on the first tile.
+        const float alpha = fast_exp2((m[g][r] - mx[r]) * kLog2e);
+        m[g][r] = mx[r];
+        ml[r] = mx[r] * kLog2e;
+        l[g][r] *= alpha;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) mx[j >> 1] = fmaxf(mx[j >> 1], s[nt][j]);
-    float ml[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      // Every row has key 0, so mx is finite; alpha = 0 on the first tile.
-      const float alpha = fast_exp2((m[r] - mx[r]) * kLog2e);
-      m[r] = mx[r];
-      ml[r] = mx[r] * kLog2e;
-      l[r] *= alpha;
-#pragma unroll
-      for (int dn = 0; dn < 4; ++dn) {
-        acc[dn][2 * r] *= alpha;
-        acc[dn][2 * r + 1] *= alpha;
+        for (int dn = 0; dn < 4; ++dn) {
+          acc[g][dn][2 * r] *= alpha;
+          acc[g][dn][2 * r + 1] *= alpha;
+        }
       }
-    }
-
-    uint32_t pf[4][4];
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      float p[4];
+      for (int nt = 0; nt < 8; ++nt) {
+        float p[4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) p[j] = fast_exp2(fmaf(s[nt][j], kLog2e, -ml[j >> 1]));
-      l[0] += p[0] + p[1];
-      l[1] += p[2] + p[3];
-      set_a(pf, nt, p[0], p[1], p[2], p[3]);
+        for (int j = 0; j < 4; ++j) p[j] = fast_exp2(fmaf(s[g][nt][j], kLog2e, -ml[j >> 1]));
+        l[g][0] += p[0] + p[1];
+        l[g][1] += p[2] + p[3];
+        set_a(pf[g], nt, p[0], p[1], p[2], p[3]);
+      }
     }
     mma_ab(acc, pf, vs[buf]);
     __syncthreads();  // the next iteration refills this buffer
@@ -147,18 +169,22 @@ attn_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   bf16* ob = o + b * so.b + h * so.h;
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-    const int row = row0 + lane / 4 + r * 8;
-    if (row < T_len) {
+  for (int g = 0; g < kFwdGroups; ++g) {
 #pragma unroll
-      for (int dn = 0; dn < 4; ++dn) {
-        const __nv_bfloat162 val =
-            __floats2bfloat162_rn(acc[dn][2 * r] / l[r], acc[dn][2 * r + 1] / l[r]);
-        *reinterpret_cast<__nv_bfloat162*>(&ob[row * so.t + dn * 8 + 2 * (lane % 4)]) = val;
+    for (int r = 0; r < 2; ++r) {
+      float lr = l[g][r];
+      lr += __shfl_xor_sync(0xffffffffu, lr, 1);
+      lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+      const int row = warp_row0 + g * kTile + lane / 4 + r * 8;
+      if (row < T_len) {
+#pragma unroll
+        for (int dn = 0; dn < 4; ++dn) {
+          const __nv_bfloat162 val =
+              __floats2bfloat162_rn(acc[g][dn][2 * r] / lr, acc[g][dn][2 * r + 1] / lr);
+          *reinterpret_cast<__nv_bfloat162*>(&ob[row * so.t + dn * 8 + 2 * (lane % 4)]) = val;
+        }
+        if (lane % 4 == 0) lse[static_cast<long long>(bh) * T_len + row] = m[g][r] + logf(lr);
       }
-      if (lane % 4 == 0) lse[static_cast<long long>(bh) * T_len + row] = m[r] + logf(l[r]);
     }
   }
 }
@@ -258,12 +284,12 @@ int spe_fused_attention_fwd(const void* q, const void* k, const void* v, void* o
                             long long o_sb, long long o_sh, long long o_st,
                             float sm_scale, void* stream) {
   if (B < 1 || H < 1 || T_len < 1 || B * H > 65535) return (int)cudaErrorInvalidValue;
-  const dim3 grid((T_len + kTile - 1) / kTile, B * H);
   const Strides sq{q_sb, q_sh, q_st}, sk{k_sb, k_sh, k_st};
   const Strides sv{v_sb, v_sh, v_st}, so{o_sb, o_sh, o_st};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* lsef = static_cast<float*>(lse);
   if (dtype == 0) {
+    const dim3 grid((T_len + kRows - 1) / kRows, B * H);
     attn_fwd_f32_kernel<<<grid, kThreads, 0, s>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<float*>(o), lsef, H, T_len, sq, sk, sv, so,
@@ -273,6 +299,7 @@ int spe_fused_attention_fwd(const void* q, const void* k, const void* v, void* o
     if (reinterpret_cast<uintptr_t>(o) % 4 != 0 || o_sb % 2 || o_sh % 2 || o_st % 2)
       return (int)cudaErrorMisalignedAddress;
     const bool vec = rows_16b(k, k_sb, k_sh, k_st) && rows_16b(v, v_sb, v_sh, v_st);
+    const dim3 grid((T_len + kFwdRows - 1) / kFwdRows, B * H);
     attn_fwd_bf16_kernel<<<grid, kMmaThreads, 0, s>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
         static_cast<bf16*>(o), lsef, H, T_len, sq, sk, sv, so, sm_scale, vec);

@@ -11,7 +11,6 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
-import re
 import shutil
 import subprocess
 import tempfile
@@ -78,33 +77,3 @@ def build_library(name: str, sources: list[str]) -> ctypes.CDLL:
                 os.unlink(tmp)
     return ctypes.CDLL(str(out))
 
-
-def _kernel_name(mangled: str) -> str:
-    """The ``..._kernel`` identifier inside a mangled C++ name, whose parts
-    carry their length in front, as in ``...19attn_fwd_f32_kernelE...``."""
-    end = mangled.find("_kernel") + len("_kernel")
-    for n in range(len("_kernel") + 1, end):
-        if mangled[:end - n].endswith(str(n)):
-            return mangled[end - n:end]
-    return mangled
-
-
-def kernel_resources(name: str, sources: list[str]) -> dict[str, str]:
-    """Per kernel of a built library, ptxas's registers, shared memory and
-    spills, e.g. {"attn_fwd_bf16_kernel": "83 registers, 20480 bytes smem,
-    0 bytes spill stores, 0 bytes spill loads"}."""
-    report = library_path(name, sources).with_suffix(".ptxas.txt").read_text()
-    found, kernel, spills = {}, None, ""
-    for line in report.splitlines():
-        entry = re.search(r"Compiling entry function '([^']+)'", line)
-        if entry:
-            kernel = _kernel_name(entry.group(1))
-        elif "spill stores" in line:
-            spills = ", ".join(p.strip() for p in line.split(",")[1:])
-        elif kernel and "Used" in line:
-            used = re.search(r"Used (\d+) registers", line).group(1)
-            smem = re.search(r"(\d+) bytes smem", line)
-            found[kernel] = (f"{used} registers, {smem.group(1) if smem else 0} bytes smem, "
-                             f"{spills}")
-            kernel = None
-    return found

@@ -103,40 +103,6 @@ def test_attention_kernels_share_one_header():
     assert all(h in common for h in helpers)
 
 
-_PTXAS_REPORT = """\
-ptxas info    : 0 bytes gmem
-ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__ce03ee70_18_fused_attention_cu_bd00120119attn_fwd_f32_kernelEPKfS1_S1_PfS2_iiNS_7StridesES3_S3_S3_f' for 'sm_90a'
-ptxas info    : Function properties for _ZN51_GLOBAL__N__ce03ee70_18_fused_attention_cu_bd00120119attn_fwd_f32_kernelEPKfS1_S1_PfS2_iiNS_7StridesES3_S3_S3_f
-    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
-ptxas info    : Used 147 registers, used 1 barriers, 18432 bytes smem
-ptxas info    : Compiling entry function '_ZN55_GLOBAL__N__ad5dd36d_22_fused_attention_bwd_cu_ba09badd23attn_bwd_dq_bf16_kernelEPK13__nv_bfloat16S2_S2_S2_S2_PKfPfS5_PS0_S6_iiNS_7StridesES7_S7_S7_S7_S7_fb' for 'sm_90a'
-ptxas info    : Function properties for _ZN55_GLOBAL__N__ad5dd36d_22_fused_attention_bwd_cu_ba09badd23attn_bwd_dq_bf16_kernelEPK13__nv_bfloat16S2_S2_S2_S2_PKfPfS5_PS0_S6_iiNS_7StridesES7_S7_S7_S7_S7_fb
-    24 bytes stack frame, 28 bytes spill stores, 48 bytes spill loads
-ptxas info    : Used 128 registers, used 1 barriers, 24 bytes cumulative stack size, 20480 bytes smem
-"""
-
-
-def test_kernel_resources_reads_the_ptxas_report(tmp_path, monkeypatch):
-    """The build keeps nvcc -Xptxas -v's report beside each library;
-    kernel_resources gives each kernel's registers, shared memory and
-    spills from it (chip_smoke.py prints them)."""
-    from satellite_pose_estimation_tpu_torch.utils import cuda_build
-
-    monkeypatch.setattr(cuda_build, "CSRC_DIR", tmp_path)
-    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path / "build")
-    (tmp_path / "k.cu").write_text("// k")
-    report = cuda_build.library_path("k", ["k.cu"]).with_suffix(".ptxas.txt")
-    report.parent.mkdir()
-    report.write_text(_PTXAS_REPORT)
-    assert "-v" in cuda_build.NVCC_FLAGS
-    assert cuda_build.kernel_resources("k", ["k.cu"]) == {
-        "attn_fwd_f32_kernel": "147 registers, 18432 bytes smem, 0 bytes spill stores, "
-                               "0 bytes spill loads",
-        "attn_bwd_dq_bf16_kernel": "128 registers, 20480 bytes smem, 28 bytes spill stores, "
-                                   "48 bytes spill loads",
-    }
-
-
 def test_find_nvcc_raises_without_a_toolkit(tmp_path, monkeypatch):
     from satellite_pose_estimation_tpu_torch.utils import cuda_build
 
