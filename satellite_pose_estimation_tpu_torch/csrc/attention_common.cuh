@@ -8,8 +8,9 @@
 // (T, 32) matrices through shared memory as float32 rows padded to kLd
 // floats, so that the four rows a warp reads at once fall in distinct banks.
 // The bf16 (tensor-core) kernels give a block of kMmaThreads threads (four
-// warps) kTile rows or keys, 16 to a warp (K1: 2 kTile rows, two groups of 16
-// a warp), and stream kTile-row bf16 tiles padded to kLdh elements.
+// warps) kTile rows or keys, 16 to a warp (the K1 and K5 forwards: 2 kTile
+// rows, two groups of 16 a warp), and stream kTile-row bf16 tiles padded to
+// kLdh elements.
 
 #pragma once
 
@@ -171,9 +172,11 @@ __device__ __forceinline__ void stage_tile(bf16 (*dst)[kLdh], const bf16* src, l
   }
 }
 
-// Stage kTile float32 row statistics [r0, r0 + kTile) (4-byte cp.async, zero
-// past T).
-__device__ __forceinline__ void stage_stats(float* dst, const float* src, int r0, int T_len) {
+// Stage kTile 4-byte row values [r0, r0 + kTile) -- float32 statistics or
+// int32 segment ids -- (4-byte cp.async, zero past T).
+template <typename W>
+__device__ __forceinline__ void stage_stats(W* dst, const W* src, int r0, int T_len) {
+  static_assert(sizeof(W) == 4, "stage_stats copies 4-byte values");
   if (threadIdx.x < kTile) {
     const int r = r0 + threadIdx.x;
     const bool ok = r < T_len;

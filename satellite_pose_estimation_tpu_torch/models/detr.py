@@ -84,17 +84,19 @@ class DETRKeypointModel(nn.Module):
 
 
 def build_detr_model(config: DETRConfig = DETRConfig(), seed: int = 0,
-                     device="cpu", dtype=torch.float32) -> DETRKeypointModel:
+                     device="cuda", dtype=torch.float32) -> DETRKeypointModel:
     """A DETR model with weights drawn from ``seed`` (on the CPU, so the
     weights do not depend on the device), moved to ``device``/``dtype`` and
-    put in eval mode."""
+    put in eval mode. The model runs on the card unless ``device="cpu"`` is
+    asked for; without a card the default raises, as ``Module.to("cuda")``
+    does."""
     generator = torch.Generator().manual_seed(seed)
     model = DETRKeypointModel(config, generator)
     return model.to(device=device, dtype=dtype).eval()
 
 
 def build_detr_train_model(config: DETRConfig = DETRConfig(), seed: int = 0,
-                           device="cpu") -> DETRKeypointModel:
+                           device="cuda") -> DETRKeypointModel:
     """A DETR model with weights drawn from ``seed`` (on the CPU), float32
     parameters on ``device``, in training mode. Run it under
     ``torch.autocast`` for bf16 compute: AdamW steps of lr 1e-5 would vanish

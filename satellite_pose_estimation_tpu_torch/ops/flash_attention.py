@@ -5,8 +5,9 @@ ops/flash_attention.py, which reaches jax's stock Pallas TPU flash kernel).
 Tp = ceil(T / 128) * 128 tokens with segment ids (real tokens 1, padding 0),
 runs the ``FlashSelfAttention`` Function and slices the output back to T:
 
-* on CUDA tensors: K5, ``csrc/flash_attention.cu`` (forward; backward as a
-  dk / dv pass and a dq pass after di = rowsum(o * do));
+* on CUDA tensors: K5, ``csrc/flash_attention.cu``: bf16 on the tensor
+  cores (``mma.sync``; the backward a row pass for dq and di = rowsum(o * do),
+  then a column pass for dk / dv), float32 on the CUDA cores (FMA);
 * on CPU tensors: ``attention_flash_plain`` and ``attention_flash_plain_bwd``.
 
 Both follow the stock kernel: the score is (q k^T) * sm_scale with an
@@ -163,7 +164,8 @@ def _launch_bwd(q, k, v, seg, o, l, m, g, sm_scale):
             raise ValueError("l and m must be contiguous (B, H, T) float32")
     seg, seg_ptr = _seg_arg(seg, q)
     dq, dk, dv = (_head_major_like(q) for _ in range(3))
-    di = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+    # Per row: di = rowsum(o * do), and for bf16 also m * log2(e) and 1 / l.
+    scratch = torch.empty((3, B, H, T), dtype=torch.float32, device=q.device)
     lib = load_library()
     strides = _strides(q, k, v, o, g, dq, dk, dv)
     with torch.cuda.device(q.device):
@@ -171,7 +173,7 @@ def _launch_bwd(q, k, v, seg, o, l, m, g, sm_scale):
         err = lib.spe_flash_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), g.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), l.data_ptr(), m.data_ptr(),
-            di.data_ptr(), seg_ptr, _DTYPE_CODES[q.dtype], B, H, T,
+            scratch.data_ptr(), seg_ptr, _DTYPE_CODES[q.dtype], B, H, T,
             ctypes.addressof(strides), float(sm_scale), stream)
     _raise_on(err, lib, "backward")
     bwd_launch_count += 1

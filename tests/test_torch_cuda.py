@@ -1,6 +1,7 @@
 """PyTorch port on the GPU: each CUDA kernel (K1, the attention forward;
 K2, its backward; K3, the rotation; K4, the fused photometric chain; K5,
-flash attention forward and backward) against its plain PyTorch version.
+flash attention forward and backward) against its plain PyTorch version,
+and the model builders' default device.
 These tests need a CUDA device and skip without one. The file imports no
 JAX, so on a machine without JAX it runs on its own:
 
@@ -9,6 +10,11 @@ JAX, so on a machine without JAX it runs on its own:
 import pytest
 import torch
 
+from satellite_pose_estimation_tpu_torch.models.detr import (
+    DETRConfig,
+    build_detr_model,
+    build_detr_train_model,
+)
 from satellite_pose_estimation_tpu_torch.ops import fused_attention as fa
 from satellite_pose_estimation_tpu_torch.ops import flash_attention as fl
 from satellite_pose_estimation_tpu_torch.ops import image_warp, pallas_augment, pallas_rotate
@@ -28,11 +34,12 @@ SHAPES = [(8, 8, 784), (2, 4, 49), (2, 2, 100), (1, 2, 4096), (1, 1, 1)]
 REL_L2 = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 
 
-def _assert_rel_l2(out, ref):
-    """||out - ref|| <= REL_L2 ||ref|| (||ref|| floored at 1, so an all-zero
-    reference, the T = 1 gradients, needs an absolute error below it)."""
+def _assert_rel_l2(out, ref, limit=None):
+    """||out - ref|| <= limit ||ref|| (||ref|| floored at 1, so an all-zero
+    reference, the T = 1 gradients, needs an absolute error below it); the
+    limit is REL_L2 of the reference's dtype unless given."""
     err = (out.double() - ref.double()).norm() / ref.double().norm().clamp_min(1.0)
-    assert err.item() <= REL_L2[ref.dtype]
+    assert err.item() <= (REL_L2[ref.dtype] if limit is None else limit)
 
 
 def _views(dev, dtype, n, B=2, T=300, H=4, pad=0, seed=0):
@@ -285,33 +292,111 @@ def test_cuda_photometric_kernel_seeded_stream(cuda_device):
 FLASH_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}  # x (1 + max |value|)
 
 
-def _close(out, ref, tol):
+def _close(out, ref, dtype):
+    """K5's two gates for inputs of ``dtype``: the largest error within
+    FLASH_TOL x (1 + max |ref|), and the relative L2 error within REL_L2 (the
+    float32 row statistics l and m of bf16 inputs are held to bf16's)."""
     assert out.dtype == ref.dtype and out.shape == ref.shape
-    bound = tol * (1.0 + ref.float().abs().max().item())
+    assert torch.isfinite(out).all()
+    bound = FLASH_TOL[dtype] * (1.0 + ref.float().abs().max().item())
     assert (out.float() - ref.float()).abs().max().item() <= bound
+    _assert_rel_l2(out, ref, REL_L2[dtype])
+
+
+def _flash_check(q, k, v, seg, go, sm_scale):
+    """K5's forward and backward against the plain versions (the backward
+    from the plain residuals, so that only the kernel differs), every
+    output; returns the kernel's (o, l, m) and their references."""
+    res = fl._launch_fwd(q, k, v, seg, sm_scale)
+    grads = fl._launch_bwd(q, k, v, seg, *res, go, sm_scale)
+    torch.cuda.synchronize()
+    ref = fl.attention_flash_plain(q, k, v, seg, sm_scale)
+    ref_grads = fl.attention_flash_plain_bwd(q, k, v, seg, *ref, go, sm_scale)
+    for a, b in zip(res + grads, ref + ref_grads):
+        _close(a, b, q.dtype)
+    return res, ref
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("B,H,T", [(8, 8, 784), (2, 4, 49), (1, 2, 4096)])
+@pytest.mark.parametrize("B,H,T", [(8, 8, 784), (2, 4, 49), (2, 2, 100), (1, 2, 4096)])
 def test_cuda_flash_kernels_match_plain(cuda_device, dtype, B, H, T):
+    """T real tokens padded to a multiple of 128 with segment ids (4096 needs
+    none); random values on every row, padding included, and a random
+    cotangent there too. The padded rows' o, l and m are held on their own:
+    their running max sits at the mask value for every tile of real keys."""
     g = torch.Generator(device=cuda_device).manual_seed(T + 2)
     seg = fl.segment_ids(B, T, cuda_device)
     Tp = T if seg is None else seg.shape[1]
     q, k, v, go = (torch.randn(B, H, Tp, 32, generator=g, device=cuda_device).to(dtype)
                    for _ in range(4))
     before = (fl.launch_count, fl.bwd_launch_count)
-    o, l, m = fl._launch_fwd(q, k, v, seg, 32 ** -0.5)
-    grads = fl._launch_bwd(q, k, v, seg, o, l, m, go, 32 ** -0.5)
+    res, ref = _flash_check(q, k, v, seg, go, 32 ** -0.5)
+    assert (fl.launch_count, fl.bwd_launch_count) == (before[0] + 1, before[1] + 1)
+    if seg is not None:
+        for a, b in zip(res, ref):
+            _close(a[:, :, T:], b[:, :, T:], dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("pad", [0, 3], ids=["aligned", "unaligned"])
+def test_cuda_flash_kernels_take_strided_head_views(cuda_device, dtype, pad):
+    """(B, H, T, 32) views of (B, T, H, 32 + pad) buffers, 300 real tokens
+    padded to 384."""
+    q, k, v, go = _views(cuda_device, dtype, 4, T=384, pad=pad, seed=3)
+    _flash_check(q, k, v, fl.segment_ids(2, 300, cuda_device), go, 0.2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_cuda_flash_kernels_take_two_segments_of_real_tokens(cuda_device, dtype):
+    """Tokens [0, 320) in segment 2 and [320, 640) in segment 1, random on
+    every row: the rows of segment 1 see five whole 64-key tiles of the other
+    segment before their first own key, so their running max sits at the
+    mask value over random scores. Every output against the plain
+    versions."""
+    q, k, v, go = _views(cuda_device, dtype, 4, B=2, T=640, H=3, seed=6)
+    seg = torch.ones(2, 640, dtype=torch.int32, device=cuda_device)
+    seg[:, :320] = 2
+    _flash_check(q, k, v, seg, go, 32 ** -0.5)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_bwd_kernel_is_deterministic(cuda_device):
+    """Two passes and no atomics: two runs give the same bits."""
+    q, k, v, go = _views(cuda_device, torch.bfloat16, 4, B=4, T=896, H=8, seed=4)
+    seg = fl.segment_ids(4, 784, cuda_device)
+    res = fl._launch_fwd(q, k, v, seg, 32 ** -0.5)
+    first = fl._launch_bwd(q, k, v, seg, *res, go, 32 ** -0.5)
+    second = fl._launch_bwd(q, k, v, seg, *res, go, 32 ** -0.5)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_cuda_flash_function_takes_a_ragged_length(cuda_device, dtype):
+    """The Function called directly at T = 100, not a multiple of the
+    kernels' 64-row tiles, with three segments: its output and gradients
+    (from its own residuals) against the plain versions."""
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    x = [torch.randn(2, 3, 100, 32, generator=g, device=cuda_device).to(dtype).requires_grad_()
+         for _ in range(3)]
+    go = torch.randn(2, 3, 100, 32, generator=g, device=cuda_device).to(dtype)
+    seg = torch.zeros(2, 100, dtype=torch.int32, device=cuda_device)
+    seg[:, :60] = 1
+    seg[1, 80:] = 2
+    before = (fl.launch_count, fl.bwd_launch_count)
+    out = fl.FlashSelfAttention.apply(*x, seg, 0.2)
+    out.backward(go)
     torch.cuda.synchronize()
     assert (fl.launch_count, fl.bwd_launch_count) == (before[0] + 1, before[1] + 1)
-    ref = fl.attention_flash_plain(q, k, v, seg, 32 ** -0.5)
-    for a, b in zip((o, l, m), ref):
-        _close(a, b, FLASH_TOL[dtype])
-    # The backward from the plain residuals, so that only the kernel differs.
-    ref_grads = fl.attention_flash_plain_bwd(q, k, v, seg, *ref, go, 32 ** -0.5)
-    for a, b in zip(grads, ref_grads):
-        _close(a, b, FLASH_TOL[dtype])
+    plain = [t.detach() for t in x]
+    ref = fl.attention_flash_plain(*plain, seg, 0.2)
+    _close(out.detach(), ref[0], dtype)
+    for t, r in zip(x, fl.attention_flash_plain_bwd(*plain, seg, *ref, go, 0.2)):
+        _close(t.grad, r, dtype)
 
 
 @pytest.mark.cuda
@@ -338,3 +423,22 @@ def test_cuda_flash_function_under_autocast_runs_bf16(cuda_device):
     assert out.dtype == torch.bfloat16 and out.shape == (2, 4, 300, 32)
     out.float().sum().backward()
     assert all(t.grad is not None and t.grad.dtype == torch.float32 for t in x)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_kernels_raise_on_unsupported_input(cuda_device):
+    q = torch.randn(1, 1, 128, 32, device=cuda_device, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        fl._launch_fwd(q, q, q, None, 0.1)
+    q = torch.randn(1, 1, 128, 64, device=cuda_device)
+    with pytest.raises(ValueError):
+        fl._launch_fwd(q, q, q, None, 0.1)
+
+
+# -- the builders ------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_cuda_builders_put_the_model_on_the_card_by_default(cuda_device):
+    cfg = DETRConfig(hidden_dim=32, nheads=4, enc_layers=1, dec_layers=1, dim_feedforward=64)
+    for build in (build_detr_model, build_detr_train_model):
+        assert all(p.device.type == "cuda" for p in build(cfg).parameters())

@@ -4,6 +4,8 @@ score) against the JAX package on the same weights and batch.
 
 Input 128 gives 16 x 16 = 256 encoder tokens, so the encoder takes the
 fused attention route (its plain version on the CPU)."""
+import inspect
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -14,7 +16,12 @@ from satellite_pose_estimation_tpu.models.detr import DETRConfig as JaxDETRConfi
 from satellite_pose_estimation_tpu.models.detr import DETRKeypointModel as JaxDETR
 from satellite_pose_estimation_tpu.train.state import TrainState
 from satellite_pose_estimation_tpu.train.steps import make_eval_step as jax_make_eval_step
-from satellite_pose_estimation_tpu_torch.models.detr import DETRConfig, DETRKeypointModel
+from satellite_pose_estimation_tpu_torch.models.detr import (
+    DETRConfig,
+    DETRKeypointModel,
+    build_detr_model,
+    build_detr_train_model,
+)
 from satellite_pose_estimation_tpu_torch.ops import flash_attention
 from satellite_pose_estimation_tpu_torch.train.steps import make_eval_step
 from satellite_pose_estimation_tpu_torch.utils.checkpoint_convert import (
@@ -125,3 +132,19 @@ def test_eval_step_matches_jax(models):
     # the SPEED anchor 1 + pi, as the JAX eval step reports.
     assert not out["valid"].any()
     np.testing.assert_allclose(out["score"].numpy(), 1.0 + np.pi, rtol=1e-6)
+
+
+def test_builders_put_the_model_on_the_card_by_default():
+    """Both builders default to ``device="cuda"``: without a card the
+    default raises (as ``Module.to("cuda")`` does) rather than returning a
+    CPU model; a CPU model is asked for with ``device="cpu"``."""
+    for build in (build_detr_model, build_detr_train_model):
+        assert inspect.signature(build).parameters["device"].default == "cuda"
+    cfg = DETRConfig(**SIZES)
+    model = build_detr_model(cfg, device="cpu")
+    assert all(p.device.type == "cpu" for p in model.parameters())
+    if torch.cuda.is_available():
+        return  # tests/test_torch_cuda.py checks the default on the card
+    for build in (build_detr_model, build_detr_train_model):
+        with pytest.raises((AssertionError, RuntimeError)):
+            build(cfg)

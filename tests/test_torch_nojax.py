@@ -20,7 +20,7 @@ from satellite_pose_estimation_tpu_torch.models.detr import DETRConfig, build_de
 from satellite_pose_estimation_tpu_torch.train.steps import make_eval_step
 
 model = build_detr_model(DETRConfig(hidden_dim=32, nheads=4, enc_layers=1, dec_layers=1,
-                                    dim_feedforward=64, dropout=0.0), seed=0)
+                                    dim_feedforward=64, dropout=0.0), seed=0, device="cpu")
 g = torch.Generator().manual_seed(0)
 batch = {
     "image": torch.randint(0, 256, (2, 80, 80, 3), generator=g, dtype=torch.uint8),
@@ -52,7 +52,8 @@ from satellite_pose_estimation_tpu_torch.train.state import TrainConfig, create_
 from satellite_pose_estimation_tpu_torch.train.steps import make_train_step
 
 model = build_detr_train_model(DETRConfig(hidden_dim=32, nheads=4, enc_layers=1, dec_layers=1,
-                                          dim_feedforward=64, dropout=0.1), seed=0)
+                                          dim_feedforward=64, dropout=0.1), seed=0,
+                               device="cpu")
 cfg = TrainConfig(use_ema=True)
 state = create_train_state(model, cfg)
 step = make_train_step(CriterionConfig(), cfg, AugmentConfig(out_size=64, p_rotate=0.5))
@@ -100,7 +101,8 @@ for flash, aug, fused in [(True, AugmentConfig(out_size=64, p_rotate=1.0, rotate
                           (False, AugmentConfig(out_size=64, p_noise=1.0), True)]:
     model = build_detr_train_model(DETRConfig(hidden_dim=32, nheads=4, enc_layers=1,
                                               dec_layers=1, dim_feedforward=64, dropout=0.0,
-                                              use_flash_attention=flash), seed=0)
+                                              use_flash_attention=flash), seed=0,
+                                   device="cpu")
     state = create_train_state(model, cfg)
     losses = make_train_step(CriterionConfig(), cfg, aug, use_pallas_augment=fused)(state, batch, g)
     assert state.step == 1 and torch.isfinite(losses["loss_total"])

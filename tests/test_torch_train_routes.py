@@ -46,7 +46,8 @@ ROUTES = {
 @pytest.mark.parametrize("route", list(ROUTES), ids=list(ROUTES))
 def test_train_step_route_runs_and_augments_as_a_direct_call(route):
     r = ROUTES[route]
-    model = build_detr_train_model(DETRConfig(use_flash_attention=r["flash"], **SIZES), seed=0)
+    model = build_detr_train_model(DETRConfig(use_flash_attention=r["flash"], **SIZES), seed=0,
+                                   device="cpu")
     state = create_train_state(model, TrainConfig(use_ema=True))
     seen = []
     model.register_forward_pre_hook(lambda module, args: seen.append(args[0].detach().clone()))
