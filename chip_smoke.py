@@ -44,6 +44,9 @@ phases and exits non-zero if any fails:
    a per-stage device breakdown and a profile of one step, and K2's time
    against the plain backward's and SDPA's backward (on a graph recorded
    once) at the main-path shape (64, 8, 784, 32) bf16, beside its bound;
+   then one eval step of the train state (float32 parameters) with
+   ``make_eval_step(compute_dtype=torch.bfloat16)``: K1 launched once per
+   encoder layer on bf16 q, k, v, and finite outputs;
 9. K3, K4 and K5 against their plain versions: K3 at S = 224 and 49,
    bilinear and cubic, angles 0, +-0.52, +-1.3, +-1.57; K4 with host noise
    under every flag combination, and seeded (the same for one seed,
@@ -64,7 +67,10 @@ phases and exits non-zero if any fails:
    the float32 fused (K1) model of the same weights, the median img/s and
    the "model" span of one step (as phase 5 gives the default route's);
    then each new kernel's time against its plain version at its main-path
-   shape: K3 at (26, 224, 224, 3) bilinear, K4 at (64, 224, 224, 3), K5's
+   shape: K3 at (26, 224, 224, 3) bilinear and cubic (and its device
+   kernels per call, from the profiler), K4 at (64, 224, 224, 3) seeded and
+   with host noise (K3 and K4 also replayed from a CUDA graph, free of
+   their wrappers' host work), K5's
    forward at (256, 8, 784, 32) and its backward at (64, 8, 784, 32) bf16
    (both padded to 896 tokens, as the main path pads them; SDPA on the 784
    real tokens beside them), each beside its bound (counted on the 784 real
@@ -90,6 +96,7 @@ import os
 import statistics
 import subprocess
 import sys
+import textwrap
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -120,6 +127,25 @@ def cuda_ms(fn, iters, torch):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(torch, fn, iters=20):
+    """Mean device ms of ``fn`` with no host work between calls: ``iters``
+    calls captured in one CUDA graph, the graph replayed (median of 3
+    replays). A kernel of tens of microseconds reads its own time so, where
+    its wrapper's host work per call may take longer."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm-up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return statistics.median(cuda_ms(graph.replay, 1, torch) for _ in range(3)) / iters
 
 
 def max_err(a, b):
@@ -180,6 +206,36 @@ def sdpa_kernels(torch, fn):
         fn()
         torch.cuda.synchronize()
     return sorted({e.key[:70] for e in prof.key_averages() if e.device_type.name == "CUDA"})
+
+
+def k3_device_launches():
+    """The device kernels one K3 call runs, bilinear and cubic, at the
+    train subset (26, 224, 224, 3): counted by the profiler in a child
+    process, whose profiler no earlier phase has used (in this process, by
+    phase 11, a profiled K3 call reports no device kernel at all).
+    Returns {"bilinear": (count, names), "cubic": (count, names)}."""
+    code = textwrap.dedent("""
+        import json, sys, torch
+        sys.path.insert(0, sys.argv[1])
+        from torch.profiler import ProfilerActivity, profile
+        from satellite_pose_estimation_tpu_torch.ops import pallas_rotate as pr
+        x = torch.rand(26, 224, 224, 3, device="cuda") * 255
+        th = torch.linspace(-1.5, 1.5, 26, device="cuda")
+        found = {}
+        for cubic in (False, True):
+            pr.rotate_shear3_pallas(x, th, cubic)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                pr.rotate_shear3_pallas(x, th, cubic)
+                torch.cuda.synchronize()
+            events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+            found["cubic" if cubic else "bilinear"] = (
+                sum(e.count for e in events), sorted(e.key[:70] for e in events))
+        print(json.dumps(found))
+    """)
+    out = subprocess.run([sys.executable, "-c", code, os.path.dirname(os.path.abspath(__file__))],
+                         capture_output=True, text=True, check=True, timeout=600)
+    return json.loads(out.stdout.strip().splitlines()[-1])
 
 
 def stage_spans(torch, step, state, batches, gen):
@@ -487,8 +543,10 @@ def main() -> int:
         "route": "cuda",
         "source": "satellite_pose_estimation_tpu_torch/csrc/fused_attention.cu",
         "replaces": "satellite_pose_estimation_tpu/ops/fused_attention.py:31",
-        "launches": main_path_launches + train["k1_launches"] + routes["b"]["k1"],
+        "launches": (main_path_launches + train["k1_launches"] + train["k1_eval_bf16_launches"]
+                     + routes["b"]["k1"]),
         "launches_by_path": {"eval": main_path_launches, "train": train["k1_launches"],
+                             "train_state_eval_bf16": train["k1_eval_bf16_launches"],
                              "train_pallas_augment": routes["b"]["k1"]},
         "max_abs_err": k1_err,
         **k1_times,
@@ -554,7 +612,7 @@ def train_phases(torch, card, dev, g, sm_scale):
     from satellite_pose_estimation_tpu_torch.ops import fused_attention as fa
     from satellite_pose_estimation_tpu_torch.ops.precision import highest_precision
     from satellite_pose_estimation_tpu_torch.train.state import TrainConfig, create_train_state
-    from satellite_pose_estimation_tpu_torch.train.steps import make_train_step
+    from satellite_pose_estimation_tpu_torch.train.steps import make_eval_step, make_train_step
 
     bf16 = torch.bfloat16
 
@@ -735,9 +793,37 @@ def train_phases(torch, card, dev, g, sm_scale):
         f"{k2_times['bound_ms']:.4f} ms ({k2_times['bound_by']}; "
         f"{100 * k2_times['bound_ms'] / k2_times['ms']:.1f}% of it) (runs plain, library, "
         f"kernel, kernel, library, plain: {runs}) on {card}")
+
+    # One eval step of the train state in bf16 (autocast on its float32
+    # parameters): K1 on bf16 q, k, v once per encoder layer.
+    dtypes = []
+    launch_fwd = fa._launch_fwd
+
+    def spy(q, k, v, s):
+        dtypes.append(q.dtype)
+        return launch_fwd(q, k, v, s)
+
+    eval_bf16 = make_eval_step(out_size=size, solver="simple", compute_dtype=bf16)
+    batch = eval_batch(torch, dev, 32, gen, pack)
+    torch.cuda.synchronize()
+    fa._launch_fwd = spy
+    try:
+        zero_counts()
+        res = eval_bf16(state, batch)
+        torch.cuda.synchronize()
+        seen = counts()
+    finally:
+        fa._launch_fwd = launch_fwd
+    log(f"  eval of the train state, compute_dtype=bf16, B=32: launches {seen}, K1 input "
+        f"dtypes {[str(d)[6:] for d in dtypes]} (expected K1 {cfg.enc_layers} x bf16, no other)")
+    require(seen == expected(k1=cfg.enc_layers) and dtypes == [bf16] * cfg.enc_layers,
+            "the bf16 eval of a train state does not run the bf16 K1")
+    for key, val in res.items():
+        if val.is_floating_point():
+            require(bool(torch.isfinite(val).all()), f"train-state eval {key} not finite")
     log("phase 8 ok")
     return {"k1_launches": k1_launches, "k2_launches": k2_launches, "k2_err": k2_err,
-            "k2_times": k2_times}
+            "k2_times": k2_times, "k1_eval_bf16_launches": seen["k1"]}
 
 
 def route_phases(torch, card, dev, g, sm_scale):
@@ -976,16 +1062,29 @@ def route_phases(torch, card, dev, g, sm_scale):
     sdpa = torch.nn.functional.scaled_dot_product_attention  # K5's yardstick
     x = torch.rand(26, 224, 224, 3, generator=g, device=dev) * 255
     th = (torch.rand(26, generator=g, device=dev) * 2 - 1) * (torch.pi / 2)
-    err = max_err(pr.rotate_shear3_pallas(x, th), rotate_shear3(x, th))
-    require(err <= 5e-3, f"K3 disagrees with plain at the main-path shape ({err:.3e})")
-    t, runs_ = timed(torch, lambda: pr.rotate_shear3_pallas(x, th), lambda: rotate_shear3(x, th))
-    # The images in and out once; three shears of a 2-tap blend (4 FLOP) a
-    # value. No single PyTorch call rotates by shears.
-    t.update(bound(3 * 4 * x.numel(), 2 * x.numel() * 4, F32_FLOP_S))
-    log(f"  K3 (26,224,224,3) bilinear: kernel {t['ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, "
-        f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}), max|kernel-plain| {err:.3e} "
-        f"(tolerance 5e-3; runs plain, kernel, kernel, plain: {runs_}) on {card}")
-    times["k3"] = {"max_abs_err": err, **t}
+    k3 = {}
+    k3_launches = k3_device_launches()
+    for cubic in (False, True):
+        name = "cubic" if cubic else "bilinear"
+        err = max_err(pr.rotate_shear3_pallas(x, th, cubic), rotate_shear3(x, th, cubic))
+        require(err <= 5e-3, f"K3 {name} disagrees with plain at the main-path shape ({err:.3e})")
+        n_kernels, kernels = k3_launches[name]
+        t, runs_ = timed(torch, lambda: pr.rotate_shear3_pallas(x, th, cubic),
+                         lambda: rotate_shear3(x, th, cubic))
+        t["graph_ms"] = graph_ms(torch, lambda: pr.rotate_shear3_pallas(x, th, cubic))
+        # The images in and out once; three shears of a 2-tap (4 FLOP) or
+        # 4-tap (8 FLOP) blend a value. No single PyTorch call rotates by
+        # shears.
+        t.update(bound(3 * (8 if cubic else 4) * x.numel(), 2 * x.numel() * 4, F32_FLOP_S))
+        log(f"  K3 (26,224,224,3) {name}: kernel {t['ms']:.4f} ms ({t['graph_ms']:.4f} ms "
+            f"replayed from a CUDA graph), plain {t['plain_ms']:.3f} ms, bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']}; {100 * t['bound_ms'] / t['ms']:.1f}% / "
+            f"{100 * t['bound_ms'] / t['graph_ms']:.1f}% of it), max|kernel-plain| {err:.3e} "
+            f"(tolerance 5e-3; runs plain, kernel, kernel, plain: {runs_}); device kernels a "
+            f"call (profiler, child process): {n_kernels} {kernels} on {card}")
+        require(n_kernels == 1, f"K3 {name} ran {n_kernels} device kernels in one call")
+        k3[name] = {"max_abs_err": err, "device_kernels_per_call": n_kernels, **t}
+    times["k3"] = {**k3["bilinear"], "cubic": k3["cubic"]}
 
     imgs = torch.rand(64, 224, 224, 3, generator=g, device=dev) * 255
     draws = pallas_augment_draw(gen, 64, AugmentConfig(out_size=224, p_blur=0.5, p_noise=0.5,
@@ -1000,15 +1099,23 @@ def route_phases(torch, card, dev, g, sm_scale):
                      lambda: pa.fused_photometric_plain(imgs, sc, hl, noise))
     host_ms = statistics.median(cuda_ms(lambda: pa.fused_photometric_pallas(
         imgs, sc, hl, seed, noise=noise), 10, torch) for _ in range(2))
+    t["graph_ms"] = graph_ms(torch, lambda: pa.fused_photometric_pallas(imgs, sc, hl, seed))
+    host_graph_ms = graph_ms(torch, lambda: pa.fused_photometric_pallas(imgs, sc, hl, seed,
+                                                                        noise=noise))
     # The images in and out once (the seeded kernel draws its noise); ~40
     # FLOP a value (3x3 blur, Box-Muller, clip, normalise). No single
     # PyTorch call computes the chain.
     t.update(bound(40 * imgs.numel(), 2 * imgs.numel() * 4, F32_FLOP_S))
-    log(f"  K4 (64,224,224,3): kernel (seeded, the main path) {t['ms']:.3f} ms, kernel with "
-        f"host noise {host_ms:.3f} ms, plain with host noise {t['plain_ms']:.3f} ms, bound "
-        f"{t['bound_ms']:.4f} ms ({t['bound_by']}), max|kernel-plain| {err:.3e} (tolerance "
-        f"1e-5; runs plain, kernel, kernel, plain: {runs_}) on {card}")
-    times["k4"] = {"max_abs_err": err, **t}
+    log(f"  K4 (64,224,224,3): kernel (seeded, the main path) {t['ms']:.4f} ms "
+        f"({t['graph_ms']:.4f} ms replayed from a CUDA graph), kernel with host noise "
+        f"{host_ms:.4f} ms ({host_graph_ms:.4f} ms from a graph), plain with host noise "
+        f"{t['plain_ms']:.3f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}; "
+        f"{100 * t['bound_ms'] / t['graph_ms']:.1f}% of it seeded, "
+        f"{100 * t['bound_ms'] / host_graph_ms:.1f}% with host noise, from the graph times), "
+        f"max|kernel-plain| {err:.3e} (tolerance 1e-5; runs plain, kernel, kernel, plain: "
+        f"{runs_}) on {card}")
+    times["k4"] = {"max_abs_err": err, "host_noise_ms": host_ms,
+                   "host_noise_graph_ms": host_graph_ms, **t}
     del imgs, noise, x
 
     for key_, Bk in (("k5", 256), ("k5_bwd", 64)):

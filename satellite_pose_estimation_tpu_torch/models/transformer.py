@@ -68,7 +68,9 @@ class _Attention(nn.Module):
         elif impl == "flash":
             out = flash_self_attention(qh, kh, vh, sm_scale)
         else:
-            s = torch.einsum("bhqd,bhkd->bhqk", qh, kh) * sm_scale
+            # The scale rounded to the scores' dtype, as the JAX core
+            # multiplies by jnp.asarray(sm_scale, dtype).
+            s = torch.einsum("bhqd,bhkd->bhqk", qh, kh) * torch.tensor(sm_scale, dtype=qh.dtype)
             if attn_mask is not None:
                 s = s.masked_fill(attn_mask, -1e9)
             p = self.attn_drop(torch.softmax(s, dim=-1))

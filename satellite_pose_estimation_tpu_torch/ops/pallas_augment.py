@@ -14,10 +14,11 @@ the cutout holes (B, NH, 4) = (x, y, w, h):
 
 The noise is either given, one (B, S, S) plane per image shared by its
 three channels (the TPU kernel's host-noise entry), or drawn from ``seed``
-by a counter-based Philox4x32-10 keyed on (seed, b, c, pixel), independent
-per channel, through the TPU kernel's Box-Muller of 24-bit uniforms. The
-kernel draws it on the card; ``philox_gaussian`` draws the same numbers in
-PyTorch for the CPU path and for tests. These streams differ from the TPU
+by a counter-based Philox4x32-10 keyed on (seed, b, pixel), one call per
+pixel whose four words feed two Box-Muller pairs of 24-bit uniforms (the
+TPU kernel's transform), independent per channel. The kernel draws it on
+the card; ``philox_gaussian`` draws the same numbers in PyTorch for the CPU
+path and for tests. These streams differ from the TPU
 kernel's on-chip generator by design: the augmentation family is the same,
 its random bits are not.
 
@@ -70,21 +71,29 @@ def philox4x32_10(c0, c1, c2, c3, k0, k1):
 
 
 def philox_gaussian(seed, B: int, S: int, C: int = 3, device=None):
-    """(B, S, S, C) float32 standard normals, the kernel's seeded stream:
-    Philox4x32-10 of counter (y * S + x, b, c, 0) and key (seed, 0), then
-    u1 = (w0 >> 8) / 2^24 + 1e-7, u2 = (w1 >> 8) / 2^24 and
-    sqrt(-2 ln u1) cos(2 pi u2). ``seed`` is an int or an integer tensor."""
+    """(B, S, S, C) float32 standard normals, C <= 4, the kernel's seeded
+    stream: one Philox4x32-10 per pixel, of counter (y * S + x, b, 0, 0) and
+    key (seed, 0), whose four words give u1 = (w0 >> 8) / 2^24 + 1e-7,
+    u2 = (w1 >> 8) / 2^24, u3 = (w2 >> 8) / 2^24 + 1e-7 and
+    u4 = (w3 >> 8) / 2^24, and two Box-Muller pairs r1 (cos, sin)(2 pi u2)
+    and r2 (cos, sin)(2 pi u4), r = sqrt(-2 ln u), as channels 0-3. The two
+    normals of a pair are independent, so every channel is. ``seed`` is an
+    int or an integer tensor."""
+    if not 1 <= C <= 4:
+        raise ValueError(f"philox_gaussian draws 1 to 4 channels, not {C}")
     seed = torch.as_tensor(seed, dtype=torch.int64, device=device)
     i64 = dict(dtype=torch.int64, device=seed.device)
-    shape = (B, S, S, C)
-    w0, w1, _, _ = philox4x32_10(
-        torch.arange(S * S, **i64).reshape(1, S, S, 1).expand(shape),
-        torch.arange(B, **i64).reshape(B, 1, 1, 1).expand(shape),
-        torch.arange(C, **i64).reshape(1, 1, 1, C).expand(shape),
-        torch.zeros(shape, **i64), seed & _MASK32, torch.zeros((), **i64))
-    u1 = (w0 >> 8).to(torch.float32) * (1.0 / (1 << 24)) + 1e-7
-    u2 = (w1 >> 8).to(torch.float32) * (1.0 / (1 << 24))
-    return torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(2.0 * math.pi * u2)
+    shape = (B, S, S)
+    zero = torch.zeros(shape, **i64)
+    w = philox4x32_10(torch.arange(S * S, **i64).reshape(1, S, S).expand(shape),
+                      torch.arange(B, **i64).reshape(B, 1, 1).expand(shape), zero, zero,
+                      seed & _MASK32, torch.zeros((), **i64))
+    u = [(word >> 8).to(torch.float32) * (1.0 / (1 << 24)) for word in w]
+    r1 = torch.sqrt(-2.0 * torch.log(u[0] + 1e-7))
+    r2 = torch.sqrt(-2.0 * torch.log(u[2] + 1e-7))
+    a1, a2 = 2.0 * math.pi * u[1], 2.0 * math.pi * u[3]
+    normals = (r1 * torch.cos(a1), r1 * torch.sin(a1), r2 * torch.cos(a2), r2 * torch.sin(a2))
+    return torch.stack(normals[:C], dim=-1)
 
 
 def fused_photometric_plain(images, scalars, holes, noise):

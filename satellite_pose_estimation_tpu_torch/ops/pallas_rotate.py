@@ -6,14 +6,14 @@ about their centres by per-image angles, |theta| <= pi/2, with the semantics
 of ``ops.image_warp.rotate_shear3`` (the "shear" border rule, which the JAX
 Pallas kernel reproduces):
 
-* on CUDA tensors: K3, ``csrc/rotate_shear3.cu``, three launches (one per
-  shear) through two float32 scratch canvases of (N, S, Wp, C);
+* on CUDA tensors: K3, ``csrc/rotate_shear3.cu``, one kernel a call (each
+  block stages a band of shear 2's output in shared memory; no scratch
+  tensor);
 * on CPU tensors: ``rotate_shear3``, the plain version.
 
 The kernel is built with nvcc at first use and raises on anything it does
 not take; on a CUDA tensor it never falls back to the plain version.
-``launch_count`` counts calls that launched the kernel (one per rotation,
-however many launches each takes).
+``launch_count`` counts kernel launches (one per rotation).
 """
 from __future__ import annotations
 
@@ -35,7 +35,7 @@ def load_library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = build_library("rotate_shear3", SOURCES)
-        lib.spe_rotate_shear3.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
+        lib.spe_rotate_shear3.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
             ctypes.c_void_p]
         lib.spe_rotate_shear3.restype = ctypes.c_int
         lib.spe_rotate_error_string.argtypes = [ctypes.c_int]
@@ -55,17 +55,12 @@ def _launch(images, thetas, cubic: bool):
     if thetas.device != images.device:
         raise ValueError(f"angles on {thetas.device}, images on {images.device}")
     img = images.to(torch.float32).contiguous()
-    th = thetas.to(torch.float32)
-    a = (-torch.tan(th / 2.0)).contiguous()
-    b = torch.sin(th).contiguous()
-    Wp = S + 2 * ((S + 1) // 2)
+    th = thetas.to(torch.float32).contiguous()
     out = torch.empty_like(img)
-    scratch = torch.empty((2, N, S, Wp, C), dtype=torch.float32, device=img.device)
     lib = load_library()
     with torch.cuda.device(img.device):
         stream = torch.cuda.current_stream(img.device).cuda_stream
-        err = lib.spe_rotate_shear3(img.data_ptr(), out.data_ptr(), scratch[0].data_ptr(),
-                                    scratch[1].data_ptr(), a.data_ptr(), b.data_ptr(),
+        err = lib.spe_rotate_shear3(img.data_ptr(), out.data_ptr(), th.data_ptr(),
                                     N, S, C, int(bool(cubic)), stream)
     if err != 0:
         msg = lib.spe_rotate_error_string(err).decode()

@@ -86,7 +86,8 @@ def make_train_step(criterion_cfg: CriterionConfig, train_cfg: TrainConfig,
 def make_eval_step(criterion_cfg: Optional[CriterionConfig] = None,
                    solver_cfg: SolverConfig = SolverConfig(),
                    out_size: int = 256, solver: str = "simple",
-                   use_ema: bool = False):
+                   use_ema: bool = False,
+                   compute_dtype: Optional[torch.dtype] = None):
     """Build ``eval_step(model_or_state, batch) -> dict``.
 
     Batch dict: image (B,P,P,3) uint8 canvases, clip_bbox_buf (B,4) crop
@@ -100,7 +101,11 @@ def make_eval_step(criterion_cfg: Optional[CriterionConfig] = None,
 
     Given a ``TrainState``, the step evaluates its model, with
     ``use_ema`` on the EMA shadow (parameters and buffers) cast to the
-    model's dtype. The model runs in eval mode.
+    model's dtype. The model runs in eval mode. ``compute_dtype`` (e.g.
+    ``torch.bfloat16``) runs it under ``torch.autocast``, as the train
+    step does, so a train state's float32 parameters are evaluated in the
+    model dtype the JAX eval step uses; None computes in the parameters'
+    dtype.
     """
     if solver != "simple":
         raise NotImplementedError(f"solver {solver!r} is not ported; only 'simple' is")
@@ -112,15 +117,18 @@ def make_eval_step(criterion_cfg: Optional[CriterionConfig] = None,
         images = crop_resize_cubic_mxu(batch["image"], batch["clip_bbox_buf"],
                                        out_size, True)
         dtype = next(model.parameters()).dtype
-        images = images.to(dtype)
+        if compute_dtype is None:
+            images = images.to(dtype)
         was_training = model.training
         model.eval()
         try:
-            if use_ema and state is not None and state.ema is not None:
-                weights = {k: v.to(dtype) for k, v in state.ema.items()}
-                outputs = torch.func.functional_call(model, weights, (images,))
-            else:
-                outputs = model(images)
+            with torch.autocast(images.device.type, dtype=compute_dtype,
+                                enabled=compute_dtype is not None):
+                if use_ema and state is not None and state.ema is not None:
+                    weights = {k: v.to(dtype) for k, v in state.ema.items()}
+                    outputs = torch.func.functional_call(model, weights, (images,))
+                else:
+                    outputs = model(images)
         finally:
             model.train(was_training)
 

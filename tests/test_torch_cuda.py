@@ -1,7 +1,7 @@
 """PyTorch port on the GPU: each CUDA kernel (K1, the attention forward;
 K2, its backward; K3, the rotation; K4, the fused photometric chain; K5,
 flash attention forward and backward) against its plain PyTorch version,
-and the model builders' default device.
+the model builders' default device, and the bf16 eval of a train state.
 These tests need a CUDA device and skip without one. The file imports no
 JAX, so on a machine without JAX it runs on its own:
 
@@ -18,6 +18,8 @@ from satellite_pose_estimation_tpu_torch.models.detr import (
 from satellite_pose_estimation_tpu_torch.ops import fused_attention as fa
 from satellite_pose_estimation_tpu_torch.ops import flash_attention as fl
 from satellite_pose_estimation_tpu_torch.ops import image_warp, pallas_augment, pallas_rotate
+from satellite_pose_estimation_tpu_torch.train.state import TrainConfig, create_train_state
+from satellite_pose_estimation_tpu_torch.train.steps import make_eval_step
 
 
 @pytest.fixture
@@ -238,9 +240,45 @@ def test_cuda_rotate_kernel_matches_plain(cuda_device, S, cubic):
     torch.testing.assert_close(out, image_warp.rotate_shear3(x, th, cubic), rtol=0, atol=5e-3)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("cubic", [False, True], ids=["bilinear", "cubic"])
+@pytest.mark.parametrize("S", [49, 224, 256])
+@pytest.mark.parametrize("N", [1, 26])
+def test_cuda_rotate_kernel_matches_plain_at_random_angles(cuda_device, N, S, cubic):
+    """One rotation of N images by angles drawn over [-1.57, 1.57], at the
+    train subset's N = 26 and at N = 1, for S the band divides (224, 256)
+    and does not (49)."""
+    g = torch.Generator(device=cuda_device).manual_seed(N * S)
+    x = torch.rand(N, S, S, 3, generator=g, device=cuda_device) * 255
+    th = (torch.rand(N, generator=g, device=cuda_device) * 2 - 1) * 1.57
+    before = pallas_rotate.launch_count
+    out = pallas_rotate.rotate_shear3_pallas(x, th, cubic)
+    torch.cuda.synchronize()
+    assert pallas_rotate.launch_count == before + 1
+    torch.testing.assert_close(out, image_warp.rotate_shear3(x, th, cubic), rtol=0, atol=5e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cubic", [False, True], ids=["bilinear", "cubic"])
+def test_cuda_rotate_is_one_device_kernel_per_call(cuda_device, cubic):
+    """K3 takes theta's tan and sin itself and needs no scratch canvas: a
+    call on float32 images and angles runs exactly one device kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x = torch.rand(26, 224, 224, 3, device=cuda_device) * 255
+    th = torch.linspace(-1.5, 1.5, 26, device=cuda_device)
+    pallas_rotate.rotate_shear3_pallas(x, th, cubic)  # build and warm up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        pallas_rotate.rotate_shear3_pallas(x, th, cubic)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    assert sum(e.count for e in kernels) == 1, [e.key for e in kernels]
+
+
 # -- K4, the fused photometric chain -----------------------------------------------
 
-def _photometric_inputs(dev, B=4, S=224, seed=0):
+def _photometric_inputs(dev, B=4, S=224, seed=0, nh=10):
     g = torch.Generator(device=dev).manual_seed(seed)
     imgs = torch.rand(B, S, S, 3, generator=g, device=dev) * 255
     scalars = torch.stack([
@@ -248,8 +286,8 @@ def _photometric_inputs(dev, B=4, S=224, seed=0):
         torch.ones(B, device=dev), torch.ones(B, device=dev), torch.ones(B, device=dev),
         torch.linspace(0.0, 1.0, B, device=dev), torch.full((B,), 17.0, device=dev),
         torch.full((B,), 30.0, device=dev)], dim=1)
-    holes = torch.cat([torch.randint(0, S, (B, 10, 2), generator=g, device=dev),
-                       torch.randint(1, 40, (B, 10, 2), generator=g, device=dev)], -1)
+    holes = torch.cat([torch.randint(0, S, (B, nh, 2), generator=g, device=dev),
+                       torch.randint(1, 40, (B, nh, 2), generator=g, device=dev)], -1)
     noise = torch.randn(B, S, S, generator=g, device=dev)
     return imgs, scalars, holes.to(torch.int32), noise
 
@@ -285,6 +323,28 @@ def test_cuda_photometric_kernel_seeded_stream(cuda_device):
     noise = pallas_augment.philox_gaussian(11, *imgs.shape[:2], device=cuda_device)
     ref = pallas_augment.fused_photometric_plain(imgs, scalars, holes, noise)
     torch.testing.assert_close(out, ref, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nh", [0, 10])
+@pytest.mark.parametrize("S", [49, 224])
+@pytest.mark.parametrize("B", [1, 64])
+def test_cuda_photometric_kernel_at_train_shapes(cuda_device, B, S, nh):
+    """Every stage on, at the train batch (B = 64) and B = 1, for rows on 16
+    bytes (S = 224) and not (S = 49), with and without cutout holes: host
+    noise and the seeded stream against the plain version (1e-5), and the
+    seeded result the same again for the same seed."""
+    imgs, scalars, holes, noise = _photometric_inputs(cuda_device, B=B, S=S, seed=S + nh, nh=nh)
+    host = pallas_augment.fused_photometric_pallas(imgs, scalars, holes, 0, noise=noise)
+    seeded = pallas_augment.fused_photometric_pallas(imgs, scalars, holes, 2024)
+    again = pallas_augment.fused_photometric_pallas(imgs, scalars, holes, 2024)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(host, pallas_augment.fused_photometric_plain(
+        imgs, scalars, holes, noise), rtol=0, atol=1e-5)
+    torch.testing.assert_close(seeded, pallas_augment.fused_photometric_plain(
+        imgs, scalars, holes, pallas_augment.philox_gaussian(2024, B, S, device=cuda_device)),
+        rtol=0, atol=1e-5)
+    assert torch.equal(seeded, again)
 
 
 # -- K5, flash attention -----------------------------------------------------------
@@ -442,3 +502,37 @@ def test_cuda_builders_put_the_model_on_the_card_by_default(cuda_device):
     cfg = DETRConfig(hidden_dim=32, nheads=4, enc_layers=1, dec_layers=1, dim_feedforward=64)
     for build in (build_detr_model, build_detr_train_model):
         assert all(p.device.type == "cuda" for p in build(cfg).parameters())
+
+
+# -- the eval step on a train state ------------------------------------------------
+
+@pytest.mark.cuda
+def test_cuda_eval_step_compute_dtype_runs_the_bf16_kernel(cuda_device, monkeypatch):
+    """``make_eval_step(compute_dtype=torch.bfloat16)`` on a train state
+    (float32 parameters) launches K1 on bf16 q, k, v, once per encoder
+    layer (input 128: 256 tokens, head dim 32), and its outputs are finite;
+    without it the same state runs the float32 K1."""
+    cfg = DETRConfig(hidden_dim=128, nheads=4, enc_layers=2, dec_layers=1,
+                     dim_feedforward=256, num_queries=20, dropout=0.0)
+    state = create_train_state(build_detr_train_model(cfg, device=cuda_device), TrainConfig())
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    batch = {
+        "image": torch.randint(0, 256, (2, 160, 160, 3), generator=g, device=cuda_device,
+                               dtype=torch.uint8),
+        "clip_bbox_buf": torch.tensor([[8.0, 8.0, 152.0, 152.0]], device=cuda_device).repeat(2, 1),
+        "clip_bbox": torch.tensor([[700.0, 400.0, 1100.0, 800.0]], device=cuda_device).repeat(2, 1),
+    }
+    seen = []
+    launch = fa._launch_fwd
+    monkeypatch.setattr(fa, "_launch_fwd", lambda q, k, v, s: seen.append(q.dtype)
+                        or launch(q, k, v, s))
+    out = make_eval_step(out_size=128, compute_dtype=torch.bfloat16)(state, batch)
+    torch.cuda.synchronize()
+    assert seen == [torch.bfloat16] * cfg.enc_layers
+    for key, val in out.items():
+        if val.is_floating_point():
+            assert torch.isfinite(val).all(), key
+    seen.clear()
+    make_eval_step(out_size=128)(state, batch)
+    torch.cuda.synchronize()
+    assert seen == [torch.float32] * cfg.enc_layers

@@ -4,6 +4,7 @@ score) against the JAX package on the same weights and batch.
 
 Input 128 gives 16 x 16 = 256 encoder tokens, so the encoder takes the
 fused attention route (its plain version on the CPU)."""
+import copy
 import inspect
 
 import jax
@@ -22,7 +23,10 @@ from satellite_pose_estimation_tpu_torch.models.detr import (
     build_detr_model,
     build_detr_train_model,
 )
+from satellite_pose_estimation_tpu_torch.models import transformer
 from satellite_pose_estimation_tpu_torch.ops import flash_attention
+from satellite_pose_estimation_tpu_torch.ops.image_warp import crop_resize_cubic_mxu
+from satellite_pose_estimation_tpu_torch.train.state import TrainConfig, create_train_state
 from satellite_pose_estimation_tpu_torch.train.steps import make_eval_step
 from satellite_pose_estimation_tpu_torch.utils.checkpoint_convert import (
     flax_detr_to_state_dict,
@@ -97,16 +101,20 @@ def test_flash_detr_matches_jax_fused_route(models):
             np.testing.assert_allclose(o[key].numpy(), np.asarray(r[key]), rtol=2e-5, atol=2e-5)
 
 
-def test_eval_step_matches_jax(models):
-    jmodel, jvars, tmodel = models
+def _eval_batch():
     rng = np.random.RandomState(2)
-    batch = {
+    return {
         "image": rng.randint(0, 256, (2, 160, 160, 3)).astype(np.uint8),
         "clip_bbox_buf": np.asarray([[8, 8, 152, 152], [-10, 5, 150, 170]], np.float32),
         "clip_bbox": np.asarray([[700, 400, 1100, 800], [600, 300, 1000, 700]], np.float32),
         "quat_gt": np.asarray([[1, 0, 0, 0], [0.5, 0.5, 0.5, 0.5]], np.float32),
         "tvec_gt": np.asarray([[0, 0, 12.0], [0.3, -0.2, 8.0]], np.float32),
     }
+
+
+def test_eval_step_matches_jax(models):
+    jmodel, jvars, tmodel = models
+    batch = _eval_batch()
     state = TrainState(step=0, params=jvars["params"], batch_stats=jvars["batch_stats"],
                        opt_state=None, ema_params=None, ema_batch_stats=None,
                        tx=None, apply_fn=jmodel.apply)
@@ -148,3 +156,52 @@ def test_builders_put_the_model_on_the_card_by_default():
     for build in (build_detr_model, build_detr_train_model):
         with pytest.raises((AssertionError, RuntimeError)):
             build(cfg)
+
+
+def _spied_train_state(models, monkeypatch):
+    """A port ``TrainState`` (float32 parameters, training mode) over the
+    fixture's weights, and the dtypes of the q, k, v that reach the
+    encoder's attention core (fused at T = 256, its plain version here)."""
+    _, _, tmodel = models
+    state = create_train_state(copy.deepcopy(tmodel).train(), TrainConfig())
+    seen = []
+    core = transformer.fused_self_attention
+    monkeypatch.setattr(transformer, "fused_self_attention",
+                        lambda q, k, v, s: seen.append((q.dtype, k.dtype, v.dtype))
+                        or core(q, k, v, s))
+    return state, seen
+
+
+def test_eval_step_compute_dtype_runs_a_train_state_in_bf16(models, monkeypatch):
+    """``compute_dtype=torch.bfloat16`` evaluates a float32 train state
+    under autocast: the encoder's attention core sees bf16 q, k, v (as the
+    JAX eval step runs the model in its bf16 dtype), the outputs are finite
+    and the probabilities stay within 2e-2 of the float32 eval (bf16
+    through ~60 layers of a random model; measured below 1e-2)."""
+    state, seen = _spied_train_state(models, monkeypatch)
+    batch = {k: torch.from_numpy(v) for k, v in _eval_batch().items()}
+    out = make_eval_step(out_size=INPUT, compute_dtype=torch.bfloat16)(state, batch)
+    assert seen == [(torch.bfloat16,) * 3] * SIZES["enc_layers"]
+    assert state.model.training  # restored after the eval-mode forward
+    assert all(p.dtype == torch.float32 for p in state.model.parameters())
+    for key, val in out.items():
+        if val.is_floating_point():
+            assert torch.isfinite(val).all(), key
+    ref = make_eval_step(out_size=INPUT)(state, batch)
+    torch.testing.assert_close(out["probs"].float(), ref["probs"], rtol=0, atol=2e-2)
+
+
+def test_eval_step_without_compute_dtype_runs_the_parameters_dtype(models, monkeypatch):
+    """``compute_dtype=None`` (the default) keeps the step as it was: the
+    images cast to the parameters' dtype, no autocast, float32 q, k, v at
+    the core and the model's own float32 result, bit for bit."""
+    state, seen = _spied_train_state(models, monkeypatch)
+    batch = {k: torch.from_numpy(v) for k, v in _eval_batch().items()}
+    out = make_eval_step(out_size=INPUT)(state, batch)
+    assert seen == [(torch.float32,) * 3] * SIZES["enc_layers"]
+    model = copy.deepcopy(state.model).eval()
+    with torch.no_grad():
+        images = crop_resize_cubic_mxu(batch["image"], batch["clip_bbox_buf"], INPUT, True)
+        logits = model(images)["pred_logits"]
+    assert out["probs"].dtype == torch.float32
+    assert torch.equal(out["probs"], torch.softmax(logits, dim=-1))

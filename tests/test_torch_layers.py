@@ -125,3 +125,65 @@ def test_attention_routes_long_sequences_to_the_fused_core(monkeypatch):
         attn.train()
         attn(*[torch.randn(1, 300, 32)] * 3)
     assert calls == [(1, 4, 256, 8)]
+
+
+def _core_only(params):
+    """``params`` of one attention layer with identity projections and zero
+    biases, so the layer computes its core alone on the given q, k, v."""
+    params = {name: dict(p) for name, p in params.items()}
+    eye = np.eye(128, dtype=np.float32)
+    for name in ("query", "key", "value"):
+        params[f"mha_{name}"] = {"kernel": eye.reshape(128, 4, 32),
+                                 "bias": np.zeros((4, 32), np.float32)}
+    params["mha_out"] = {"kernel": eye.reshape(4, 32, 128), "bias": np.zeros(128, np.float32)}
+    return params
+
+
+def _bf16_qkv(seed, scale):
+    rng = np.random.RandomState(seed)
+    return [(rng.randn(2, 49, 128) * scale).astype(np.float32) for _ in range(3)]
+
+
+def test_plain_core_scales_bf16_scores_by_the_rounded_scale(monkeypatch):
+    """The plain core's bf16 scores are einsum(q, k) times 1/sqrt(32) rounded
+    to bf16 (0.1767578125), bit for bit, as the JAX core multiplies by
+    jnp.asarray(sm_scale, dtype); the unrounded Python float gives other
+    scores on a seeded draw of N(0, 8^2) scores (q, k of std 8 / 32^0.25)."""
+    seen = []
+    softmax = torch.softmax
+    monkeypatch.setattr(torch, "softmax", lambda s, dim: seen.append(s) or softmax(s, dim=dim))
+    attn = ttr._Attention(128, 4, dropout=0.0).eval().to(torch.bfloat16)
+    q, k, _ = (torch.from_numpy(a).to(torch.bfloat16) for a in _bf16_qkv(5, 8 / 32 ** 0.25))
+    with torch.no_grad():
+        attn(q, k, k)
+        qh, kh = (p(x).unflatten(-1, (4, 32)).transpose(1, 2)
+                  for p, x in ((attn.mha_query, q), (attn.mha_key, k)))
+        prod = torch.einsum("bhqd,bhkd->bhqk", qh, kh)
+    (scores,) = seen
+    assert scores.dtype == torch.bfloat16
+    assert torch.tensor(32 ** -0.5, dtype=torch.bfloat16).item() == 0.1767578125
+    assert torch.equal(scores, prod * torch.tensor(32 ** -0.5, dtype=torch.bfloat16))
+    assert (scores != prod * 32 ** -0.5).any()
+
+
+def test_bf16_plain_core_matches_jax_xla_core():
+    """The plain core in bf16 against the JAX ``xla`` core in bf16 on the
+    same numpy q, k, v (identity projections, so each layer is its core
+    alone). Both round the scores, the softmax and the output to bf16, but
+    the JAX softmax rounds its steps where PyTorch's rounds once, and an
+    output near 0 carries the rounding of its largest terms: held to one
+    bf16 step of the largest output, 2^-7 max |ref| = 0.097 (measured
+    0.0625; the unrounded scale gives 0.31)."""
+    q, k, v = _bf16_qkv(6, 3.0)
+    jmod = jt._Attention(128, 4, dropout=0.0, dtype=jnp.bfloat16, impl="xla")
+    params, _ = init_variables(jmod, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    params = _core_only(params)
+    ref = jmod.apply({"params": params}, *(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)))
+    attn = _load(ttr._Attention(128, 4, dropout=0.0, impl="plain"), params, {})
+    with torch.no_grad():
+        out = attn.to(torch.bfloat16)(*(torch.from_numpy(a).to(torch.bfloat16)
+                                        for a in (q, k, v)))
+    assert out.dtype == torch.bfloat16
+    ref = np.asarray(ref.astype(jnp.float32))
+    np.testing.assert_allclose(out.float().numpy(), ref, rtol=0,
+                               atol=2 ** -7 * np.abs(ref).max())

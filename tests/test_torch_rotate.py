@@ -135,3 +135,84 @@ def test_geometry_draw_is_what_augment_batch_draws():
                                      geometry=augment.geometry_draw(g, 4, cfg))
     for a, b in zip(direct, replayed):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def _banded_rotation(image, theta, cubic, rows):
+    """K3's algorithm in PyTorch, band by band of ``rows`` output rows:
+    shear 2's output on the window of columns that shear 3 reads for each
+    row, each sample blended from its out1 taps and each out1 tap recomputed
+    from its input taps (nothing of out1 is kept), then shear 3 from that
+    window. Tap sums in the plain version's order."""
+    N, S, _, C = image.shape
+    img = image.to(torch.float32)
+    theta = theta.to(torch.float32)
+    c = (S - 1.0) / 2.0
+    a = -torch.tan(theta / 2.0)[:, None]
+    b = torch.sin(theta)[:, None]
+    pad = (S + 1) // 2
+    Wp = S + 2 * pad
+    y = torch.arange(S, dtype=torch.float32)
+    xp = torch.arange(Wp, dtype=torch.float32)
+    taps = (-1, 0, 1, 2) if cubic else (0, 1)
+
+    def table(shifts, lo, hi):  # integer offsets and tap weights of each shift
+        m = torch.floor(shifts)
+        t = shifts - m
+        w = image_warp._cubic_weights(t) if cubic else torch.stack([1.0 - t, t], dim=-1)
+        return torch.clamp(m, lo, hi).long(), w
+
+    off1, w1 = table(-pad - a * (y - c), -S - 1, 0)           # per input row
+    off2, w2 = table(-b * (xp - (c + pad)), -S - 1, S + 1)    # per canvas column
+    off3, w3 = table(pad - a * (y - c), -1, S + 1)            # per output row
+    n = torch.arange(N)[:, None, None]
+
+    def blend(weights, values):  # w0 v0 + w1 v1 + ... as the plain version sums
+        acc = weights[0][..., None] * values[0]
+        for w, v in zip(weights[1:], values[1:]):
+            acc = acc + w[..., None] * v
+        return acc
+
+    def out1(r, col):  # shear 1's output at rows r, canvas columns col
+        r_in = (r >= 0) & (r < S)
+        rr = r.clamp(0, S - 1)
+        base = col + off1[n, rr]
+        vals = []
+        for d in taps:
+            tap = base + d
+            inside = ((tap >= 0) & (tap < S))[..., None]
+            vals.append(img[n, rr, tap.clamp(0, S - 1)] * inside)
+        live = (r_in & (base >= 0) & (base < S))[..., None]
+        return blend([w1[n, rr, i] for i in range(len(taps))], vals) * live
+
+    out = []
+    for y0 in range(0, S, rows):
+        band = torch.arange(y0, min(y0 + rows, S))[None, :, None]          # (1, R, 1)
+        col = off3[n, band] + taps[0] + torch.arange(S + len(taps) - 1)  # (N, R, Ww)
+        col_in = (col >= 0) & (col < Wp)
+        colc = col.clamp(0, Wp - 1)
+        bs = band + off2[n, colc]
+        live = (col_in & (bs >= 0) & (bs < S))[..., None]
+        stage = blend([w2[n, colc, j] for j in range(len(taps))],
+                      [out1(bs + d, colc) for d in taps]) * live           # (N, R, Ww, C)
+        base = torch.arange(S) + off3[n, band]                            # (N, R, S)
+        live3 = ((base >= 0) & (base < Wp))[..., None]
+        vals = [stage[:, :, j:j + S] for j in range(len(taps))]
+        out.append(blend([w3[n, band, j].expand(-1, -1, S) for j in range(len(taps))],
+                         vals) * live3)
+    return torch.cat(out, dim=1)
+
+
+@pytest.mark.parametrize("cubic", [False, True], ids=["bilinear", "cubic"])
+@pytest.mark.parametrize("S,rows", [(49, 8), (224, 8), (224, 5)],
+                         ids=["49-band8", "224-band8", "224-band5"])
+def test_banded_form_of_the_kernel_equals_rotate_shear3(S, rows, cubic):
+    """K3's design (a band of shear 2's output staged from out1 taps that
+    are recomputed from the input) gives ``rotate_shear3`` exactly (atol 0;
+    only the sign of a zero may differ), at bands that divide S and bands
+    that do not, at 0, +-0.52, +-1.3 and +-pi/2 (float32(pi/2), just past
+    the domain, taken by both alike)."""
+    thetas = torch.tensor([0.0, 0.52, -0.52, 1.3, -1.3, np.pi / 2, -np.pi / 2])
+    x = torch.from_numpy(np.random.RandomState(S + rows).uniform(
+        0, 255, (len(thetas), S, S, 3)).astype(np.float32))
+    torch.testing.assert_close(_banded_rotation(x, thetas, cubic, rows),
+                               image_warp.rotate_shear3(x, thetas, cubic), rtol=0, atol=0)
