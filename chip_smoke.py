@@ -7,8 +7,8 @@ Run from the repository root on a machine with a CUDA GPU (an H100 is the
 target). It builds the port's CUDA kernels from ``satellite_pose_estimation
 _tpu_torch/csrc`` with nvcc (K1, the fused attention forward; K2, its
 backward; K3, the rotation; K4, the fused photometric chain; K5, flash
-attention -- one nvcc per source, all started together), then runs eleven
-phases and exits non-zero if any fails:
+attention -- one nvcc per source, all started together), then runs
+thirteen phases and exits non-zero if any fails:
 
 1. the card's name and power limit, the kernel build time, and each
    kernel's registers, shared memory and spills (ptxas's own lines);
@@ -537,6 +537,7 @@ def main() -> int:
 
     train = train_phases(torch, card, dev, g, sm_scale)
     routes = route_phases(torch, card, dev, g, sm_scale)
+    int8 = int8_phases(torch, card, dev, g)
 
     log(json.dumps({"kernels": [{
         "name": "fused_attention",
@@ -544,10 +545,11 @@ def main() -> int:
         "source": "satellite_pose_estimation_tpu_torch/csrc/fused_attention.cu",
         "replaces": "satellite_pose_estimation_tpu/ops/fused_attention.py:31",
         "launches": (main_path_launches + train["k1_launches"] + train["k1_eval_bf16_launches"]
-                     + routes["b"]["k1"]),
+                     + routes["b"]["k1"] + int8["k1"]),
         "launches_by_path": {"eval": main_path_launches, "train": train["k1_launches"],
                              "train_state_eval_bf16": train["k1_eval_bf16_launches"],
-                             "train_pallas_augment": routes["b"]["k1"]},
+                             "train_pallas_augment": routes["b"]["k1"],
+                             "eval_int8_static": int8["k1"]},
         "max_abs_err": k1_err,
         **k1_times,
     }, {
@@ -1174,6 +1176,219 @@ def route_phases(torch, card, dev, g, sm_scale):
         del qkvg, q, k, v, go, real, lib_out
     log("phase 11 ok")
     return {"a": result["a"], "b": result["b"], "eval_k5": seen["k5"], "times": times}
+
+
+def int8_phases(torch, card, dev, g):
+    """Phases 12-13: the int8 static-PTQ eval and the rest of DETRConfig."""
+    from satellite_pose_estimation_tpu_torch.data.augment import AugmentConfig
+    from satellite_pose_estimation_tpu_torch.losses.criterion import CriterionConfig
+    from satellite_pose_estimation_tpu_torch.models import layers
+    from satellite_pose_estimation_tpu_torch.models.detr import (
+        DETRConfig,
+        build_detr_model,
+        build_detr_train_model,
+    )
+    from satellite_pose_estimation_tpu_torch.ops import quantize
+    from satellite_pose_estimation_tpu_torch.ops.image_warp import crop_resize_cubic_mxu
+    from satellite_pose_estimation_tpu_torch.ops.precision import highest_precision
+    from satellite_pose_estimation_tpu_torch.train.state import TrainConfig, create_train_state
+    from satellite_pose_estimation_tpu_torch.train.steps import make_eval_step, make_train_step
+    from satellite_pose_estimation_tpu_torch.utils.calibrate import calibrate_act_scales
+
+    bf16 = torch.bfloat16
+    size = 224
+
+    # -- 12. int8 static PTQ eval at full width ------------------------------
+    base = dict(backbone="resnet50s8", hidden_dim=256, nheads=8, enc_layers=4, dec_layers=4,
+                dim_feedforward=2048, num_queries=20, dropout=0.0)
+    scope = os.environ.get("SPE_INT8_SCOPE", "conv,ffn")
+    model = build_detr_model(DETRConfig(quantize_int8=True, **base), seed=0, device=dev)
+    sites = sum(isinstance(m, (layers.QConv, layers.QDense)) for m in model.modules())
+    float_model = build_detr_model(DETRConfig(**base), seed=0, device=dev)
+    float_model.load_state_dict(model.state_dict())  # the same weights, float32
+    EB, steps, windows = 256, 5, 3
+    pool = [eval_batch(torch, dev, EB, g) for _ in range(steps * windows + 3)]
+    warp = [crop_resize_cubic_mxu(b["image"], b["clip_bbox_buf"], size, True) for b in pool[:2]]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    quant = calibrate_act_scales(model, warp, compute_dtype=bf16)
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t0
+    amax = torch.stack(list(quant.values()))
+    log(f"  int8 scope {scope}: {sites} int8 sites; calibrated on 2 warped batches of {EB} in "
+        f"{calib_s:.3f} s (first call, build of every GEMM plan included); amax min "
+        f"{amax.min().item():.4g}, max {amax.max().item():.4g}, zero at "
+        f"{int((amax == 0).sum())} sites")
+    require(len(quant) == sites and bool(torch.isfinite(amax).all()) and bool((amax > 0).all()),
+            "calibration: a site is missing or its amax is not finite and positive")
+    del warp
+
+    step8 = make_eval_step(out_size=size, compute_dtype=bf16, quant=quant)
+    step16 = make_eval_step(out_size=size, compute_dtype=bf16)
+    for step, net in ((step8, model), (step16, float_model)):
+        step(net, pool[0])  # warm-up
+    torch.cuda.synchronize()
+    zero_counts()
+    results = [step8(model, b) for b in pool[:3]]
+    torch.cuda.synchronize()
+    seen = counts()
+    expect = expected(k1=3 * base["enc_layers"])
+    log(f"  int8 static eval: launches in 3 steps of B={EB} {seen} (expected {expect})")
+    require(seen == expect, "int8 eval launch counts")
+    for res in results:
+        for key_, val in res.items():
+            if val.is_floating_point():
+                require(bool(torch.isfinite(val).all()), f"int8 eval {key_} not finite")
+
+    def rate(step, net):
+        rates = []
+        for w in range(windows):
+            chunk = pool[3 + w * steps: 3 + (w + 1) * steps]
+            t0 = time.perf_counter()
+            for b in chunk:
+                step(net, b)
+            torch.cuda.synchronize()
+            rates.append(EB * steps / (time.perf_counter() - t0))
+        return rates
+
+    def peak(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        return out, torch.cuda.max_memory_allocated() / 2**30
+
+    r8, mem8 = peak(lambda: rate(step8, model))
+    r16, mem16 = peak(lambda: rate(step16, float_model))
+    for name, r, mem in (("int8 static", r8, mem8), ("bf16 (same weights)", r16, mem16)):
+        log(f"  eval step {name} B={EB} @224: median {statistics.median(r):.2f} img/s (min "
+            f"{min(r):.2f}, max {max(r):.2f}; 3 windows of {steps} steps), peak device memory "
+            f"{mem:.2f} GiB on {card}")
+
+    # Device spans of one B=256 step's model and backbone (median of 3):
+    # int8 with each int8_conv form, bf16 through cuDNN under the same
+    # autocast, and the bf16-weight model of phase 5.
+    scales = {k: quantize.amax_to_scale(v) for k, v in quant.items()}
+    imgs = crop_resize_cubic_mxu(pool[3]["image"], pool[3]["clip_bbox_buf"], size, True)
+    nchw = imgs.permute(0, 3, 1, 2)
+    pure16 = build_detr_model(DETRConfig(**base), seed=0, device=dev, dtype=bf16)
+    pure16.load_state_dict(model.state_dict())
+
+    def span(fn):
+        with torch.inference_mode(), torch.autocast("cuda", dtype=bf16), \
+                layers.static_scales(model, scales):
+            fn()
+            torch.cuda.synchronize()
+            return statistics.median(cuda_ms(fn, 1, torch) for _ in range(3))
+
+    spans = {}
+    for form in ("im2col", "shifted", "shifted", "im2col"):
+        layers.QConv.form = form
+        spans.setdefault(f"int8 model ({form})", []).append(span(lambda: model(imgs)))
+        spans.setdefault(f"int8 backbone ({form})", []).append(span(lambda: model.backbone(nchw)))
+    layers.QConv.form = "im2col"
+    spans["bf16 model (autocast)"] = [span(lambda: float_model(imgs))]
+    spans["bf16 backbone (autocast, cuDNN)"] = [span(lambda: float_model.backbone(nchw))]
+    with torch.inference_mode():
+        pure_in = imgs.to(bf16)
+        spans["bf16-weight model (phase 5's)"] = [
+            statistics.median(cuda_ms(lambda: pure16(pure_in), 1, torch) for _ in range(3))]
+    del pure16, pure_in
+    for name, v in spans.items():
+        log(f"  stage {name}: " + " / ".join(f"{x:.3f}" for x in v)
+            + f" ms per B={EB} step on {card}")
+
+    # Drift of int8 from bf16 on the same (seeded) weights, gated as
+    # tests/test_quantize.py gates JAX's.
+    with torch.inference_mode(), torch.autocast("cuda", dtype=bf16):
+        with layers.static_scales(model, scales):
+            out8 = model(imgs)
+        out16 = float_model(imgs)
+    d_pts = (out8["pred_points"] - out16["pred_points"]).abs().median().item()
+    d_log = (out8["pred_logits"] - out16["pred_logits"]).abs().median().item()
+    logits = out16["pred_logits"].float()
+    top2 = logits.topk(2, dim=-1).values
+    margin = top2[..., 0] - top2[..., 1]
+    confident = margin >= margin.quantile(0.9)
+    agree = (logits.argmax(-1) == out8["pred_logits"].argmax(-1))[confident].float().mean().item()
+    s8 = torch.cat([r["score"] for r in results]).mean().item()
+    s16 = torch.cat([step16(float_model, b)["score"] for b in pool[:3]]).mean().item()
+    log(f"  int8 vs bf16, seeded weights, B={EB}: median |d points| {d_pts:.3e}, median "
+        f"|d logits| {d_log:.3e} (limits 0.05), argmax agreement on the top-decile-margin "
+        f"queries {agree:.4f} (limit 0.9); mean SPEED score {s8:.6f} vs {s16:.6f} "
+        f"(drift {s8 - s16:+.6f}; an untrained model finds no pose)")
+    require(d_pts < 0.05 and d_log < 0.05 and agree > 0.9, "int8 drifts from bf16")
+    del out8, out16, imgs, nchw, float_model
+
+    # float32 int8 model: card (TF32 off) against the CPU on static scales.
+    x = crop_resize_cubic_mxu(pool[0]["image"][:2], pool[0]["clip_bbox_buf"][:2], size, True)
+    cpu = build_detr_model(DETRConfig(quantize_int8=True, **base), seed=0, device="cpu")
+    cpu_quant = {k: v.cpu() for k, v in quant.items()}
+    with highest_precision():
+        out_gpu = make_eval_step(out_size=size, quant=quant)(model, {
+            k: v[:2] for k, v in pool[0].items()})
+        out_cpu = make_eval_step(out_size=size, quant=cpu_quant)(cpu, {
+            k: v[:2].cpu() for k, v in pool[0].items()})
+    d = (out_gpu["probs"].cpu() - out_cpu["probs"]).abs()
+    log(f"  float32 int8 model, card vs CPU, B=2: probabilities median {d.median().item():.3e} "
+        f"(limit 1.5e-2), max {d.max().item():.3e} (limit 0.1; a code flips where float32 "
+        "rounding differs, as against JAX)")
+    require(d.median().item() <= 1.5e-2 and d.max().item() <= 0.1,
+            "float32 int8 model disagrees with the CPU")
+    del cpu, x
+
+    # int8 GEMMs at main-path shapes: the card equals the CPU bit for bit.
+    gen = torch.Generator().manual_seed(12)
+    for name, (cin, cout, k, stride, pad, H, B) in {
+            "stem": (3, 64, 7, 2, 3, 224, 8), "layer2_0.conv2": (128, 128, 3, 2, 1, 56, 8),
+            "s16_latern": (1024, 256, 3, 1, 1, 28, 8)}.items():
+        xc = torch.randn(B, H, H, cin, generator=gen).to(bf16).permute(0, 3, 1, 2)
+        w = torch.randn(cout, cin, k, k, generator=gen) * 0.05
+        same = torch.equal(quantize.int8_conv(xc.to(dev), w.to(dev), stride, pad).cpu(),
+                           quantize.int8_conv(xc, w, stride, pad))
+        log(f"  int8_conv {name} (B={B}, {cin}->{cout}, {k}x{k}/{stride}, {H}x{H}) card == CPU: "
+            f"{same}")
+        require(same, f"int8_conv {name} differs between the card and the CPU")
+    for M, K, N in ((EB * 784, 256, 2048), (EB * 784, 2048, 256)):
+        xm = torch.randn(M, K, generator=gen).to(bf16)
+        w = torch.randn(N, K, generator=gen) * 0.05
+        same = torch.equal(quantize.int8_matmul(xm.to(dev), w.to(dev)).cpu(),
+                           quantize.int8_matmul(xm, w))
+        log(f"  int8_matmul FFN ({M}x{K} @ {K}x{N}) card == CPU: {same}")
+        require(same, "int8_matmul differs between the card and the CPU")
+    del pool, results, model
+    log("phase 12 ok")
+
+    # -- 13. the rest of DETRConfig, reduced depth ------------------------------
+    reduced = dict(base, enc_layers=2, dec_layers=2)
+    batch = eval_batch(torch, dev, 2, g)
+    for extra in (dict(backbone="resnet18", bn="bn", position_embedding="learned", pre_norm=True),
+                  dict(backbone="resnet50", bn="group_bn")):
+        cfg = DETRConfig(**{**reduced, **extra})
+        gpu = build_detr_model(cfg, seed=3, device=dev)
+        cpu = build_detr_model(cfg, seed=3, device="cpu")
+        with highest_precision():
+            out_gpu = make_eval_step(out_size=size)(gpu, batch)
+            out_cpu = make_eval_step(out_size=size)(cpu, {k: v.cpu() for k, v in batch.items()})
+        err = max_err(out_gpu["probs"].cpu(), out_cpu["probs"])
+        log(f"  {extra}: float32 eval step, card vs CPU probabilities max err {err:.3e} "
+            "(tolerance 2e-3)")
+        require(err <= 2e-3, f"{extra} disagrees between the card and the CPU")
+    cfg = DETRConfig(**{**reduced, "backbone": "resnet18", "bn": "bn"})
+    state = create_train_state(build_detr_train_model(cfg, seed=4, device=dev), TrainConfig())
+    step = make_train_step(CriterionConfig(), TrainConfig(), AugmentConfig(out_size=size),
+                           compute_dtype=bf16)
+    bn = state.model.backbone.layer2_0.bn1
+    before = bn.running_mean.clone()
+    gen = torch.Generator(device=dev).manual_seed(13)
+    losses = step(state, train_batch(torch, dev, 16, gen), gen)
+    moved = (bn.running_mean - before).abs().max().item()
+    log(f"  resnet18 bn train step B=16 bf16: loss {losses['loss_total'].item():.4f}, "
+        f"layer2_0.bn1 running mean moved by up to {moved:.3e}, "
+        f"batches tracked {bn.num_batches_tracked.item()}")
+    require(bool(torch.isfinite(losses["loss_total"])) and moved > 0
+            and bn.num_batches_tracked.item() == 1, "the bn train step")
+    log("phase 13 ok")
+    return {"k1": seen["k1"]}
 
 
 if __name__ == "__main__":

@@ -9,10 +9,13 @@ for every earlier decoder layer, all in the loss dtype (float32 for a bf16
 or float32 model, float64 for a float64 one).
 
 ``module.training`` stands for the JAX model's ``train=True``: dropout is
-active in training mode. ``build_detr_model`` builds an eval model in one
-dtype; ``build_detr_train_model`` keeps the parameters float32 and leaves
-the compute dtype to ``torch.autocast`` (Flax's ``dtype=bf16`` means bf16
-compute on float32 parameters).
+active in training mode and a ``bn`` backbone normalises with batch
+statistics. ``build_detr_model`` builds an eval model in one dtype;
+``build_detr_train_model`` keeps the parameters float32 and leaves the
+compute dtype to ``torch.autocast`` (Flax's ``dtype=bf16`` means bf16
+compute on float32 parameters). An int8 model (``quantize_int8``) quantizes
+from float32 weights, as JAX quantizes its float32 parameters: build it in
+float32 and evaluate it under ``compute_dtype=torch.bfloat16``.
 """
 from __future__ import annotations
 
@@ -23,38 +26,53 @@ from torch import nn
 
 from ..ops.precision import to_loss_dtype
 from .layers import MLP, conv2d, linear
-from .position_encoding import PositionEmbeddingSine
-from .resnet import Backbone8s
+from .position_encoding import PositionEmbeddingLearned, PositionEmbeddingSine
+from .resnet import Backbone8s, ResNet
 from .transformer import Transformer
 
 
 @dataclasses.dataclass(frozen=True)
 class DETRConfig:
-    backbone: str = "resnet50s8"  # the only backbone of this port so far
+    """The JAX ``DETRConfig`` (the R1 CLI surface) less its ``dtype``,
+    which the builders take."""
+
+    backbone: str = "resnet50s8"  # resnet18/34/50/101 (layer3 tap) or resnet50s8
+    bn: str = "frozen_bn"  # frozen_bn | bn | sync_bn | group_bn
+    dilation: bool = False  # accepted and unused, as in JAX
+    position_embedding: str = "sine"  # sine | learned
     hidden_dim: int = 256
     nheads: int = 8
     enc_layers: int = 6
     dec_layers: int = 6
     dim_feedforward: int = 2048
     dropout: float = 0.1
+    pre_norm: bool = False
     num_queries: int = 20
     num_keypoints: int = 11
     aux_loss: bool = True
     use_flash_attention: bool = False  # encoder self-attention through K5
+    quantize_int8: bool = False  # int8 backbone convs + scoped transformer ops (eval)
+    remat: bool = False  # recompute encoder layers in the backward pass
 
 
 class DETRKeypointModel(nn.Module):
     def __init__(self, config: DETRConfig = DETRConfig(),
                  generator: torch.Generator | None = None):
         super().__init__()
-        if config.backbone != "resnet50s8":
-            raise ValueError(f"backbone {config.backbone!r} is not ported; "
-                             "only 'resnet50s8' is")
         self.config = cfg = config
         g = generator
-        self.backbone = Backbone8s(generator=g)
-        self.input_proj = conv2d(Backbone8s.num_channels, cfg.hidden_dim, 1, generator=g)
-        self.pos_enc = PositionEmbeddingSine(num_pos_feats=cfg.hidden_dim // 2)
+        quant = cfg.quantize_int8
+        if cfg.backbone == "resnet50s8":
+            self.backbone = Backbone8s(cfg.bn, quant, g)
+            channels = Backbone8s.num_channels
+        else:
+            self.backbone = ResNet(cfg.backbone, (3,), cfg.bn, quant, g)
+            channels = ResNet.tap_channels(cfg.backbone, 3)
+        self.input_proj = conv2d(channels, cfg.hidden_dim, 1, generator=g)
+        if cfg.position_embedding == "sine":
+            self.pos_enc = PositionEmbeddingSine(num_pos_feats=cfg.hidden_dim // 2)
+        else:
+            self.pos_enc = PositionEmbeddingLearned(cfg.hidden_dim, g)
         self.query_embed = nn.Parameter(torch.empty(cfg.num_queries, cfg.hidden_dim))
         with torch.no_grad():
             self.query_embed.normal_(0.0, 1.0, generator=g)
@@ -62,7 +80,8 @@ class DETRKeypointModel(nn.Module):
             d_model=cfg.hidden_dim, nhead=cfg.nheads,
             num_encoder_layers=cfg.enc_layers, num_decoder_layers=cfg.dec_layers,
             dim_feedforward=cfg.dim_feedforward, dropout=cfg.dropout, generator=g,
-            use_flash=cfg.use_flash_attention)
+            use_flash=cfg.use_flash_attention, normalize_before=cfg.pre_norm, quant=quant,
+            remat=cfg.remat)
         self.cls_embed = linear(cfg.hidden_dim, cfg.num_keypoints + 1, g)
         self.point_embed = MLP(cfg.hidden_dim, cfg.hidden_dim, 2, 3, generator=g)
 
@@ -89,7 +108,11 @@ def build_detr_model(config: DETRConfig = DETRConfig(), seed: int = 0,
     weights do not depend on the device), moved to ``device``/``dtype`` and
     put in eval mode. The model runs on the card unless ``device="cpu"`` is
     asked for; without a card the default raises, as ``Module.to("cuda")``
-    does."""
+    does. An int8 model is built in float32 only (its weights are quantized
+    from float32; run it in bf16 under autocast)."""
+    if config.quantize_int8 and dtype != torch.float32:
+        raise ValueError("an int8 model keeps float32 weights; build it in float32 and "
+                         "evaluate it with make_eval_step(compute_dtype=torch.bfloat16)")
     generator = torch.Generator().manual_seed(seed)
     model = DETRKeypointModel(config, generator)
     return model.to(device=device, dtype=dtype).eval()

@@ -3,13 +3,23 @@
 Initialisers mirror flax's defaults, so a seeded model built here has the
 statistics of the JAX one: convolution and dense kernels are LeCun-normal
 (truncated normal, fan-in), biases zero.
+
+The int8 modules ``QConv`` and ``QDense`` are ``nn.Conv2d`` / ``nn.Linear``
+with the same parameters, so one state dict loads into the float and the
+int8 model. Their activation scales come from the static-PTQ hook
+(``calibration`` / ``static_scales``, below), which plays the part of the
+JAX ``quant`` variable collection.
 """
 from __future__ import annotations
 
 import math
+import threading
+from contextlib import contextmanager
 
 import torch
 from torch import nn
+
+from ..ops.quantize import int8_conv, int8_matmul
 
 
 def lecun_normal_(weight: torch.Tensor, fan_in: int,
@@ -21,18 +31,19 @@ def lecun_normal_(weight: torch.Tensor, fan_in: int,
                                      generator=generator)
 
 
-def conv2d(cin, cout, kernel, stride=1, padding=0, bias=True, generator=None):
-    """``nn.Conv2d`` with flax's initialisation."""
-    conv = nn.Conv2d(cin, cout, kernel, stride=stride, padding=padding, bias=bias)
+def conv2d(cin, cout, kernel, stride=1, padding=0, bias=True, generator=None, quant=False):
+    """``nn.Conv2d`` (``QConv`` with ``quant``) with flax's initialisation."""
+    conv = (QConv if quant else nn.Conv2d)(cin, cout, kernel, stride=stride, padding=padding,
+                                          bias=bias)
     lecun_normal_(conv.weight, cin * kernel * kernel, generator)
     if bias:
         nn.init.zeros_(conv.bias)
     return conv
 
 
-def linear(cin, cout, generator=None):
-    """``nn.Linear`` with flax's initialisation."""
-    lin = nn.Linear(cin, cout)
+def linear(cin, cout, generator=None, quant=False):
+    """``nn.Linear`` (``QDense`` with ``quant``) with flax's initialisation."""
+    lin = (QDense if quant else nn.Linear)(cin, cout)
     lecun_normal_(lin.weight, cin, generator)
     nn.init.zeros_(lin.bias)
     return lin
@@ -61,6 +72,26 @@ class FrozenBatchNorm(nn.Module):
         return x * mult[:, None, None] + shift[:, None, None]
 
 
+def norm_layer(kind: str, features: int) -> nn.Module:
+    """The norm of ``kind`` over ``features`` NCHW channels (counterpart of
+    ``apply_norm``, the reference's build_batchnorm selector):
+
+    * ``frozen_bn`` -- ``FrozenBatchNorm``;
+    * ``bn`` -- ``nn.BatchNorm2d`` (eps 1e-5, momentum 0.1 = JAX's retention
+      0.9, the unbiased variance in the running statistic: the JAX
+      ``TorchBatchNorm`` semantics). ``sync_bn`` is the same on one card,
+      as JAX makes it when no mesh axis is bound;
+    * ``group_bn`` -- ``nn.GroupNorm(32)`` with flax's eps 1e-6.
+    """
+    if kind == "frozen_bn":
+        return FrozenBatchNorm(features)
+    if kind in ("bn", "sync_bn"):
+        return nn.BatchNorm2d(features, eps=1e-5, momentum=0.1)
+    if kind == "group_bn":
+        return nn.GroupNorm(32, features, eps=1e-6)
+    raise ValueError(f"unknown norm kind: {kind}")
+
+
 class MLP(nn.Module):
     """DETR-style MLP head: (num_layers-1) x [Linear + ReLU] + Linear."""
 
@@ -77,3 +108,96 @@ class MLP(nn.Module):
             if i < self.num_layers - 1:
                 x = torch.relu(x)
         return x
+
+
+# -- int8 PTQ ------------------------------------------------------------------
+
+_quant = threading.local()
+
+
+@contextmanager
+def _quant_context(model, scales, amax):
+    prev = getattr(_quant, "ctx", None)
+    _quant.ctx = ({m: name for name, m in model.named_modules()}, scales, amax)
+    try:
+        yield
+    finally:
+        _quant.ctx = prev
+
+
+def calibration(model, amax: dict):
+    """Within this context the int8 modules of ``model`` record the running
+    max |activation| of each site into ``amax`` (float32 scalars keyed
+    ``<module path>.act_amax``, or ``.amax_q/k/v`` for the int8 attention
+    core) and still quantize dynamically -- the JAX calibration pass."""
+    return _quant_context(model, None, amax)
+
+
+def static_scales(model, scales: dict):
+    """Within this context the int8 modules of ``model`` quantize their
+    activations with the static scales ``scales`` (max(amax, 1e-8) / 127,
+    keyed as ``calibration`` keys them); a site without one quantizes
+    dynamically. Outside both contexts every site is dynamic."""
+    return _quant_context(model, scales, None)
+
+
+def act_scale_or_calibrate(mod: nn.Module, x, name: str = "act_amax"):
+    """The static-PTQ hook of the int8 modules (JAX ``_act_scale_or_calibrate``):
+    in ``calibration`` record max |x| and return None (dynamic); under
+    ``static_scales`` return the site's scale; else None (dynamic)."""
+    ctx = getattr(_quant, "ctx", None)
+    if ctx is None:
+        return None
+    paths, scales, amax = ctx
+    key = f"{paths[mod]}.{name}" if paths[mod] else name
+    if amax is None:
+        return scales.get(key)
+    seen = x.detach().abs().amax().float()
+    amax[key] = torch.maximum(amax[key], seen) if key in amax else seen
+    return None
+
+
+def _check_master(weight):
+    if weight.dtype != torch.float32:
+        raise TypeError("int8 modules quantize float32 weights (as JAX quantizes its float32 "
+                        f"parameters), got {weight.dtype}: keep the parameters float32 and "
+                        "compute in bf16 under torch.autocast")
+
+
+def _out_dtype(x):
+    """The module's output dtype: autocast's where it is on, else x's (the
+    JAX modules' ``dtype``)."""
+    dev = x.device.type
+    return torch.get_autocast_dtype(dev) if torch.is_autocast_enabled(dev) else x.dtype
+
+
+class QConv(nn.Conv2d):
+    """``nn.Conv2d`` on the int8 path (JAX ``QConv``): the same parameters,
+    weights quantized per output channel from the float32 weight at every
+    call, activations per tensor. ``form`` picks ``int8_conv``'s GEMM form
+    for a k x k kernel."""
+
+    form = "im2col"
+
+    def forward(self, x):
+        _check_master(self.weight)
+        y = int8_conv(x, self.weight, self.stride[0], self.padding[0], _out_dtype(x),
+                      act_scale_or_calibrate(self, x), self.form)
+        if self.bias is not None:
+            y = y + self.bias.to(y.dtype)[:, None, None]
+        return y
+
+
+class QDense(nn.Linear):
+    """``nn.Linear`` on the int8 path: JAX ``QDense`` and, for the port's
+    flattened attention projections, ``QDenseGeneral`` (weight scales per
+    output row: H*D rows for q/k/v, d for ``mha_out``)."""
+
+    def forward(self, x):
+        _check_master(self.weight)
+        y = int8_matmul(x.reshape(-1, x.shape[-1]), self.weight, _out_dtype(x),
+                        act_scale_or_calibrate(self, x))
+        y = y.reshape(*x.shape[:-1], -1)
+        if self.bias is not None:
+            y = y + self.bias.to(y.dtype)
+        return y

@@ -1,7 +1,9 @@
-"""2D sine positional encoding (counterpart of models/position_encoding.py).
+"""2D positional encodings (counterpart of models/position_encoding.py).
 
-With no padding mask (every crop is fully valid) the normalised cumulative
-sum of the reference reduces to a linear ramp, computed in closed form.
+* ``PositionEmbeddingSine``: with no padding mask (every crop is fully
+  valid) the normalised cumulative sum of the reference reduces to a linear
+  ramp, computed in closed form.
+* ``PositionEmbeddingLearned``: 50-row learned row / column tables.
 """
 from __future__ import annotations
 
@@ -41,3 +43,23 @@ class PositionEmbeddingSine(nn.Module):
         pos_y = torch.stack([pos_y[:, :, 0::2].sin(), pos_y[:, :, 1::2].cos()],
                             dim=3).reshape(h, w, -1)
         return torch.cat([pos_y, pos_x], dim=-1).to(dtype)
+
+
+class PositionEmbeddingLearned(nn.Module):
+    """Learned embedding: ``col_embed[:w]`` and ``row_embed[:h]`` (50 rows
+    each of num_pos_feats/2, flax's ``uniform(1.0)`` init U[0, 1))
+    broadcast over the grid and concatenated, x half first."""
+
+    def __init__(self, num_pos_feats=256, generator=None):
+        super().__init__()
+        self.row_embed = nn.Parameter(torch.empty(50, num_pos_feats // 2))
+        self.col_embed = nn.Parameter(torch.empty(50, num_pos_feats // 2))
+        with torch.no_grad():
+            self.row_embed.uniform_(0.0, 1.0, generator=generator)
+            self.col_embed.uniform_(0.0, 1.0, generator=generator)
+
+    def forward(self, h: int, w: int, device=None, dtype=torch.float32):
+        """Returns (h, w, num_pos_feats) position features."""
+        x_emb = self.col_embed[:w][None].expand(h, -1, -1)
+        y_emb = self.row_embed[:h][:, None].expand(-1, w, -1)
+        return torch.cat([x_emb, y_emb], dim=-1).to(dtype)

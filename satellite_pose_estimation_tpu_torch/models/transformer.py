@@ -1,20 +1,29 @@
 """DETR encoder/decoder transformer (counterpart of models/transformer.py).
 
-Post-norm layers, LayerNorm eps 1e-5, positional embeddings added to q/k
-only, and one shared ``decoder_norm`` applied to every decoder
-intermediate. Sequences are (B, T, C). ``module.training`` stands for the
-JAX layers' ``deterministic=False``: dropout sits where the JAX layers put
-it (on the attention weights of the plain core, after the FFN activation,
-and on each residual branch).
+Post-norm layers (pre-norm with ``normalize_before``, which adds a final
+``encoder_norm``), LayerNorm eps 1e-5, ReLU or erf-GELU FFNs, positional
+embeddings added to q/k only, and one shared ``decoder_norm`` applied to
+every decoder intermediate. Sequences are (B, T, C). ``module.training``
+stands for the JAX layers' ``deterministic=False``: dropout sits where the
+JAX layers put it (on the attention weights of the plain core, after the
+FFN activation, and on each residual branch), and ``remat`` recomputes
+each encoder layer in the backward pass (``torch.utils.checkpoint``).
+
+``quant`` (eval deployment) makes the FFNs int8 under the ``ffn`` scope and
+the attention projections under ``attn_proj`` (``ops.quantize.quant_scope``,
+read when the model is built); the decoder layers take
+``quant and quant_scope("dec")``.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.flash_attention import flash_self_attention
 from ..ops.fused_attention import fused_self_attention
-from .layers import linear
+from ..ops.quantize import int8_attention_core, quant_scope
+from .layers import act_scale_or_calibrate, linear
 
 
 class _Attention(nn.Module):
@@ -29,20 +38,25 @@ class _Attention(nn.Module):
 
     ``fused`` and ``flash`` fall to ``plain`` for a mask and for dropout in
     training, and ``fused`` also for sequences shorter than 256 tokens (the
-    JAX routing rule).
+    JAX routing rule). ``quant`` makes the projections int8 under the
+    ``attn_proj`` scope; ``quant_core`` (with ``quant``, off on the
+    deployment path) also runs the core as ``int8_attention_core``.
     """
 
-    def __init__(self, d_model, nhead, dropout=0.1, impl="fused", generator=None):
+    def __init__(self, d_model, nhead, dropout=0.1, impl="fused", generator=None,
+                 quant=False, quant_core=False):
         super().__init__()
         self.nhead = nhead
         self.head_dim = d_model // nhead
         self.dropout = dropout
         self.impl = impl
+        self.quant_core = quant and quant_core
         inner = nhead * self.head_dim
-        self.mha_query = linear(d_model, inner, generator)
-        self.mha_key = linear(d_model, inner, generator)
-        self.mha_value = linear(d_model, inner, generator)
-        self.mha_out = linear(inner, d_model, generator)
+        qproj = quant and quant_scope("attn_proj")
+        self.mha_query = linear(d_model, inner, generator, qproj)
+        self.mha_key = linear(d_model, inner, generator, qproj)
+        self.mha_value = linear(d_model, inner, generator, qproj)
+        self.mha_out = linear(inner, d_model, generator, qproj)
         self.attn_drop = nn.Dropout(dropout)
 
     def forward(self, q, k, v, attn_mask=None):
@@ -57,13 +71,18 @@ class _Attention(nn.Module):
         vh = heads(self.mha_value, v)
 
         impl = self.impl
-        if (self.dropout > 0.0 and self.training) or attn_mask is not None:
+        needs_dropout = self.dropout > 0.0 and self.training
+        if needs_dropout or attn_mask is not None:
             impl = "plain"
         if impl == "fused" and q.shape[1] < 256:
             # Short sequences (decoder queries): launch overhead beats any
             # score-traffic saving.
             impl = "plain"
-        if impl == "fused":
+        if self.quant_core and not needs_dropout:
+            scales = tuple(act_scale_or_calibrate(self, t, f"amax_{n}")
+                           for n, t in (("q", qh), ("k", kh), ("v", vh)))
+            out = int8_attention_core(qh, kh, vh, sm_scale, scales)
+        elif impl == "fused":
             out = fused_self_attention(qh, kh, vh, sm_scale)
         elif impl == "flash":
             out = flash_self_attention(qh, kh, vh, sm_scale)
@@ -78,45 +97,70 @@ class _Attention(nn.Module):
         return self.mha_out(out.transpose(1, 2).flatten(2))
 
 
+_ACTIVATIONS = {"relu": torch.relu,
+                "gelu": nn.functional.gelu}  # erf GELU, as JAX's approximate=False
+
+
 def _ffn(layer, x):
-    return layer.linear2(layer.drop(torch.relu(layer.linear1(x))))
+    return layer.linear2(layer.drop(layer.act(layer.linear1(x))))
 
 
 class EncoderLayer(nn.Module):
     def __init__(self, d_model, nhead, dim_feedforward=2048, dropout=0.1, generator=None,
-                 use_flash=False):
+                 use_flash=False, activation="relu", normalize_before=False, quant=False):
         super().__init__()
+        self.normalize_before = normalize_before
+        self.act = _ACTIVATIONS[activation]
         self.self_attn = _Attention(d_model, nhead, dropout,
-                                    "flash" if use_flash else "fused", generator)
-        self.linear1 = linear(d_model, dim_feedforward, generator)
-        self.linear2 = linear(dim_feedforward, d_model, generator)
+                                    "flash" if use_flash else "fused", generator, quant)
+        qffn = quant and quant_scope("ffn")
+        self.linear1 = linear(d_model, dim_feedforward, generator, qffn)
+        self.linear2 = linear(dim_feedforward, d_model, generator, qffn)
         self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
         self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
         self.drop = nn.Dropout(dropout)
 
     def forward(self, src, pos):
-        qk = src + pos
-        src = self.norm1(src + self.drop(self.self_attn(qk, qk, src)))
+        def sa(x):
+            qk = x + pos
+            return self.drop(self.self_attn(qk, qk, x))
+
+        if self.normalize_before:
+            src = src + sa(self.norm1(src))
+            return src + self.drop(_ffn(self, self.norm2(src)))
+        src = self.norm1(src + sa(src))
         return self.norm2(src + self.drop(_ffn(self, src)))
 
 
 class DecoderLayer(nn.Module):
-    def __init__(self, d_model, nhead, dim_feedforward=2048, dropout=0.1, generator=None):
+    def __init__(self, d_model, nhead, dim_feedforward=2048, dropout=0.1, generator=None,
+                 activation="relu", normalize_before=False, quant=False):
         super().__init__()
-        self.self_attn = _Attention(d_model, nhead, dropout, "plain", generator)
-        self.cross_attn = _Attention(d_model, nhead, dropout, "plain", generator)
-        self.linear1 = linear(d_model, dim_feedforward, generator)
-        self.linear2 = linear(dim_feedforward, d_model, generator)
+        self.normalize_before = normalize_before
+        self.act = _ACTIVATIONS[activation]
+        self.self_attn = _Attention(d_model, nhead, dropout, "plain", generator, quant)
+        self.cross_attn = _Attention(d_model, nhead, dropout, "plain", generator, quant)
+        self.linear1 = linear(d_model, dim_feedforward, generator, quant)
+        self.linear2 = linear(dim_feedforward, d_model, generator, quant)
         self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
         self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
         self.norm3 = nn.LayerNorm(d_model, eps=1e-5)
         self.drop = nn.Dropout(dropout)
 
     def forward(self, tgt, memory, pos, query_pos):
-        qk = tgt + query_pos
-        tgt = self.norm1(tgt + self.drop(self.self_attn(qk, qk, tgt)))
-        tgt = self.norm2(tgt + self.drop(
-            self.cross_attn(tgt + query_pos, memory + pos, memory)))
+        def sa(x):
+            qk = x + query_pos
+            return self.drop(self.self_attn(qk, qk, x))
+
+        def ca(x):
+            return self.drop(self.cross_attn(x + query_pos, memory + pos, memory))
+
+        if self.normalize_before:
+            tgt = tgt + sa(self.norm1(tgt))
+            tgt = tgt + ca(self.norm2(tgt))
+            return tgt + self.drop(_ffn(self, self.norm3(tgt)))
+        tgt = self.norm1(tgt + sa(tgt))
+        tgt = self.norm2(tgt + ca(tgt))
         return self.norm3(tgt + self.drop(_ffn(self, tgt)))
 
 
@@ -127,16 +171,22 @@ class Transformer(nn.Module):
 
     def __init__(self, d_model=256, nhead=8, num_encoder_layers=6,
                  num_decoder_layers=6, dim_feedforward=2048, dropout=0.1,
-                 generator=None, use_flash=False):
+                 generator=None, use_flash=False, activation="relu",
+                 normalize_before=False, quant=False, remat=False):
         super().__init__()
         self.num_encoder_layers = num_encoder_layers
         self.num_decoder_layers = num_decoder_layers
+        self.remat = remat
         for i in range(num_encoder_layers):
             self.add_module(f"encoder_layer_{i}", EncoderLayer(
-                d_model, nhead, dim_feedforward, dropout, generator, use_flash))
+                d_model, nhead, dim_feedforward, dropout, generator, use_flash, activation,
+                normalize_before, quant))
+        self.encoder_norm = nn.LayerNorm(d_model, eps=1e-5) if normalize_before else None
+        qdec = quant and quant_scope("dec")
         for i in range(num_decoder_layers):
             self.add_module(f"decoder_layer_{i}", DecoderLayer(
-                d_model, nhead, dim_feedforward, dropout, generator))
+                d_model, nhead, dim_feedforward, dropout, generator, activation,
+                normalize_before, qdec))
         self.decoder_norm = nn.LayerNorm(d_model, eps=1e-5)
 
     def forward(self, src, query_embed, pos_embed):
@@ -145,7 +195,13 @@ class Transformer(nn.Module):
         query_pos = query_embed[None].expand(src.shape[0], -1, -1).to(src.dtype)
         mem = src
         for i in range(self.num_encoder_layers):
-            mem = getattr(self, f"encoder_layer_{i}")(mem, pos)
+            layer = getattr(self, f"encoder_layer_{i}")
+            if self.remat and self.training:
+                mem = checkpoint(layer, mem, pos, use_reentrant=False)
+            else:
+                mem = layer(mem, pos)
+        if self.encoder_norm is not None:
+            mem = self.encoder_norm(mem)
         tgt = torch.zeros_like(query_pos)
         intermediates = []
         for i in range(self.num_decoder_layers):

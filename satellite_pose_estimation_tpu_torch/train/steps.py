@@ -8,6 +8,7 @@ host round trip.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
@@ -17,6 +18,8 @@ from ..geometry.camera import WORLD_POINTS
 from ..geometry.scoring import speed_score_batch
 from ..geometry.solvers import SolverConfig, solve_pose_simple
 from ..losses.criterion import CriterionConfig, set_criterion
+from ..models.layers import static_scales
+from ..ops.quantize import amax_to_scale
 from ..ops.image_warp import crop_resize_cubic_mxu
 from .ema import ema_update
 from .state import TrainConfig, TrainState, clip_by_global_norm_
@@ -87,7 +90,8 @@ def make_eval_step(criterion_cfg: Optional[CriterionConfig] = None,
                    solver_cfg: SolverConfig = SolverConfig(),
                    out_size: int = 256, solver: str = "simple",
                    use_ema: bool = False,
-                   compute_dtype: Optional[torch.dtype] = None):
+                   compute_dtype: Optional[torch.dtype] = None,
+                   quant: Optional[dict] = None):
     """Build ``eval_step(model_or_state, batch) -> dict``.
 
     Batch dict: image (B,P,P,3) uint8 canvases, clip_bbox_buf (B,4) crop
@@ -106,7 +110,23 @@ def make_eval_step(criterion_cfg: Optional[CriterionConfig] = None,
     step does, so a train state's float32 parameters are evaluated in the
     model dtype the JAX eval step uses; None computes in the parameters'
     dtype.
+
+    ``quant``: the calibrated activation ranges of an int8 model
+    (``utils.calibrate.calibrate_act_scales``, or a JAX ``quant``
+    collection through ``flax_quant_to_port``): its int8 modules then take
+    static scales max(amax, 1e-8) / 127. Without it they quantize each
+    activation dynamically.
     """
+    scales = None if quant is None else {k: amax_to_scale(v) for k, v in quant.items()}
+    per_device = {}
+
+    def quant_context(model, device):
+        if scales is None:
+            return contextlib.nullcontext()
+        if device not in per_device:
+            per_device[device] = {k: v.to(device) for k, v in scales.items()}
+        return static_scales(model, per_device[device])
+
     if solver != "simple":
         raise NotImplementedError(f"solver {solver!r} is not ported; only 'simple' is")
 
@@ -123,7 +143,8 @@ def make_eval_step(criterion_cfg: Optional[CriterionConfig] = None,
         model.eval()
         try:
             with torch.autocast(images.device.type, dtype=compute_dtype,
-                                enabled=compute_dtype is not None):
+                                enabled=compute_dtype is not None), \
+                    quant_context(model, images.device):
                 if use_ema and state is not None and state.ema is not None:
                     weights = {k: v.to(dtype) for k, v in state.ema.items()}
                     outputs = torch.func.functional_call(model, weights, (images,))

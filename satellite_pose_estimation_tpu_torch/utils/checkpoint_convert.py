@@ -12,8 +12,16 @@ names, so each leaf maps by its path; only the layouts change:
 * attention projections: ``mha_query/key/value`` kernels (d, H, Dh) ->
   (H*Dh, d) with biases (H, Dh) -> (H*Dh,), and ``mha_out`` kernels
   (H, Dh, d) -> (d, H*Dh);
-* FrozenBatchNorm / LayerNorm ``scale`` -> ``weight``; ``batch_stats``
-  ``mean``/``var`` -> ``running_mean``/``running_var``.
+* FrozenBatchNorm / BatchNorm / GroupNorm / LayerNorm ``scale`` ->
+  ``weight``; ``batch_stats`` ``mean``/``var`` ->
+  ``running_mean``/``running_var``, and for a ``bn`` / ``sync_bn``
+  backbone (``nn.BatchNorm2d``) a ``num_batches_tracked`` of 0, which JAX
+  does not count.
+
+``flax_quant_to_port(quant)`` takes the JAX ``quant`` collection of a
+calibrated int8 model (nested dicts of numpy scalars) and returns the
+port's calibration dict (``utils.calibrate.calibrate_act_scales``'s
+format), so both packages can run on the same static scales.
 """
 from __future__ import annotations
 
@@ -51,10 +59,12 @@ def _convert_param(path, x):
     return leaf, x  # query_embed
 
 
-def flax_detr_to_state_dict(params: dict, batch_stats: dict | None = None) -> dict:
+def flax_detr_to_state_dict(params: dict, batch_stats: dict | None = None,
+                            bn: str = "frozen_bn") -> dict:
     """JAX DETR ``params`` / ``batch_stats`` (nested dicts of numpy arrays)
     -> the port's ``state_dict`` (CPU tensors, each of its array's dtype:
-    float32 for the JAX model's parameters, float64 for a float64 tree)."""
+    float32 for the JAX model's parameters, float64 for a float64 tree).
+    ``bn`` is the model's ``DETRConfig.bn``."""
     state = {}
     for path, x in _leaves(params):
         name, y = _convert_param(path, x)
@@ -62,4 +72,13 @@ def flax_detr_to_state_dict(params: dict, batch_stats: dict | None = None) -> di
     for path, x in _leaves(batch_stats or {}):
         name = _STAT_NAMES[path[-1]]
         state[".".join(path[:-1] + (name,))] = torch.tensor(x)
+        if bn in ("bn", "sync_bn") and name == "running_mean":
+            state[".".join(path[:-1] + ("num_batches_tracked",))] = torch.tensor(0)
     return state
+
+
+def flax_quant_to_port(quant: dict) -> dict:
+    """JAX ``quant`` collection -> {"<path joined by dots>": float32 scalar
+    tensor}, e.g. ``backbone.body.conv1.act_amax``."""
+    return {".".join(path): torch.tensor(x, dtype=torch.float32)
+            for path, x in _leaves(quant)}

@@ -33,3 +33,37 @@ def randomize_frozen_bn(params, stats, rng):
 
 def variables(params, stats):
     return {"params": params, "batch_stats": stats} if stats else {"params": params}
+
+
+def port_to_flax(jmodel, state_dict, *args, bn="frozen_bn", **kwargs):
+    """The JAX variables of ``jmodel`` (its tree from ``jax.eval_shape`` of
+    ``init(key, *args, **kwargs)``, so nothing is compiled) holding the
+    port's ``state_dict``. Each leaf undoes the converter's layout change:
+    the converter is run on a tree of distinct indices, which shows where
+    each port value comes from."""
+    import functools
+
+    import torch
+
+    from satellite_pose_estimation_tpu_torch.utils.checkpoint_convert import (
+        flax_detr_to_state_dict,
+    )
+
+    shapes = jax.eval_shape(functools.partial(jmodel.init, **kwargs),
+                            jax.random.PRNGKey(0), *args)
+    tree = {k: shapes[k] for k in ("params", "batch_stats") if k in shapes}
+    leaves, treedef = jax.tree_util.tree_flatten(tree)
+    sizes = [int(np.prod(leaf.shape)) for leaf in leaves]
+    starts = np.cumsum([0] + sizes)
+    index_leaves = [np.arange(s, s + n, dtype=np.float64).reshape(leaf.shape)
+                    for s, n, leaf in zip(starts, sizes, leaves)]
+    index = numpy_tree(jax.tree_util.tree_unflatten(treedef, index_leaves))
+    where = flax_detr_to_state_dict(index["params"], index.get("batch_stats"), bn=bn)
+    flat = np.full(starts[-1], np.nan, np.float32)
+    for key, idx in where.items():
+        if key.endswith("num_batches_tracked"):
+            continue
+        flat[idx.numpy().astype(np.int64).ravel()] = state_dict[key].detach().float().numpy().ravel()
+    assert not np.isnan(flat).any()
+    out = [flat[s:s + n].reshape(leaf.shape) for s, n, leaf in zip(starts, sizes, leaves)]
+    return numpy_tree(jax.tree_util.tree_unflatten(treedef, out))

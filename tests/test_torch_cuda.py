@@ -1,7 +1,9 @@
 """PyTorch port on the GPU: each CUDA kernel (K1, the attention forward;
 K2, its backward; K3, the rotation; K4, the fused photometric chain; K5,
 flash attention forward and backward) against its plain PyTorch version,
-the model builders' default device, and the bf16 eval of a train state.
+the model builders' default device, the bf16 eval of a train state, and
+the int8 path (cuBLASLt's int8 GEMMs bit for bit against the CPU's, the
+int8 DETR and its calibration against the CPU, K1 in the int8 eval step).
 These tests need a CUDA device and skip without one. The file imports no
 JAX, so on a machine without JAX it runs on its own:
 
@@ -17,9 +19,13 @@ from satellite_pose_estimation_tpu_torch.models.detr import (
 )
 from satellite_pose_estimation_tpu_torch.ops import fused_attention as fa
 from satellite_pose_estimation_tpu_torch.ops import flash_attention as fl
+from satellite_pose_estimation_tpu_torch.models.layers import QConv, QDense
 from satellite_pose_estimation_tpu_torch.ops import image_warp, pallas_augment, pallas_rotate
+from satellite_pose_estimation_tpu_torch.ops import quantize as tq
+from satellite_pose_estimation_tpu_torch.ops.precision import highest_precision
 from satellite_pose_estimation_tpu_torch.train.state import TrainConfig, create_train_state
 from satellite_pose_estimation_tpu_torch.train.steps import make_eval_step
+from satellite_pose_estimation_tpu_torch.utils.calibrate import calibrate_act_scales
 
 
 @pytest.fixture
@@ -536,3 +542,104 @@ def test_cuda_eval_step_compute_dtype_runs_the_bf16_kernel(cuda_device, monkeypa
     make_eval_step(out_size=128)(state, batch)
     torch.cuda.synchronize()
     assert seen == [torch.float32] * cfg.enc_layers
+
+
+# -- int8 PTQ ----------------------------------------------------------------------
+
+# Main-path shapes of the int8 eval step at input 224 (per image; the batch
+# is cut for the CPU reference): (C_in, C_out, kernel, stride, padding, H).
+INT8_CONVS = {"stem": (3, 64, 7, 2, 3, 224), "layer2_0.conv2": (128, 128, 3, 2, 1, 56),
+              "layer2_0.downsample": (256, 512, 1, 2, 0, 56),
+              "s16_latern": (1024, 256, 3, 1, 1, 28), "output_conv": (512, 512, 3, 1, 1, 28)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["im2col", "shifted"])
+@pytest.mark.parametrize("name", list(INT8_CONVS))
+def test_cuda_int8_conv_equals_the_cpu(cuda_device, name, form):
+    """Exact int32 products: the card's result equals the CPU's bit for
+    bit, bf16 activations in, bf16 out, dynamic and static scales."""
+    cin, cout, k, stride, pad, H = INT8_CONVS[name]
+    g = torch.Generator().manual_seed(cin * k)
+    x = torch.randn(8, H, H, cin, generator=g).to(torch.bfloat16).permute(0, 3, 1, 2)
+    w = torch.randn(cout, cin, k, k, generator=g) * 0.05
+    for scale in (None, torch.tensor(3.5 / 127.0)):
+        ref = tq.int8_conv(x, w, stride, pad, act_scale=scale, form=form)
+        out = tq.int8_conv(x.to(cuda_device), w.to(cuda_device), stride, pad,
+                           act_scale=None if scale is None else scale.to(cuda_device), form=form)
+        assert out.dtype == torch.bfloat16 and out.is_contiguous(memory_format=torch.channels_last)
+        assert torch.equal(out.cpu(), ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N", [(256 * 784, 256, 2048), (256 * 784, 2048, 256),
+                                   (3, 147, 5), (16 * 784, 9216, 256)],
+                         ids=["ffn1", "ffn2", "padded", "k9216"])
+def test_cuda_int8_matmul_equals_the_cpu(cuda_device, M, K, N):
+    g = torch.Generator().manual_seed(K)
+    x = torch.randn(M, K, generator=g).to(torch.bfloat16)
+    w = torch.randn(N, K, generator=g) * 0.05
+    ref = tq.int8_matmul(x, w)
+    out = tq.int8_matmul(x.to(cuda_device), w.to(cuda_device))
+    assert torch.equal(out.cpu(), ref)
+
+
+def _int8_cfg(**kw):
+    return DETRConfig(**{**dict(hidden_dim=256, nheads=8, enc_layers=4, dec_layers=4,
+                                dim_feedforward=2048, num_queries=20, dropout=0.0,
+                                quantize_int8=True), **kw})
+
+
+@pytest.mark.cuda
+def test_cuda_int8_detr_and_calibration_agree_with_the_cpu(cuda_device):
+    """The full-width int8 DETR (float32, TF32 off) on the card against the
+    same model on the CPU, dynamic and on static scales, and its
+    calibration: the same sites, amaxes within 3e-2 (a code can flip
+    where float32 rounding differs, as against JAX, tests/test_torch_quantize.py);
+    logits median within 1.5e-2, max 1e-1."""
+    cfg = _int8_cfg()
+    gpu = build_detr_model(cfg, seed=0, device=cuda_device)
+    cpu = build_detr_model(cfg, seed=0, device="cpu")
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(2, 224, 224, 3, generator=g)
+    with highest_precision():
+        amax_gpu = calibrate_act_scales(gpu, [x.to(cuda_device)])
+        amax_cpu = calibrate_act_scales(cpu, [x])
+        assert set(amax_gpu) == set(amax_cpu) == {
+            f"{n}.act_amax" for n, m in cpu.named_modules() if isinstance(m, (QConv, QDense))}
+        for key, val in amax_gpu.items():
+            assert val.device.type == "cuda" and torch.isfinite(val)
+            assert abs(val.item() - amax_cpu[key].item()) <= 3e-2 * amax_cpu[key].item(), key
+        for quant in (None, amax_cpu):
+            step = make_eval_step(out_size=224, quant=quant)
+            batch = {"image": torch.randint(0, 256, (2, 256, 256, 3), generator=g,
+                                            dtype=torch.uint8),
+                     "clip_bbox_buf": torch.tensor([[8.0, 8.0, 248.0, 248.0]] * 2),
+                     "clip_bbox": torch.tensor([[700.0, 400.0, 1100.0, 800.0]] * 2)}
+            ref = step(cpu, batch)
+            out = step(gpu, {k: v.to(cuda_device) for k, v in batch.items()})
+            d = (out["probs"].cpu() - ref["probs"]).abs()
+            assert d.median() <= 1.5e-2 and d.max() <= 1e-1
+
+
+@pytest.mark.cuda
+def test_cuda_int8_eval_step_runs_k1_once_per_encoder_layer(cuda_device):
+    """The int8 static eval step at full width (bf16 under autocast, the
+    deployment scope conv,ffn) runs the encoder self-attention on K1 in
+    bf16: four launches a step."""
+    model = build_detr_model(_int8_cfg(), seed=0, device=cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    batch = {"image": torch.randint(0, 256, (4, 256, 256, 3), generator=g, device=cuda_device,
+                                    dtype=torch.uint8),
+             "clip_bbox_buf": torch.tensor([[8.0, 8.0, 248.0, 248.0]], device=cuda_device
+                                           ).repeat(4, 1),
+             "clip_bbox": torch.tensor([[700.0, 400.0, 1100.0, 800.0]], device=cuda_device
+                                       ).repeat(4, 1)}
+    images = image_warp.crop_resize_cubic_mxu(batch["image"], batch["clip_bbox_buf"], 224, True)
+    quant = calibrate_act_scales(model, [images], compute_dtype=torch.bfloat16)
+    step = make_eval_step(out_size=224, compute_dtype=torch.bfloat16, quant=quant)
+    before = fa.launch_count
+    out = step(model, batch)
+    torch.cuda.synchronize()
+    assert fa.launch_count - before == 4
+    assert all(torch.isfinite(v).all() for v in out.values() if v.is_floating_point())

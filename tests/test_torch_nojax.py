@@ -115,6 +115,43 @@ print("OK")
 """
 
 
+_TINY_INT8 = r"""
+import sys
+for name in ("jax", "jaxlib", "flax", "optax", "satellite_pose_estimation_tpu"):
+    sys.modules[name] = None  # any import of these now raises ImportError
+
+import torch
+from satellite_pose_estimation_tpu_torch.models.detr import DETRConfig, build_detr_model
+from satellite_pose_estimation_tpu_torch.models.layers import QConv, QDense
+from satellite_pose_estimation_tpu_torch.ops.image_warp import crop_resize_cubic_mxu
+from satellite_pose_estimation_tpu_torch.train.steps import make_eval_step
+from satellite_pose_estimation_tpu_torch.utils.calibrate import calibrate_act_scales
+
+model = build_detr_model(DETRConfig(hidden_dim=32, nheads=4, enc_layers=1, dec_layers=1,
+                                    dim_feedforward=64, dropout=0.0, quantize_int8=True),
+                         seed=0, device="cpu")
+g = torch.Generator().manual_seed(0)
+batch = {
+    "image": torch.randint(0, 256, (2, 80, 80, 3), generator=g, dtype=torch.uint8),
+    "clip_bbox_buf": torch.tensor([[4.0, 4.0, 76.0, 76.0]] * 2),
+    "clip_bbox": torch.tensor([[700.0, 400.0, 1100.0, 800.0]] * 2),
+    "quat_gt": torch.tensor([[1.0, 0.0, 0.0, 0.0]] * 2),
+    "tvec_gt": torch.tensor([[0.0, 0.0, 12.0]] * 2),
+}
+quant = calibrate_act_scales(
+    model, [crop_resize_cubic_mxu(batch["image"], batch["clip_bbox_buf"], 64, True)])
+sites = sum(isinstance(m, (QConv, QDense)) for m in model.modules())
+assert len(quant) == sites == 48 and all(torch.isfinite(v) for v in quant.values())
+res = make_eval_step(out_size=64, quant=quant)(model, batch)
+assert torch.isfinite(res["score"]).all() and torch.isfinite(res["probs"]).all()
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "flax", "satellite_pose_estimation_tpu")
+                and sys.modules[m] is not None)
+assert not loaded, loaded
+print("OK", len(quant))
+"""
+
+
 def test_port_runs_an_eval_step_with_jax_blocked():
     proc = subprocess.run([sys.executable, "-c", _TINY_EVAL], cwd=ROOT,
                           capture_output=True, text=True, timeout=300)
@@ -133,6 +170,13 @@ def test_port_runs_the_kernel_routes_with_jax_blocked():
     """The rotation (K3), fused photometric (K4) and flash (K5) modules, on
     the train step's routes that reach them."""
     proc = subprocess.run([sys.executable, "-c", _TINY_ROUTES], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.startswith("OK")
+
+
+def test_port_calibrates_and_runs_an_int8_eval_step_with_jax_blocked():
+    proc = subprocess.run([sys.executable, "-c", _TINY_INT8], cwd=ROOT,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.startswith("OK")
