@@ -1265,8 +1265,8 @@ def int8_phases(torch, card, dev, g):
             f"{mem:.2f} GiB on {card}")
 
     # Device spans of one B=256 step's model and backbone (median of 3):
-    # int8 with each int8_conv form, bf16 through cuDNN under the same
-    # autocast, and the bf16-weight model of phase 5.
+    # int8, bf16 through cuDNN under the same autocast, and the bf16-weight
+    # model of phase 5.
     scales = {k: quantize.amax_to_scale(v) for k, v in quant.items()}
     imgs = crop_resize_cubic_mxu(pool[3]["image"], pool[3]["clip_bbox_buf"], size, True)
     nchw = imgs.permute(0, 3, 1, 2)
@@ -1280,22 +1280,17 @@ def int8_phases(torch, card, dev, g):
             torch.cuda.synchronize()
             return statistics.median(cuda_ms(fn, 1, torch) for _ in range(3))
 
-    spans = {}
-    for form in ("im2col", "shifted", "shifted", "im2col"):
-        layers.QConv.form = form
-        spans.setdefault(f"int8 model ({form})", []).append(span(lambda: model(imgs)))
-        spans.setdefault(f"int8 backbone ({form})", []).append(span(lambda: model.backbone(nchw)))
-    layers.QConv.form = "im2col"
-    spans["bf16 model (autocast)"] = [span(lambda: float_model(imgs))]
-    spans["bf16 backbone (autocast, cuDNN)"] = [span(lambda: float_model.backbone(nchw))]
+    spans = {"int8 model": span(lambda: model(imgs)),
+             "int8 backbone": span(lambda: model.backbone(nchw)),
+             "bf16 model (autocast)": span(lambda: float_model(imgs)),
+             "bf16 backbone (autocast, cuDNN)": span(lambda: float_model.backbone(nchw))}
     with torch.inference_mode():
         pure_in = imgs.to(bf16)
-        spans["bf16-weight model (phase 5's)"] = [
-            statistics.median(cuda_ms(lambda: pure16(pure_in), 1, torch) for _ in range(3))]
+        spans["bf16-weight model (phase 5's)"] = statistics.median(
+            cuda_ms(lambda: pure16(pure_in), 1, torch) for _ in range(3))
     del pure16, pure_in
-    for name, v in spans.items():
-        log(f"  stage {name}: " + " / ".join(f"{x:.3f}" for x in v)
-            + f" ms per B={EB} step on {card}")
+    for name, ms in spans.items():
+        log(f"  stage {name}: {ms:.3f} ms per B={EB} step on {card}")
 
     # Drift of int8 from bf16 on the same (seeded) weights, gated as
     # tests/test_quantize.py gates JAX's.
@@ -1348,6 +1343,17 @@ def int8_phases(torch, card, dev, g):
         log(f"  int8_conv {name} (B={B}, {cin}->{cout}, {k}x{k}/{stride}, {H}x{H}) card == CPU: "
             f"{same}")
         require(same, f"int8_conv {name} differs between the card and the CPU")
+    # cuBLASLt's int8 GEMM wants the second operand column-major (int_mm
+    # hands it so): the s16 lateral conv's GEMM each way.
+    a = torch.randint(-127, 128, (EB * 784, 9216), device=dev, dtype=torch.int8)
+    b = torch.randint(-127, 128, (256, 9216), device=dev, dtype=torch.int8)
+    col, row = b.t(), b.t().contiguous()
+    layout = {name: statistics.median(cuda_ms(lambda: torch._int_mm(a, m), 5, torch)
+                                      for _ in range(3)) for name, m in (("column", col),
+                                                                         ("row", row))}
+    log(f"  int8 GEMM ({EB * 784}x9216 @ 9216x256): second operand column-major "
+        f"{layout['column']:.3f} ms, row-major {layout['row']:.3f} ms on {card}")
+    del a, b, col, row
     for M, K, N in ((EB * 784, 256, 2048), (EB * 784, 2048, 256)):
         xm = torch.randn(M, K, generator=gen).to(bf16)
         w = torch.randn(N, K, generator=gen) * 0.05

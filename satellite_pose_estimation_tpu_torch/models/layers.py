@@ -174,15 +174,12 @@ def _out_dtype(x):
 class QConv(nn.Conv2d):
     """``nn.Conv2d`` on the int8 path (JAX ``QConv``): the same parameters,
     weights quantized per output channel from the float32 weight at every
-    call, activations per tensor. ``form`` picks ``int8_conv``'s GEMM form
-    for a k x k kernel."""
-
-    form = "im2col"
+    call, activations per tensor."""
 
     def forward(self, x):
         _check_master(self.weight)
         y = int8_conv(x, self.weight, self.stride[0], self.padding[0], _out_dtype(x),
-                      act_scale_or_calibrate(self, x), self.form)
+                      act_scale_or_calibrate(self, x))
         if self.bias is not None:
             y = y + self.bias.to(y.dtype)[:, None, None]
         return y

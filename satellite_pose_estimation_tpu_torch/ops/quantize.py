@@ -15,10 +15,10 @@ Layouts are PyTorch's: ``int8_matmul`` takes an ``nn.Linear`` weight
 (N, K), ``int8_conv`` an NCHW input and an OIHW weight. PyTorch has no int8
 convolution, so ``int8_conv`` is a GEMM over channels-last codes: a 1x1
 convolution directly (strided: subsampled first), a k x k one through an
-im2col of the int8 codes (one ``_int_mm`` with K = k*k*C_in) or, as
-``form="shifted"``, k*k shifted GEMMs summed in int32. Its output is an
-NCHW view of channels-last memory, which the next convolution reads with
-no copy.
+im2col of the int8 codes (one ``_int_mm`` with K = k*k*C_in; k*k shifted
+GEMMs summed in int32 took 1.9x its backbone time on an H100, PERF.md).
+Its output is an NCHW view of channels-last memory, which the next
+convolution reads with no copy.
 """
 from __future__ import annotations
 
@@ -134,7 +134,7 @@ def int8_matmul(x, weight, out_dtype=None, act_scale=None):
     return _rescale(int_mm(xq, wq), xs, ws, out_dtype)
 
 
-def _conv_codes(xq, wq, stride, padding, form):
+def _conv_codes(xq, wq, stride, padding):
     """int32 convolution of NCHW int8 codes by OIHW int8 codes ->
     (B, Ho, Wo, C_out), as GEMMs over the channels-last codes."""
     cout, cin, kh, kw = wq.shape
@@ -145,28 +145,20 @@ def _conv_codes(xq, wq, stride, padding, form):
     ho, wo = (H - kh) // stride + 1, (W - kw) // stride + 1
     taps = [xh[:, dy:dy + stride * (ho - 1) + 1:stride, dx:dx + stride * (wo - 1) + 1:stride]
             for dy in range(kh) for dx in range(kw)]
-    wt = wq.permute(0, 2, 3, 1)  # (C_out, kh, kw, C_in): K ordered as the taps
-    if form == "shifted" and len(taps) > 1:
-        y = None
-        for t, tap in enumerate(taps):
-            part = int_mm(tap.reshape(-1, cin), wt[:, t // kw, t % kw])
-            y = part if y is None else y.add_(part)
-    else:
-        cols = taps[0] if len(taps) == 1 else torch.stack(taps, dim=3)  # (B, Ho, Wo, kk, C_in)
-        y = int_mm(cols.reshape(B * ho * wo, kh * kw * cin), wt.reshape(cout, -1))
+    cols = taps[0] if len(taps) == 1 else torch.stack(taps, dim=3)  # (B, Ho, Wo, kk, C_in)
+    # The weight as (C_out, kh, kw, C_in): K ordered as the columns.
+    y = int_mm(cols.reshape(B * ho * wo, kh * kw * cin), wq.permute(0, 2, 3, 1).reshape(cout, -1))
     return y.reshape(B, ho, wo, cout)
 
 
-def int8_conv(x, weight, stride=1, padding=0, out_dtype=None, act_scale=None,
-              form="im2col"):
+def int8_conv(x, weight, stride=1, padding=0, out_dtype=None, act_scale=None):
     """NCHW x, OIHW weight -> the int8 convolution (symmetric padding
     ``padding``, no dilation or groups) rescaled to ``out_dtype`` (default
-    x's dtype), as an NCHW view of channels-last memory. ``form``:
-    ``"im2col"`` (one GEMM) or ``"shifted"`` (a GEMM per kernel tap)."""
+    x's dtype), as an NCHW view of channels-last memory."""
     out_dtype = out_dtype or x.dtype
     xq, xs = _act_quantize(x, act_scale)
     wq, ws = _weight_quantize(weight, 0)
-    y = _conv_codes(xq, wq, stride, padding, form)
+    y = _conv_codes(xq, wq, stride, padding)
     return _rescale(y, xs, ws, out_dtype).permute(0, 3, 1, 2)
 
 

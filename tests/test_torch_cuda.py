@@ -554,9 +554,8 @@ INT8_CONVS = {"stem": (3, 64, 7, 2, 3, 224), "layer2_0.conv2": (128, 128, 3, 2, 
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("form", ["im2col", "shifted"])
 @pytest.mark.parametrize("name", list(INT8_CONVS))
-def test_cuda_int8_conv_equals_the_cpu(cuda_device, name, form):
+def test_cuda_int8_conv_equals_the_cpu(cuda_device, name):
     """Exact int32 products: the card's result equals the CPU's bit for
     bit, bf16 activations in, bf16 out, dynamic and static scales."""
     cin, cout, k, stride, pad, H = INT8_CONVS[name]
@@ -564,9 +563,9 @@ def test_cuda_int8_conv_equals_the_cpu(cuda_device, name, form):
     x = torch.randn(8, H, H, cin, generator=g).to(torch.bfloat16).permute(0, 3, 1, 2)
     w = torch.randn(cout, cin, k, k, generator=g) * 0.05
     for scale in (None, torch.tensor(3.5 / 127.0)):
-        ref = tq.int8_conv(x, w, stride, pad, act_scale=scale, form=form)
+        ref = tq.int8_conv(x, w, stride, pad, act_scale=scale)
         out = tq.int8_conv(x.to(cuda_device), w.to(cuda_device), stride, pad,
-                           act_scale=None if scale is None else scale.to(cuda_device), form=form)
+                           act_scale=None if scale is None else scale.to(cuda_device))
         assert out.dtype == torch.bfloat16 and out.is_contiguous(memory_format=torch.channels_last)
         assert torch.equal(out.cpu(), ref)
 

@@ -140,11 +140,10 @@ CONVS = [(3, 64, 7, 2, 3, 32), (32, 64, 3, 2, 1, 16), (64, 128, 1, 2, 0, 16),
          (1024, 16, 3, 1, 1, 6), (32, 32, 3, 1, 1, 15)]
 
 
-@pytest.mark.parametrize("form", ["im2col", "shifted"])
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
 @pytest.mark.parametrize("cin,cout,k,stride,pad,H", CONVS,
                          ids=["stem", "3x3s2", "1x1s2", "s16_latern", "3x3odd"])
-def test_int8_conv_matches_jax_bit_for_bit(cin, cout, k, stride, pad, H, dtype, form):
+def test_int8_conv_matches_jax_bit_for_bit(cin, cout, k, stride, pad, H, dtype):
     rng = np.random.RandomState(cin + k)
     x = _jax(rng.randn(2, H, H, cin), dtype)
     w = (rng.randn(k, k, cin, cout) * 0.1).astype(np.float32)
@@ -152,7 +151,7 @@ def test_int8_conv_matches_jax_bit_for_bit(cin, cout, k, stride, pad, H, dtype, 
                        ((pad, pad), (pad, pad)) if pad else "SAME")
     out = tq.int8_conv(_torch(x).permute(0, 3, 1, 2),
                        torch.from_numpy(np.ascontiguousarray(w.transpose(3, 2, 0, 1))),
-                       stride, pad, form=form)
+                       stride, pad)
     assert out.is_contiguous(memory_format=torch.channels_last)
     np.testing.assert_array_equal(_bits(out.permute(0, 2, 3, 1)),
                                   np.asarray(ref.astype(jnp.float32)))
