@@ -34,7 +34,7 @@ from .transformer import Transformer
 @dataclasses.dataclass(frozen=True)
 class DETRConfig:
     """The JAX ``DETRConfig`` (the R1 CLI surface) less its ``dtype``,
-    which the builders take."""
+    which ``build_detr_model`` takes."""
 
     backbone: str = "resnet50s8"  # resnet18/34/50/101 (layer3 tap) or resnet50s8
     bn: str = "frozen_bn"  # frozen_bn | bn | sync_bn | group_bn
