@@ -1267,7 +1267,7 @@ def int8_phases(torch, card, dev, g):
     # Device spans of one B=256 step's model and backbone (median of 3):
     # int8, bf16 through cuDNN under the same autocast, and the bf16-weight
     # model of phase 5.
-    scales = {k: quantize.amax_to_scale(v) for k, v in quant.items()}
+    static = layers.site_scales(model, quant)
     imgs = crop_resize_cubic_mxu(pool[3]["image"], pool[3]["clip_bbox_buf"], size, True)
     nchw = imgs.permute(0, 3, 1, 2)
     pure16 = build_detr_model(DETRConfig(**base), seed=0, device=dev, dtype=bf16)
@@ -1275,7 +1275,7 @@ def int8_phases(torch, card, dev, g):
 
     def span(fn):
         with torch.inference_mode(), torch.autocast("cuda", dtype=bf16), \
-                layers.static_scales(model, scales):
+                layers.static_scales(static):
             fn()
             torch.cuda.synchronize()
             return statistics.median(cuda_ms(fn, 1, torch) for _ in range(3))
@@ -1295,7 +1295,7 @@ def int8_phases(torch, card, dev, g):
     # Drift of int8 from bf16 on the same (seeded) weights, gated as
     # tests/test_quantize.py gates JAX's.
     with torch.inference_mode(), torch.autocast("cuda", dtype=bf16):
-        with layers.static_scales(model, scales):
+        with layers.static_scales(static):
             out8 = model(imgs)
         out16 = float_model(imgs)
     d_pts = (out8["pred_points"] - out16["pred_points"]).abs().median().item()
@@ -1315,21 +1315,79 @@ def int8_phases(torch, card, dev, g):
     del out8, out16, imgs, nchw, float_model
 
     # float32 int8 model: card (TF32 off) against the CPU on static scales.
-    x = crop_resize_cubic_mxu(pool[0]["image"][:2], pool[0]["clip_bbox_buf"][:2], size, True)
+    # The probability limits sit about 10x above the gaps read on the card
+    # (median 5.0e-5 / 8.7e-5, max 6.9e-4 / 6.7e-4 in two earlier runs,
+    # NVIDIA H100 80GB HBM3 at 700 W): a code flips where float32 rounding
+    # differs. They cannot see one site quantized another way, so each site
+    # is also held to the CPU's: the same static scale, and at most 1% of
+    # its int8 codes apart.
+    med_limit, max_limit, code_limit = 1e-3, 1e-2, 1e-2
     cpu = build_detr_model(DETRConfig(quantize_int8=True, **base), seed=0, device="cpu")
     cpu_quant = {k: v.cpu() for k, v in quant.items()}
+    small = {k: v[:2] for k, v in pool[0].items()}
+    order = list(quant)  # the sites in the order they run
+
+    def recorded(fn, keep=None):
+        """fn() with the (codes, scale) of every quantized activation (or
+        of the calls numbered in ``keep``), in call order, on the CPU."""
+        rec, real = {}, quantize._act_quantize
+
+        def spy(x, scale=None):
+            q, sc = real(x, scale)
+            if keep is None or len(rec) in keep:
+                rec[len(rec)] = (q.cpu(), sc.cpu())
+            else:
+                rec[len(rec)] = None
+            return q, sc
+
+        quantize._act_quantize = spy
+        try:
+            return fn(), rec
+        finally:
+            quantize._act_quantize = real
+
     with highest_precision():
-        out_gpu = make_eval_step(out_size=size, quant=quant)(model, {
-            k: v[:2] for k, v in pool[0].items()})
-        out_cpu = make_eval_step(out_size=size, quant=cpu_quant)(cpu, {
-            k: v[:2].cpu() for k, v in pool[0].items()})
+        out_gpu, rec_gpu = recorded(lambda: make_eval_step(out_size=size, quant=quant)(
+            model, small))
+        out_cpu, rec_cpu = recorded(lambda: make_eval_step(out_size=size, quant=cpu_quant)(
+            cpu, {k: v.cpu() for k, v in small.items()}))
     d = (out_gpu["probs"].cpu() - out_cpu["probs"]).abs()
+    require(len(rec_gpu) == len(rec_cpu) == len(order), "the card and the CPU quantize "
+            "different numbers of sites")
+    scales_equal = all(torch.equal(rec_gpu[i][1], rec_cpu[i][1]) for i in rec_gpu)
+    flips = [(rec_gpu[i][0] != rec_cpu[i][0]).float().mean().item() for i in rec_gpu]
+    worst = max(range(len(flips)), key=flips.__getitem__)
     log(f"  float32 int8 model, card vs CPU, B=2: probabilities median {d.median().item():.3e} "
-        f"(limit 1.5e-2), max {d.max().item():.3e} (limit 0.1; a code flips where float32 "
-        "rounding differs, as against JAX)")
-    require(d.median().item() <= 1.5e-2 and d.max().item() <= 0.1,
-            "float32 int8 model disagrees with the CPU")
-    del cpu, x
+        f"(limit {med_limit:g}), max {d.max().item():.3e} (limit {max_limit:g}); {len(order)} "
+        f"sites, static scales equal: {scales_equal}; codes apart: median "
+        f"{statistics.median(flips):.3e}, max {flips[worst]:.3e} at {order[worst]} "
+        f"(limit {code_limit:g})")
+    require(d.median().item() <= med_limit and d.max().item() <= max_limit and scales_equal
+            and flips[worst] <= code_limit, "float32 int8 model disagrees with the CPU")
+    # What the checks see: each site in turn quantizes dynamically on the
+    # card while every other site keeps its static scale.
+    sites = layers.int8_sites(model)
+    x2 = crop_resize_cubic_mxu(small["image"], small["clip_bbox_buf"], size, True)
+    by_probs, by_codes, moved = [], [], {}
+    with highest_precision(), torch.inference_mode():
+        for i, key_ in enumerate(order):
+            with layers.static_scales({**static, sites[key_]: None}):
+                out, rec = recorded(lambda: model(x2), keep={i})
+            dd = (torch.softmax(out["pred_logits"], dim=-1).cpu() - out_cpu["probs"]).abs()
+            if dd.median().item() > med_limit or dd.max().item() > max_limit:
+                by_probs.append(key_)
+            if (rec[i][0] != rec_cpu[i][0]).float().mean().item() > code_limit:
+                by_codes.append(key_)
+            moved[key_] = abs(rec[i][1].item() / rec_cpu[i][1].item() - 1.0)
+    missed = [k for k in order if k not in by_codes]
+    log(f"  one site dynamic at a time, card vs CPU: the probability limits catch "
+        f"{len(by_probs)} of {len(order)}, the per-site code check {len(by_codes)}; the scale "
+        f"moves by a median {statistics.median(moved.values()):.3e} (relative); missed by the "
+        f"code check: " + (", ".join(f"{k} (scale moved {moved[k]:.1e})" for k in missed)
+                           or "none"))
+    require(all(moved[k] < 1e-2 for k in missed), "the per-site code check misses a site whose "
+            "scale moved by 1% or more")
+    del cpu, x2, rec_gpu, rec_cpu
 
     # int8 GEMMs at main-path shapes: the card equals the CPU bit for bit.
     gen = torch.Generator().manual_seed(12)

@@ -7,8 +7,9 @@ statistics of the JAX one: convolution and dense kernels are LeCun-normal
 The int8 modules ``QConv`` and ``QDense`` are ``nn.Conv2d`` / ``nn.Linear``
 with the same parameters, so one state dict loads into the float and the
 int8 model. Their activation scales come from the static-PTQ hook
-(``calibration`` / ``static_scales``, below), which plays the part of the
-JAX ``quant`` variable collection.
+(``calibration`` / ``static_scales``, below, keyed by module; ``int8_sites``
+and ``site_scales`` map them to and from module paths), which plays the
+part of the JAX ``quant`` variable collection.
 """
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ from contextlib import contextmanager
 import torch
 from torch import nn
 
-from ..ops.quantize import int8_conv, int8_matmul
+from ..ops.quantize import amax_to_scale, int8_conv, int8_matmul
 
 
 def lecun_normal_(weight: torch.Tensor, fan_in: int,
@@ -115,45 +116,68 @@ class MLP(nn.Module):
 _quant = threading.local()
 
 
+def int8_sites(model: nn.Module) -> dict:
+    """``{"<module path>.act_amax": module}`` for every int8 module of
+    ``model``: the keys of its calibrated ranges, the JAX ``quant``
+    collection's paths joined by dots."""
+    return {f"{name}.act_amax" if name else "act_amax": m for name, m in model.named_modules()
+            if isinstance(m, (QConv, QDense))}
+
+
+def site_scales(model: nn.Module, quant: dict, device=None) -> dict:
+    """The static scales of ``model``'s int8 sites from the calibrated
+    ranges ``quant`` (``{key: amax}``, keyed as ``int8_sites``):
+    ``{module: max(amax, 1e-8) / 127}`` on ``device`` (default the
+    model's). Raises unless ``quant`` holds exactly the model's sites: a
+    dict calibrated under another ``SPE_INT8_SCOPE``, on a wrapped model or
+    on another model would leave sites dynamic."""
+    sites = int8_sites(model)
+    missing, extra = sorted(sites.keys() - quant.keys()), sorted(quant.keys() - sites.keys())
+    if missing or extra:
+        raise ValueError(f"calibrated ranges do not match the model's {len(sites)} int8 sites: "
+                         f"missing {missing[:3]} ({len(missing)}), extra {extra[:3]} "
+                         f"({len(extra)})")
+    device = device or next(model.parameters()).device
+    return {m: amax_to_scale(quant[k]).to(device) for k, m in sites.items()}
+
+
 @contextmanager
-def _quant_context(model, scales, amax):
+def _quant_context(scales, amax):
     prev = getattr(_quant, "ctx", None)
-    _quant.ctx = ({m: name for name, m in model.named_modules()}, scales, amax)
+    _quant.ctx = (scales, amax)
     try:
         yield
     finally:
         _quant.ctx = prev
 
 
-def calibration(model, amax: dict):
-    """Within this context the int8 modules of ``model`` record the running
-    max |activation| of each site into ``amax`` (float32 scalars keyed
-    ``<module path>.act_amax``, or ``.amax_q/k/v`` for the int8 attention
-    core) and still quantize dynamically -- the JAX calibration pass."""
-    return _quant_context(model, None, amax)
+def calibration(amax: dict):
+    """Within this context every int8 module records the running max
+    |activation| it sees into ``amax`` (``{module: float32 scalar}``) and
+    still quantizes dynamically -- the JAX calibration pass."""
+    return _quant_context(None, amax)
 
 
-def static_scales(model, scales: dict):
-    """Within this context the int8 modules of ``model`` quantize their
-    activations with the static scales ``scales`` (max(amax, 1e-8) / 127,
-    keyed as ``calibration`` keys them); a site without one quantizes
-    dynamically. Outside both contexts every site is dynamic."""
-    return _quant_context(model, scales, None)
+def static_scales(scales: dict):
+    """Within this context every int8 module quantizes its activations with
+    its scale in ``scales`` (``site_scales``; a None value leaves that site
+    dynamic, and a module absent from it raises). Outside both contexts
+    every site is dynamic."""
+    return _quant_context(scales, None)
 
 
-def act_scale_or_calibrate(mod: nn.Module, x, name: str = "act_amax"):
+def act_scale_or_calibrate(mod: nn.Module, x):
     """The static-PTQ hook of the int8 modules (JAX ``_act_scale_or_calibrate``):
     in ``calibration`` record max |x| and return None (dynamic); under
-    ``static_scales`` return the site's scale; else None (dynamic)."""
+    ``static_scales`` return the module's scale; else None (dynamic)."""
     ctx = getattr(_quant, "ctx", None)
     if ctx is None:
         return None
-    paths, scales, amax = ctx
-    key = f"{paths[mod]}.{name}" if paths[mod] else name
+    scales, amax = ctx
     if amax is None:
-        return scales.get(key)
+        return scales[mod]
     seen = x.detach().abs().amax().float()
-    amax[key] = torch.maximum(amax[key], seen) if key in amax else seen
+    amax[mod] = torch.maximum(amax[mod], seen) if mod in amax else seen
     return None
 
 

@@ -22,8 +22,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.flash_attention import flash_self_attention
 from ..ops.fused_attention import fused_self_attention
-from ..ops.quantize import int8_attention_core, quant_scope
-from .layers import act_scale_or_calibrate, linear
+from ..ops.quantize import quant_scope
+from .layers import linear
 
 
 class _Attention(nn.Module):
@@ -39,18 +39,17 @@ class _Attention(nn.Module):
     ``fused`` and ``flash`` fall to ``plain`` for a mask and for dropout in
     training, and ``fused`` also for sequences shorter than 256 tokens (the
     JAX routing rule). ``quant`` makes the projections int8 under the
-    ``attn_proj`` scope; ``quant_core`` (with ``quant``, off on the
-    deployment path) also runs the core as ``int8_attention_core``.
+    ``attn_proj`` scope; the core stays in floating point (JAX's optional
+    int8 core, ``quant_core``, is not ported: no config selects it).
     """
 
     def __init__(self, d_model, nhead, dropout=0.1, impl="fused", generator=None,
-                 quant=False, quant_core=False):
+                 quant=False):
         super().__init__()
         self.nhead = nhead
         self.head_dim = d_model // nhead
         self.dropout = dropout
         self.impl = impl
-        self.quant_core = quant and quant_core
         inner = nhead * self.head_dim
         qproj = quant and quant_scope("attn_proj")
         self.mha_query = linear(d_model, inner, generator, qproj)
@@ -78,11 +77,7 @@ class _Attention(nn.Module):
             # Short sequences (decoder queries): launch overhead beats any
             # score-traffic saving.
             impl = "plain"
-        if self.quant_core and not needs_dropout:
-            scales = tuple(act_scale_or_calibrate(self, t, f"amax_{n}")
-                           for n, t in (("q", qh), ("k", kh), ("v", vh)))
-            out = int8_attention_core(qh, kh, vh, sm_scale, scales)
-        elif impl == "fused":
+        if impl == "fused":
             out = fused_self_attention(qh, kh, vh, sm_scale)
         elif impl == "flash":
             out = flash_self_attention(qh, kh, vh, sm_scale)

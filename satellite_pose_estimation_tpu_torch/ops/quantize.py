@@ -23,33 +23,9 @@ convolution reads with no copy.
 from __future__ import annotations
 
 import os
-import threading
-from contextlib import contextmanager
 
 import torch
 import torch.nn.functional as F
-
-_qstate = threading.local()
-
-
-@contextmanager
-def quantized_inference():
-    """Build-time toggle for composite models whose configs have no
-    quantize flag: their convolution wrappers build int8 modules while a
-    model is built inside this context (the DETR model has
-    ``DETRConfig.quantize_int8`` instead). JAX reads the toggle when it
-    traces; the port reads it when it builds."""
-    prev = getattr(_qstate, "on", False)
-    _qstate.on = True
-    try:
-        yield
-    finally:
-        _qstate.on = prev
-
-
-def quantization_active() -> bool:
-    return getattr(_qstate, "on", False)
-
 
 def quant_scope(name: str) -> bool:
     """Whether op family ``name`` runs int8 under the quant flags: ``conv``
@@ -160,30 +136,3 @@ def int8_conv(x, weight, stride=1, padding=0, out_dtype=None, act_scale=None):
     wq, ws = _weight_quantize(weight, 0)
     y = _conv_codes(xq, wq, stride, padding)
     return _rescale(y, xs, ws, out_dtype).permute(0, 3, 1, 2)
-
-
-def _int_bmm(a, w):
-    """Exact int32 batched product of int8 codes (..., M, K) @ (..., N, K)^T."""
-    lead = a.shape[:-2]
-    a2, w2 = a.reshape(-1, *a.shape[-2:]), w.reshape(-1, *w.shape[-2:])
-    y = torch.stack([int_mm(a2[i], w2[i]) for i in range(a2.shape[0])])
-    return y.reshape(*lead, *y.shape[-2:])
-
-
-def int8_attention_core(qh, kh, vh, sm_scale, act_scales=(None, None, None)):
-    """softmax(q k^T sm_scale) v with both products on int8 codes.
-
-    (B, H, T, D) heads; ``act_scales``: static per-tensor scales for q, k,
-    v (None: dynamic). The int32 scores are rescaled into q's dtype for the
-    softmax; the probabilities take the fixed scale 1/127 (they lie in
-    [0, 1]), so the AV product is int8 x int8 too. Off on the deployment
-    path, as in JAX: the products loop over (B, H) through ``int_mm``."""
-    sq, sk, sv = act_scales
-    qq, qs = _act_quantize(qh, sq)
-    kq, ks = _act_quantize(kh, sk)
-    vq, vs = _act_quantize(vh, sv)
-    s = _int_bmm(qq, kq)  # (B, H, Tq, Tk) int32, exact
-    p = torch.softmax((s.float() * (qs * ks * sm_scale)).to(qh.dtype), dim=-1)
-    pq = torch.round(p * 127.0).to(torch.int8)
-    o = _int_bmm(pq, vq.transpose(-1, -2))
-    return (o.float() * _div127(vs)).to(qh.dtype)

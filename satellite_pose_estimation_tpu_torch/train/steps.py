@@ -9,6 +9,7 @@ host round trip.
 from __future__ import annotations
 
 import contextlib
+import weakref
 from typing import Optional
 
 import torch
@@ -18,8 +19,7 @@ from ..geometry.camera import WORLD_POINTS
 from ..geometry.scoring import speed_score_batch
 from ..geometry.solvers import SolverConfig, solve_pose_simple
 from ..losses.criterion import CriterionConfig, set_criterion
-from ..models.layers import static_scales
-from ..ops.quantize import amax_to_scale
+from ..models.layers import site_scales, static_scales
 from ..ops.image_warp import crop_resize_cubic_mxu
 from .ema import ema_update
 from .state import TrainConfig, TrainState, clip_by_global_norm_
@@ -114,18 +114,21 @@ def make_eval_step(criterion_cfg: Optional[CriterionConfig] = None,
     ``quant``: the calibrated activation ranges of an int8 model
     (``utils.calibrate.calibrate_act_scales``, or a JAX ``quant``
     collection through ``flax_quant_to_port``): its int8 modules then take
-    static scales max(amax, 1e-8) / 127. Without it they quantize each
+    static scales max(amax, 1e-8) / 127, resolved to the model's modules
+    the first time the step sees the model on a device; a ``quant`` that
+    does not hold exactly the model's int8 sites raises there
+    (``models.layers.site_scales``). Without it they quantize each
     activation dynamically.
     """
-    scales = None if quant is None else {k: amax_to_scale(v) for k, v in quant.items()}
-    per_device = {}
+    resolved = weakref.WeakKeyDictionary()  # model -> (device, its site scales)
 
     def quant_context(model, device):
-        if scales is None:
+        if quant is None:
             return contextlib.nullcontext()
-        if device not in per_device:
-            per_device[device] = {k: v.to(device) for k, v in scales.items()}
-        return static_scales(model, per_device[device])
+        entry = resolved.get(model)
+        if entry is None or entry[0] != device:
+            entry = resolved[model] = (device, site_scales(model, quant, device))
+        return static_scales(entry[1])
 
     if solver != "simple":
         raise NotImplementedError(f"solver {solver!r} is not ported; only 'simple' is")

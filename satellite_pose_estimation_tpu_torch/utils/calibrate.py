@@ -2,8 +2,8 @@
 (counterpart of utils/calibrate.py).
 
 Run a few representative batches through an int8 model; every ``QConv`` /
-``QDense`` (and the int8 attention core) records its running max
-|activation| (``models.layers.calibration``). Feeding the result to
+``QDense`` records its running max |activation|
+(``models.layers.calibration``). Feeding the result to
 ``make_eval_step(..., quant=...)`` replaces each per-call max reduction
 with a constant scale.
 """
@@ -13,7 +13,7 @@ from typing import Iterable, Optional
 
 import torch
 
-from ..models.layers import calibration
+from ..models.layers import calibration, int8_sites
 
 
 @torch.inference_mode()
@@ -21,18 +21,19 @@ def calibrate_act_scales(model: torch.nn.Module, batches: Iterable[torch.Tensor]
                          compute_dtype: Optional[torch.dtype] = None) -> dict:
     """Run ``batches`` (model inputs, e.g. warped float32 crop batches)
     through ``model`` in eval mode and return the running max over all of
-    them: {"<module path>.act_amax" (or ".amax_q/k/v"): float32 scalar on
-    the model's device}, the JAX ``quant`` collection's paths joined by
-    dots. ``compute_dtype`` runs the model under ``torch.autocast``, as the
-    eval step does. A site whose activation is structurally zero keeps an
-    amax of 0 (quantizing it by the 1e-8 floor is exact). Raises on no
-    batches. The model keeps no scale."""
+    them: {"<module path>.act_amax": float32 scalar on the model's device}
+    in the order the sites ran, the JAX ``quant`` collection's paths joined
+    by dots (``models.layers.int8_sites``). ``compute_dtype`` runs the
+    model under ``torch.autocast``, as the eval step does. A site whose
+    activation is structurally zero keeps an amax of 0 (quantizing it by
+    the 1e-8 floor is exact). Raises on no batches. The model keeps no
+    scale."""
     amax = {}
     was_training = model.training
     model.eval()
     n = 0
     try:
-        with calibration(model, amax):
+        with calibration(amax):
             for x in batches:
                 with torch.autocast(x.device.type, dtype=compute_dtype,
                                     enabled=compute_dtype is not None):
@@ -42,4 +43,5 @@ def calibrate_act_scales(model: torch.nn.Module, batches: Iterable[torch.Tensor]
         model.train(was_training)
     if n == 0:
         raise ValueError("calibrate_act_scales: got no batches")
-    return amax
+    paths = {m: key for key, m in int8_sites(model).items()}
+    return {paths[m]: v for m, v in amax.items()}

@@ -595,7 +595,9 @@ def test_cuda_int8_detr_and_calibration_agree_with_the_cpu(cuda_device):
     same model on the CPU, dynamic and on static scales, and its
     calibration: the same sites, amaxes within 3e-2 (a code can flip
     where float32 rounding differs, as against JAX, tests/test_torch_quantize.py);
-    logits median within 1.5e-2, max 1e-1."""
+    probabilities median within 1e-3, max 1e-2, about 10x the gaps read on
+    an H100 (chip_smoke.py phase 12 prints them, and shows that one site
+    without its static scale leaves these limits)."""
     cfg = _int8_cfg()
     gpu = build_detr_model(cfg, seed=0, device=cuda_device)
     cpu = build_detr_model(cfg, seed=0, device="cpu")
@@ -618,7 +620,7 @@ def test_cuda_int8_detr_and_calibration_agree_with_the_cpu(cuda_device):
             ref = step(cpu, batch)
             out = step(gpu, {k: v.to(cuda_device) for k, v in batch.items()})
             d = (out["probs"].cpu() - ref["probs"]).abs()
-            assert d.median() <= 1.5e-2 and d.max() <= 1e-1
+            assert d.median() <= 1e-3 and d.max() <= 1e-2, (quant is None, d.median(), d.max())
 
 
 @pytest.mark.cuda

@@ -81,11 +81,12 @@ def _pair(cfg):
     jmodel = JaxDETR(JaxDETRConfig(**cfg))
     jvars = port_to_flax(jmodel, source.state_dict(), jnp.zeros((1, INPUT, INPUT, 3)),
                          bn=cfg.get("bn", "frozen_bn"), train=False)
-    tmodel = DETRKeypointModel(DETRConfig(**cfg))
+    with torch.device("meta"):  # no init: the load assigns every tensor
+        tmodel = DETRKeypointModel(DETRConfig(**cfg))
     state = flax_detr_to_state_dict(jvars["params"], jvars.get("batch_stats"),
                                     bn=cfg.get("bn", "frozen_bn"))
     assert set(state) == set(tmodel.state_dict())
-    tmodel.load_state_dict(state, strict=True)
+    tmodel.load_state_dict(state, strict=True, assign=True)
     return jmodel, jvars, tmodel.eval()
 
 
@@ -260,7 +261,7 @@ def test_gelu_transformer_matches_jax(pre_norm):
     assert (tmod.encoder_norm is not None) == pre_norm
     jmod = jt.Transformer(**kw)
     jvars = port_to_flax(jmod, tmod.state_dict(), *map(jnp.asarray, (src, query, pos)))
-    ref, ref_mem = jmod.apply(jvars, *map(jnp.asarray, (src, query, pos)))
+    ref, ref_mem = jax.jit(jmod.apply)(jvars, *map(jnp.asarray, (src, query, pos)))
     with torch.no_grad():
         out, mem = tmod(torch.from_numpy(src).reshape(2, 16, 32), torch.from_numpy(query),
                         torch.from_numpy(pos).reshape(16, 32))

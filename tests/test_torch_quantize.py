@@ -29,7 +29,6 @@ from satellite_pose_estimation_tpu.train.state import TrainState
 from satellite_pose_estimation_tpu.train.steps import make_eval_step as jax_make_eval_step
 from satellite_pose_estimation_tpu.utils.calibrate import calibrate_act_scales as jax_calibrate
 from satellite_pose_estimation_tpu_torch.models import layers
-from satellite_pose_estimation_tpu_torch.models import transformer as ttr
 from satellite_pose_estimation_tpu_torch.models.detr import (
     DETRConfig,
     DETRKeypointModel,
@@ -174,25 +173,6 @@ def test_int_mm_pads_to_the_shapes_cublas_takes(M, K, N, monkeypatch):
     assert am > 16 and ak % 8 == 0 and bn % 8 == 0 and ak == bk
 
 
-def test_int8_attention_core_matches_jax():
-    """Both products are exact in int32; the softmax between them may
-    round in another order, so a probability code may flip by one (one
-    step of v, the tolerance); measured: equal to JAX, dynamic and
-    static."""
-    rng = np.random.RandomState(3)
-    q, k, v = (rng.randn(2, 4, 49, 16).astype(np.float32) for _ in range(3))
-    sm = 1.0 / np.sqrt(16)
-    scales = [np.float32(np.abs(t).max() * 1.1 / 127.0) for t in (q, k, v)]
-    for act in ((None, None, None), scales):
-        ref = jq.int8_attention_core(*map(jnp.asarray, (q, k, v)), sm,
-                                     tuple(None if s is None else jnp.float32(s) for s in act))
-        out = tq.int8_attention_core(*map(torch.from_numpy, (q, k, v)), sm,
-                                     tuple(None if s is None else torch.tensor(s) for s in act))
-        np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=0,
-                                   atol=np.abs(v).max() / 127.0)
-        assert np.median(np.abs(out.numpy() - np.asarray(ref))) == 0.0
-
-
 def test_quant_scope_reads_the_environment(monkeypatch):
     monkeypatch.delenv("SPE_INT8_SCOPE", raising=False)
     assert tq.quant_scope("conv") and tq.quant_scope("ffn")
@@ -202,7 +182,8 @@ def test_quant_scope_reads_the_environment(monkeypatch):
     # The port reads it when it builds: the deployment default makes the
     # backbone convs and the encoder FFN int8, nothing else.
     monkeypatch.delenv("SPE_INT8_SCOPE")
-    model = DETRKeypointModel(DETRConfig(quantize_int8=True, **SIZES))
+    with torch.device("meta"):
+        model = DETRKeypointModel(DETRConfig(quantize_int8=True, **SIZES))
     enc, dec = model.transformer.encoder_layer_0, model.transformer.decoder_layer_0
     assert isinstance(model.backbone.body.conv1, layers.QConv)
     assert isinstance(model.backbone.output_conv, layers.QConv)
@@ -210,16 +191,6 @@ def test_quant_scope_reads_the_environment(monkeypatch):
     assert not isinstance(enc.self_attn.mha_query, layers.QDense)
     assert not isinstance(dec.linear1, layers.QDense)
     assert not isinstance(model.input_proj, layers.QConv)
-
-
-def test_quantized_inference_toggle():
-    assert not tq.quantization_active()
-    with tq.quantized_inference():
-        assert tq.quantization_active()
-        with tq.quantized_inference():
-            assert tq.quantization_active()
-        assert tq.quantization_active()
-    assert not tq.quantization_active()
 
 
 # -- the int8 DETR against JAX -----------------------------------------------
@@ -245,9 +216,10 @@ def int8_models():
         jvars = port_to_flax(jmodel, tmodel.state_dict(),
                              jnp.zeros((1, INPUT, INPUT, 3), jnp.float32), train=False)
         # The port model under test is loaded from the JAX tree.
-        loaded = DETRKeypointModel(DETRConfig(**cfg))
+        with torch.device("meta"):
+            loaded = DETRKeypointModel(DETRConfig(**cfg))
         loaded.load_state_dict(flax_detr_to_state_dict(jvars["params"], jvars["batch_stats"]),
-                               strict=True)
+                               strict=True, assign=True)
         x = np.random.RandomState(1).randn(2, INPUT, INPUT, 3).astype(np.float32)
         yield jmodel, jvars, loaded.eval(), x
 
@@ -264,9 +236,10 @@ def test_int8_model_keeps_the_float_parameters(int8_models):
     """One state dict loads strictly into the float and the int8 model, and
     building, running or calibrating the int8 model adds no state."""
     _, _, tmodel, x = int8_models
-    float_model = DETRKeypointModel(DETRConfig(backbone="resnet50s8", **SIZES))
+    with torch.device("meta"):
+        float_model = DETRKeypointModel(DETRConfig(backbone="resnet50s8", **SIZES))
     before = {k: v.clone() for k, v in tmodel.state_dict().items()}
-    float_model.load_state_dict(before, strict=True)
+    float_model.load_state_dict(before, strict=True, assign=True)
     calibrate_act_scales(tmodel, [torch.from_numpy(x)])
     with torch.no_grad():
         tmodel(torch.from_numpy(x))
@@ -347,8 +320,8 @@ def test_int8_detr_static_matches_jax(int8_models, calibrated):
         mp.setenv("SPE_INT8_SCOPE", WIDEST)
         jmodel, jvars, tmodel, x = int8_models
         ref = jax.jit(jmodel.apply)({**jvars, "quant": jquant}, jnp.asarray(x))
-    scales = {k: tq.amax_to_scale(v) for k, v in flax_quant_to_port(jquant).items()}
-    with torch.no_grad(), layers.static_scales(tmodel, scales):
+    scales = layers.site_scales(tmodel, flax_quant_to_port(jquant))
+    with torch.no_grad(), layers.static_scales(scales):
         out = tmodel(torch.from_numpy(x))
     _assert_int8_close(out, ref)
 
@@ -362,9 +335,9 @@ def test_static_scales_replace_every_dynamic_max(int8_models, calibrated, monkey
     real = tq._act_quantize
     monkeypatch.setattr(tq, "_act_quantize",
                         lambda t, s=None: dynamic.append(s is None) or real(t, s))
-    scales = {k: tq.amax_to_scale(v) for k, v in amax.items()}
+    scales = layers.site_scales(tmodel, amax)
     with torch.no_grad():
-        with layers.static_scales(tmodel, scales):
+        with layers.static_scales(scales):
             tmodel(torch.from_numpy(x))
         n_static = len(dynamic)
         assert not any(dynamic)
@@ -372,12 +345,13 @@ def test_static_scales_replace_every_dynamic_max(int8_models, calibrated, monkey
     assert len(dynamic) == 2 * n_static and all(dynamic[n_static:])
 
 
-def test_calibration_is_a_running_max_and_needs_batches(int8_models):
+def test_calibration_is_a_running_max_and_needs_batches(int8_models, calibrated):
+    _, one = calibrated  # the ranges of x alone
     _, _, tmodel, x = int8_models
     a = torch.from_numpy(x)
     b = torch.from_numpy(np.random.RandomState(9).randn(*x.shape).astype(np.float32) * 1.5)
     both = calibrate_act_scales(tmodel, [a, b])
-    one, two = calibrate_act_scales(tmodel, [a]), calibrate_act_scales(tmodel, [b])
+    two = calibrate_act_scales(tmodel, [b])
     assert all(torch.equal(both[k], torch.maximum(one[k], two[k])) for k in both)
     assert not tmodel.training
     with pytest.raises(ValueError):
@@ -419,6 +393,63 @@ def test_int8_eval_step_matches_jax(int8_models, calibrated):
     np.testing.assert_allclose(out["score"].numpy(), np.asarray(ref["score"]), rtol=1e-6)
 
 
+def _mismatched_ranges(case, tmodel, amax, x):
+    """Calibrated ranges that do not fit the model built at the widest
+    scope: calibrated under the default scope, on the model inside a
+    wrapper (every key prefixed), with a site dropped, or with a stray
+    key."""
+    if case == "narrower_scope":
+        with pytest.MonkeyPatch.context() as mp, torch.device("meta"):
+            mp.delenv("SPE_INT8_SCOPE", raising=False)
+            narrow = DETRKeypointModel(DETRConfig(backbone="resnet50s8", quantize_int8=True,
+                                                  **SIZES))
+        narrow.load_state_dict(tmodel.state_dict(), assign=True)
+        return calibrate_act_scales(narrow.eval(), [torch.from_numpy(x)])
+    if case == "wrapped":
+        quant = calibrate_act_scales(torch.nn.Sequential(tmodel), [torch.from_numpy(x)])
+        assert set(quant) == {f"0.{k}" for k in amax}
+        return quant
+    if case == "missing_site":
+        return {k: v for k, v in amax.items() if k != "backbone.body.layer3_0.conv2.act_amax"}
+    return {**amax, "transformer.encoder_layer_0.self_attn.core.act_amax": amax[next(iter(amax))]}
+
+
+@pytest.mark.parametrize("case", ["narrower_scope", "wrapped", "missing_site", "extra_site"])
+def test_eval_step_refuses_ranges_of_other_sites(int8_models, calibrated, case):
+    """A ``quant`` that misses one of the model's int8 sites, or names a
+    site the model lacks, raises when the eval step first sees the model,
+    before any site could quantize dynamically in its place: ranges
+    calibrated under another ``SPE_INT8_SCOPE`` or on a wrapped model, a
+    dropped site, a stray key."""
+    _, amax = calibrated
+    _, _, tmodel, x = int8_models
+    quant = _mismatched_ranges(case, tmodel, amax, x)
+    assert set(quant) != set(amax)
+    batch = {k: torch.from_numpy(v) for k, v in _eval_batch().items()}
+    with pytest.raises(ValueError, match="int8 sites"):
+        make_eval_step(out_size=INPUT, quant=quant)(tmodel, batch)
+
+
+def test_eval_step_resolves_the_scales_once_per_model(int8_models, calibrated, monkeypatch):
+    """The step maps the ranges to the model's modules the first time it
+    sees the model and reuses the map; a second model is resolved anew."""
+    from satellite_pose_estimation_tpu_torch.train import steps
+    _, amax = calibrated
+    _, _, tmodel, _ = int8_models
+    seen = []
+    real = steps.site_scales
+    monkeypatch.setattr(steps, "site_scales", lambda m, q, d: seen.append(m) or real(m, q, d))
+    batch = {k: torch.from_numpy(v) for k, v in _eval_batch().items()}
+    step = make_eval_step(out_size=INPUT, quant=amax)
+    first = step(tmodel, batch)
+    second = step(tmodel, batch)
+    assert seen == [tmodel]
+    torch.testing.assert_close(second["probs"], first["probs"], rtol=0, atol=0)
+    other = copy.deepcopy(tmodel)
+    step(other, batch)
+    assert seen == [tmodel, other]
+
+
 def test_int8_weights_are_quantized_from_float32(int8_models, monkeypatch):
     """The bf16 route (float32 parameters, ``compute_dtype=bf16``) hands
     every int8 site its float32 weight, so its codes are those of the float32
@@ -443,24 +474,3 @@ def test_int8_weights_are_quantized_from_float32(int8_models, monkeypatch):
         build_detr_model(dataclasses.replace(tmodel.config), device="cpu", dtype=torch.bfloat16)
     with pytest.raises(TypeError):
         copy.deepcopy(tmodel.backbone.body.conv1).bfloat16()(torch.zeros(1, 3, 8, 8))
-
-
-def test_int8_attention_core_in_the_attention_module():
-    """``quant_core`` (off on the deployment path) runs the core as
-    ``int8_attention_core`` with one calibrated scale per q, k, v under the
-    module's ``amax_q/k/v``."""
-    attn = ttr._Attention(32, 4, dropout=0.0, quant=True, quant_core=True).eval()
-    x = torch.from_numpy(np.random.RandomState(4).randn(2, 20, 32).astype(np.float32))
-    amax = {}
-    with torch.no_grad():
-        with layers.calibration(attn, amax):
-            dynamic = attn(x, x, x)
-        assert {"amax_q", "amax_k", "amax_v"} <= set(amax)
-        scales = {k: tq.amax_to_scale(v) for k, v in amax.items()}
-        with layers.static_scales(attn, scales):
-            static = attn(x, x, x)
-        float_attn = ttr._Attention(32, 4, dropout=0.0, impl="plain").eval()
-        float_attn.load_state_dict(attn.state_dict())
-        ref = float_attn(x, x, x)
-    torch.testing.assert_close(static, dynamic, rtol=0, atol=1e-6)
-    assert (dynamic - ref).abs().median() < 0.05 * ref.abs().mean()
