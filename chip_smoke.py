@@ -1316,12 +1316,13 @@ def int8_phases(torch, card, dev, g):
 
     # float32 int8 model: card (TF32 off) against the CPU on static scales.
     # The probability limits sit about 10x above the gaps read on the card
-    # (median 5.0e-5 / 8.7e-5, max 6.9e-4 / 6.7e-4 in two earlier runs,
-    # NVIDIA H100 80GB HBM3 at 700 W): a code flips where float32 rounding
-    # differs. They cannot see one site quantized another way, so each site
-    # is also held to the CPU's: the same static scale, and at most 1% of
-    # its int8 codes apart.
-    med_limit, max_limit, code_limit = 1e-3, 1e-2, 1e-2
+    # (median 5.0e-5 / 8.7e-5, max 6.9e-4 / 6.7e-4, NVIDIA H100 80GB HBM3
+    # at 700 W). They cannot see one site quantized another way, and
+    # neither can its codes: float32 rounding flips a few codes early, and
+    # the flips spread until a quarter to a half of a deep site's codes
+    # differ (in earlier runs on the same card). So each site is held to the CPU's by what it quantizes with:
+    # the same sites in the same order, each with the same static scale.
+    med_limit, max_limit = 1e-3, 1e-2
     cpu = build_detr_model(DETRConfig(quantize_int8=True, **base), seed=0, device="cpu")
     cpu_quant = {k: v.cpu() for k, v in quant.items()}
     small = {k: v[:2] for k, v in pool[0].items()}
@@ -1334,10 +1335,7 @@ def int8_phases(torch, card, dev, g):
 
         def spy(x, scale=None):
             q, sc = real(x, scale)
-            if keep is None or len(rec) in keep:
-                rec[len(rec)] = (q.cpu(), sc.cpu())
-            else:
-                rec[len(rec)] = None
+            rec[len(rec)] = (q.cpu(), sc.cpu()) if keep is None or len(rec) in keep else None
             return q, sc
 
         quantize._act_quantize = spy
@@ -1355,20 +1353,21 @@ def int8_phases(torch, card, dev, g):
     require(len(rec_gpu) == len(rec_cpu) == len(order), "the card and the CPU quantize "
             "different numbers of sites")
     scales_equal = all(torch.equal(rec_gpu[i][1], rec_cpu[i][1]) for i in rec_gpu)
-    flips = [(rec_gpu[i][0] != rec_cpu[i][0]).float().mean().item() for i in rec_gpu]
-    worst = max(range(len(flips)), key=flips.__getitem__)
+    apart = [(rec_gpu[i][0] != rec_cpu[i][0]).float().mean().item() for i in rec_gpu]
+    steps_apart = max((rec_gpu[i][0].int() - rec_cpu[i][0].int()).abs().max().item()
+                      for i in rec_gpu)
     log(f"  float32 int8 model, card vs CPU, B=2: probabilities median {d.median().item():.3e} "
         f"(limit {med_limit:g}), max {d.max().item():.3e} (limit {max_limit:g}); {len(order)} "
-        f"sites, static scales equal: {scales_equal}; codes apart: median "
-        f"{statistics.median(flips):.3e}, max {flips[worst]:.3e} at {order[worst]} "
-        f"(limit {code_limit:g})")
-    require(d.median().item() <= med_limit and d.max().item() <= max_limit and scales_equal
-            and flips[worst] <= code_limit, "float32 int8 model disagrees with the CPU")
+        f"sites in the same order, static scales equal: {scales_equal}; codes apart (not "
+        f"gated): first site {apart[0]:.3e}, median {statistics.median(apart):.3e}, max "
+        f"{max(apart):.3e}, by at most {steps_apart} steps")
+    require(d.median().item() <= med_limit and d.max().item() <= max_limit and scales_equal,
+            "float32 int8 model disagrees with the CPU")
     # What the checks see: each site in turn quantizes dynamically on the
     # card while every other site keeps its static scale.
     sites = layers.int8_sites(model)
     x2 = crop_resize_cubic_mxu(small["image"], small["clip_bbox_buf"], size, True)
-    by_probs, by_codes, moved = [], [], {}
+    by_probs, by_scale, moved = [], [], {}
     with highest_precision(), torch.inference_mode():
         for i, key_ in enumerate(order):
             with layers.static_scales({**static, sites[key_]: None}):
@@ -1376,17 +1375,15 @@ def int8_phases(torch, card, dev, g):
             dd = (torch.softmax(out["pred_logits"], dim=-1).cpu() - out_cpu["probs"]).abs()
             if dd.median().item() > med_limit or dd.max().item() > max_limit:
                 by_probs.append(key_)
-            if (rec[i][0] != rec_cpu[i][0]).float().mean().item() > code_limit:
-                by_codes.append(key_)
+            if not torch.equal(rec[i][1], rec_cpu[i][1]):
+                by_scale.append(key_)
             moved[key_] = abs(rec[i][1].item() / rec_cpu[i][1].item() - 1.0)
-    missed = [k for k in order if k not in by_codes]
-    log(f"  one site dynamic at a time, card vs CPU: the probability limits catch "
-        f"{len(by_probs)} of {len(order)}, the per-site code check {len(by_codes)}; the scale "
-        f"moves by a median {statistics.median(moved.values()):.3e} (relative); missed by the "
-        f"code check: " + (", ".join(f"{k} (scale moved {moved[k]:.1e})" for k in missed)
-                           or "none"))
-    require(all(moved[k] < 1e-2 for k in missed), "the per-site code check misses a site whose "
-            "scale moved by 1% or more")
+    log(f"  one site dynamic at a time on the card, against the CPU: the probability limits "
+        f"catch {len(by_probs)} of {len(order)}, the per-site scale check {len(by_scale)}; the "
+        f"scale moves by a median {statistics.median(moved.values()):.3e} (relative), max "
+        f"{max(moved.values()):.3e}; not caught by the scale check: "
+        + (", ".join(k for k in order if k not in by_scale) or "none")
+        + " (the dynamic scale equals the static one there)")
     del cpu, x2, rec_gpu, rec_cpu
 
     # int8 GEMMs at main-path shapes: the card equals the CPU bit for bit.

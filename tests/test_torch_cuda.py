@@ -596,8 +596,8 @@ def test_cuda_int8_detr_and_calibration_agree_with_the_cpu(cuda_device):
     calibration: the same sites, amaxes within 3e-2 (a code can flip
     where float32 rounding differs, as against JAX, tests/test_torch_quantize.py);
     probabilities median within 1e-3, max 1e-2, about 10x the gaps read on
-    an H100 (chip_smoke.py phase 12 prints them, and shows that one site
-    without its static scale leaves these limits)."""
+    an H100 (chip_smoke.py phase 12 prints them, and also holds each site's
+    static scale to the CPU's)."""
     cfg = _int8_cfg()
     gpu = build_detr_model(cfg, seed=0, device=cuda_device)
     cpu = build_detr_model(cfg, seed=0, device="cpu")
