@@ -8,7 +8,7 @@ target). It builds the port's CUDA kernels from ``satellite_pose_estimation
 _tpu_torch/csrc`` with nvcc (K1, the fused attention forward; K2, its
 backward; K3, the rotation; K4, the fused photometric chain; K5, flash
 attention -- one nvcc per source, all started together), then runs
-thirteen phases and exits non-zero if any fails:
+fifteen phases and exits non-zero if any fails:
 
 1. the card's name and power limit, the kernel build time, and each
    kernel's registers, shared memory and spills (ptxas's own lines);
@@ -74,7 +74,32 @@ thirteen phases and exits non-zero if any fails:
    forward at (256, 8, 784, 32) and its backward at (64, 8, 784, 32) bf16
    (both padded to 896 tokens, as the main path pads them; SDPA on the 784
    real tokens beside them), each beside its bound (counted on the 784 real
-   tokens the function works on).
+   tokens the function works on);
+12. the int8 static-PTQ DETR eval at batch 256 (bench.py's eval default):
+   calibration, K1 launches, the int8 and bf16 rates and spans, and the
+   float32 int8 model on the card against the CPU site by site;
+13. the rest of ``DETRConfig`` at reduced depth, card against CPU, and a
+   ``bn`` train step;
+14. the RT-DETR r50vd eval path at 512 (configs/speed/rtdetr_r50vd_1_512.yml
+   at full width, seeded weights, bf16): three eval steps of batch 64 with
+   ``solver="sigma"`` and one with ``solver="self_assessed"``, every output
+   finite, K1 launched once a step on bf16 (64, 8, 256, 32) (the AIFI
+   layer's 16 x 16 tokens) and no other kernel; the float32 model on the
+   card against the CPU at batch 2 (the selected tokens first); the sigma
+   and self-assessed solvers on 64 known poses (1 px noise, per-point
+   variances) on the card beside the CPU; the eval rate (median, min and
+   max of 3 windows) with the warp / model / backbone / encoder / decoder /
+   sigma and self-assessed solver spans and the solvers' device kernels a
+   call (profiler); K1's time at the AIFI shape beside its plain version,
+   SDPA and its bound;
+15. bench.py's RT-DETR eval default: ``RTDETRConfig(depth=50,
+   expansion=0.5)`` built under ``quantized_inference`` at 256, batch
+   256, ``solver="sigma"``, calibrated on 2 warped batches: no K1 launch
+   (the AIFI level's 64 tokens take the plain core), the int8 static and
+   bf16 rates of the same weights with their model / backbone /
+   backbone + encoder spans, and the
+   float32 int8 model on the card against the CPU, each site with the
+   same static scale in the same order.
 
 K1, K2 and K5 are held to their plain versions by two gates per output:
 the largest error within 1e-5 (float32) or 2e-2 (bf16) times 1 + the
@@ -208,6 +233,17 @@ def sdpa_kernels(torch, fn):
     return sorted({e.key[:70] for e in prof.key_averages() if e.device_type.name == "CUDA"})
 
 
+def device_launches(torch, fn):
+    """The number of device kernels one call of ``fn`` runs (profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages() if e.device_type.name == "CUDA")
+
+
 def k3_device_launches():
     """The device kernels one K3 call runs, bilinear and cubic, at the
     train subset (26, 224, 224, 3): counted by the profiler in a child
@@ -287,6 +323,23 @@ def expected(**nonzero):
     return {**{k: 0 for k in ("k1", "k2", "k3", "k4", "k5", "k5_bwd")}, **nonzero}
 
 
+def recorded_quantize(quantize, fn, keep=None):
+    """fn() with the (codes, scale) of every quantized activation (or of the
+    calls numbered in ``keep``), in call order, on the CPU."""
+    rec, real = {}, quantize._act_quantize
+
+    def spy(x, scale=None):
+        q, sc = real(x, scale)
+        rec[len(rec)] = (q.cpu(), sc.cpu()) if keep is None or len(rec) in keep else None
+        return q, sc
+
+    quantize._act_quantize = spy
+    try:
+        return fn(), rec
+    finally:
+        quantize._act_quantize = real
+
+
 def eval_batch(torch, dev, n, gen, pack=256):
     """An eval batch of ``n`` random 256 x 256 uint8 canvases with fixed
     crop boxes and an identity ground-truth pose."""
@@ -321,9 +374,8 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from satellite_pose_estimation_tpu_torch.geometry import rotations, scoring, solvers
-    from satellite_pose_estimation_tpu_torch.geometry.camera import WORLD_POINTS, Camera
-    from satellite_pose_estimation_tpu_torch.geometry.projection import project_points
+    from satellite_pose_estimation_tpu_torch.geometry import scoring, solvers
+    from satellite_pose_estimation_tpu_torch.geometry.camera import WORLD_POINTS
     from satellite_pose_estimation_tpu_torch.models.detr import DETRConfig, build_detr_model
     from satellite_pose_estimation_tpu_torch.ops import fused_attention as fa
     from satellite_pose_estimation_tpu_torch.ops.image_warp import crop_resize_cubic_mxu
@@ -428,21 +480,9 @@ def main() -> int:
     log("phase 3 ok: full-width slice ran through K1 and agrees with the CPU")
 
     # -- 4. geometry on the card ---------------------------------------------
-    gc = torch.Generator().manual_seed(1)
-    n = 64
-    quat = torch.randn(n, 4, generator=gc)
-    quat = quat / quat.norm(dim=-1, keepdim=True)
-    tvec = torch.stack([torch.rand(n, generator=gc) * 2 - 1, torch.rand(n, generator=gc) * 2 - 1,
-                        5 + 5 * torch.rand(n, generator=gc)], dim=-1)
+    quat, tvec, points, probs, _, _ = known_pose_keypoints(torch, 64, 20,
+                                                         torch.Generator().manual_seed(1))
     world = torch.tensor(WORLD_POINTS, dtype=torch.float32)
-    pix, _ = project_points(world, Camera.K_torch(), rotations.quat_to_rotmat(quat), tvec)
-    pix = pix + torch.randn(pix.shape, generator=gc)  # 1 px noise
-    points = torch.zeros(n, 20, 2)
-    points[:, :11] = pix
-    probs = torch.full((n, 20, 12), 0.01)
-    probs[:, torch.arange(11), torch.arange(11)] = 0.9
-    probs[:, 11:, 11] = 0.9
-    probs = probs / probs.sum(-1, keepdim=True)
     q_gpu, t_gpu, v_gpu = solvers.solve_pose_simple(world.to(dev), points.to(dev), probs.to(dev))
     q_cpu, t_cpu, v_cpu = solvers.solve_pose_simple(world, points, probs)
     score = scoring.speed_score_batch(q_gpu, t_gpu, quat.to(dev), tvec.to(dev))["score"]
@@ -538,6 +578,7 @@ def main() -> int:
     train = train_phases(torch, card, dev, g, sm_scale)
     routes = route_phases(torch, card, dev, g, sm_scale)
     int8 = int8_phases(torch, card, dev, g)
+    rtdetr = rtdetr_phases(torch, card, dev, g, sm_scale)
 
     log(json.dumps({"kernels": [{
         "name": "fused_attention",
@@ -545,13 +586,16 @@ def main() -> int:
         "source": "satellite_pose_estimation_tpu_torch/csrc/fused_attention.cu",
         "replaces": "satellite_pose_estimation_tpu/ops/fused_attention.py:31",
         "launches": (main_path_launches + train["k1_launches"] + train["k1_eval_bf16_launches"]
-                     + routes["b"]["k1"] + int8["k1"]),
+                     + routes["b"]["k1"] + int8["k1"] + rtdetr["k1"]),
         "launches_by_path": {"eval": main_path_launches, "train": train["k1_launches"],
                              "train_state_eval_bf16": train["k1_eval_bf16_launches"],
                              "train_pallas_augment": routes["b"]["k1"],
-                             "eval_int8_static": int8["k1"]},
+                             "eval_int8_static": int8["k1"],
+                             "rtdetr_eval_512": rtdetr["k1"],
+                             "rtdetr_eval_int8_static_256": 0},
         "max_abs_err": k1_err,
         **k1_times,
+        "rtdetr_aifi": {"shape": [64, 8, 256, 32], "dtype": "bfloat16", **rtdetr["aifi"]},
     }, {
         "name": "fused_attention_bwd",
         "route": "cuda",
@@ -1328,27 +1372,12 @@ def int8_phases(torch, card, dev, g):
     small = {k: v[:2] for k, v in pool[0].items()}
     order = list(quant)  # the sites in the order they run
 
-    def recorded(fn, keep=None):
-        """fn() with the (codes, scale) of every quantized activation (or
-        of the calls numbered in ``keep``), in call order, on the CPU."""
-        rec, real = {}, quantize._act_quantize
-
-        def spy(x, scale=None):
-            q, sc = real(x, scale)
-            rec[len(rec)] = (q.cpu(), sc.cpu()) if keep is None or len(rec) in keep else None
-            return q, sc
-
-        quantize._act_quantize = spy
-        try:
-            return fn(), rec
-        finally:
-            quantize._act_quantize = real
-
     with highest_precision():
-        out_gpu, rec_gpu = recorded(lambda: make_eval_step(out_size=size, quant=quant)(
-            model, small))
-        out_cpu, rec_cpu = recorded(lambda: make_eval_step(out_size=size, quant=cpu_quant)(
-            cpu, {k: v.cpu() for k, v in small.items()}))
+        out_gpu, rec_gpu = recorded_quantize(
+            quantize, lambda: make_eval_step(out_size=size, quant=quant)(model, small))
+        out_cpu, rec_cpu = recorded_quantize(
+            quantize, lambda: make_eval_step(out_size=size, quant=cpu_quant)(
+                cpu, {k: v.cpu() for k, v in small.items()}))
     d = (out_gpu["probs"].cpu() - out_cpu["probs"]).abs()
     require(len(rec_gpu) == len(rec_cpu) == len(order), "the card and the CPU quantize "
             "different numbers of sites")
@@ -1371,7 +1400,7 @@ def int8_phases(torch, card, dev, g):
     with highest_precision(), torch.inference_mode():
         for i, key_ in enumerate(order):
             with layers.static_scales({**static, sites[key_]: None}):
-                out, rec = recorded(lambda: model(x2), keep={i})
+                out, rec = recorded_quantize(quantize, lambda: model(x2), keep={i})
             dd = (torch.softmax(out["pred_logits"], dim=-1).cpu() - out_cpu["probs"]).abs()
             if dd.median().item() > med_limit or dd.max().item() > max_limit:
                 by_probs.append(key_)
@@ -1450,6 +1479,331 @@ def int8_phases(torch, card, dev, g):
             and bn.num_batches_tracked.item() == 1, "the bn train step")
     log("phase 13 ok")
     return {"k1": seen["k1"]}
+
+
+def known_pose_keypoints(torch, n, Q, gen):
+    """``n`` random poses 5-10 m away and the Tango points projected through
+    them with 1 px noise, as model-style outputs: points (n, Q, 2) pixels
+    (keypoint k in query k, the rest background), probs (n, Q, 12), and,
+    drawn after them, per-point variances (n, Q, 2) in px^2 and each
+    image's keypoint-box area. Returns (quat, tvec, points, probs, sigmas,
+    area) on the CPU."""
+    from satellite_pose_estimation_tpu_torch.geometry import rotations
+    from satellite_pose_estimation_tpu_torch.geometry.camera import WORLD_POINTS, Camera
+    from satellite_pose_estimation_tpu_torch.geometry.projection import project_points
+
+    quat = torch.randn(n, 4, generator=gen)
+    quat = quat / quat.norm(dim=-1, keepdim=True)
+    tvec = torch.stack([torch.rand(n, generator=gen) * 2 - 1, torch.rand(n, generator=gen) * 2 - 1,
+                        5 + 5 * torch.rand(n, generator=gen)], dim=-1)
+    world = torch.tensor(WORLD_POINTS, dtype=torch.float32)
+    pix, _ = project_points(world, Camera.K_torch(), rotations.quat_to_rotmat(quat), tvec)
+    pix = pix + torch.randn(pix.shape, generator=gen)  # 1 px noise
+    points = torch.zeros(n, Q, 2)
+    points[:, :11] = pix
+    probs = torch.full((n, Q, 12), 0.01)
+    probs[:, torch.arange(11), torch.arange(11)] = 0.9
+    probs[:, 11:, 11] = 0.9
+    probs = probs / probs.sum(-1, keepdim=True)
+    sigmas = 0.5 + 3.5 * torch.rand(n, Q, 2, generator=gen)
+    extent = pix.amax(1) - pix.amin(1)
+    return quat, tvec, points, probs, sigmas, extent[:, 0] * extent[:, 1]
+
+
+def rtdetr_phases(torch, card, dev, g, sm_scale):
+    """Phases 14-15: the RT-DETR r50vd eval path at 512 and bench's int8
+    RT-DETR eval default."""
+    from satellite_pose_estimation_tpu_torch.geometry import scoring, solvers
+    from satellite_pose_estimation_tpu_torch.geometry.camera import WORLD_POINTS
+    from satellite_pose_estimation_tpu_torch.models import layers, rtdetr_decoder
+    from satellite_pose_estimation_tpu_torch.models.rtdetr import RTDETRConfig, build_rtdetr_model
+    from satellite_pose_estimation_tpu_torch.ops import fused_attention as fa
+    from satellite_pose_estimation_tpu_torch.ops import quantize
+    from satellite_pose_estimation_tpu_torch.ops.image_warp import crop_resize_cubic_mxu
+    from satellite_pose_estimation_tpu_torch.ops.precision import highest_precision
+    from satellite_pose_estimation_tpu_torch.train.steps import make_eval_step
+    from satellite_pose_estimation_tpu_torch.utils.calibrate import calibrate_act_scales
+
+    bf16 = torch.bfloat16
+    world = torch.tensor(WORLD_POINTS, dtype=torch.float32)
+    steps, windows = 5, 3
+
+    def rates(step, net, pool, B):
+        out = []
+        for w in range(windows):
+            chunk = pool[w * steps:(w + 1) * steps]
+            t0 = time.perf_counter()
+            for b in chunk:
+                step(net, b)
+            torch.cuda.synchronize()
+            out.append(B * steps / (time.perf_counter() - t0))
+        return out
+
+    def rate_line(r):
+        return (f"median {statistics.median(r):.2f} img/s (min {min(r):.2f}, max {max(r):.2f}; "
+                f"3 windows of {steps} steps)")
+
+    # -- 14. RT-DETR r50vd at 512, bf16 ------------------------------------
+    # configs/speed/rtdetr_r50vd_1_512.yml at full width: PResNet-50vd
+    # (return_idx 1-3, BatchNorm), hidden 256, 8 heads, FFN 1024, CSP
+    # expansion 0.5, 30 queries, 3 decoder layers, 11 classes.
+    cfg = RTDETRConfig(depth=50, freeze_norm=False, hidden_dim=256, nhead=8,
+                       dim_feedforward=1024, expansion=0.5, num_queries=30,
+                       num_decoder_layers=3, num_classes=11)
+    size, pack, B = 512, 544, 64
+    model = build_rtdetr_model(cfg, seed=0, device=dev, dtype=bf16)
+
+    def make_batch(n, gen):
+        b = eval_batch(torch, dev, n, gen, pack)
+        b["clip_bbox_buf"] = torch.tensor([[16.0, 16.0, 528.0, 528.0]], device=dev).repeat(n, 1)
+        clip = b["clip_bbox"]
+        b["bbox_area"] = (clip[:, 2] - clip[:, 0]) * (clip[:, 3] - clip[:, 1])
+        return b
+
+    sigma_step = make_eval_step(out_size=size, solver="sigma")
+    sa_step = make_eval_step(out_size=size, solver="self_assessed")
+    batches = [make_batch(B, g) for _ in range(4)]
+    sigma_step(model, batches[0])  # warm-up
+    sa_step(model, batches[0])
+    torch.cuda.synchronize()
+    k1_inputs, real_fwd = [], fa._launch_fwd
+
+    def spy_fwd(q, k, v, s):
+        k1_inputs.append((tuple(q.shape), q.dtype))
+        return real_fwd(q, k, v, s)
+
+    fa._launch_fwd = spy_fwd
+    try:
+        zero_counts()
+        results = [sigma_step(model, b) for b in batches[:3]] + [sa_step(model, batches[3])]
+        torch.cuda.synchronize()
+        seen = counts()
+    finally:
+        fa._launch_fwd = real_fwd
+    rt_launches = seen["k1"]
+    log(f"  RT-DETR r50vd @512 B={B} bf16: launches in 3 sigma + 1 self-assessed eval steps "
+        f"{seen} (expected K1 once a step, no other), K1 inputs {sorted(set(k1_inputs))}")
+    require(seen == expected(k1=4), "RT-DETR eval launch counts")
+    require(set(k1_inputs) == {((B, 8, 256, 32), bf16)}, "K1's AIFI shape")
+    shapes = {"quat_pr": (B, 4), "tvec_pr": (B, 3), "valid": (B,), "points": (B, 30, 2),
+              "probs": (B, 30, 12), "sigmas": (B, 30, 2), "score": (B,)}
+    for res in results:
+        for key, shape in shapes.items():
+            require(tuple(res[key].shape) == shape, f"RT-DETR {key} shape {tuple(res[key].shape)}")
+        for key, val in res.items():
+            if val.is_floating_point():
+                require(bool(torch.isfinite(val).all()), f"RT-DETR {key} not finite")
+    log(f"  RT-DETR eval outputs finite; untrained-model SPEED score mean, sigma "
+        f"{torch.cat([r['score'] for r in results[:3]]).mean().item():.6f}, self-assessed "
+        f"{results[3]['score'].mean().item():.6f}; valid "
+        f"{int(torch.cat([r['valid'] for r in results[:3]]).sum())}/{3 * B} and "
+        f"{int(results[3]['valid'].sum())}/{B}")
+
+    # The float32 model on the card (TF32 off) against the CPU at B = 2.
+    # First the tokens each selected (a random-init model's top-k can swap
+    # tokens whose scores tie within rounding), then the outputs.
+    x = crop_resize_cubic_mxu(batches[0]["image"][:2], batches[0]["clip_bbox_buf"][:2], size)
+    model32 = build_rtdetr_model(cfg, seed=0, device=dev)
+    cpu = build_rtdetr_model(cfg, seed=0, device="cpu")
+    picks, real_topk = [], rtdetr_decoder.topk
+
+    def spy_topk(scores, k):
+        vals, idx = real_topk(scores, k)
+        picks.append((torch.sort(scores.float(), -1, descending=True).values.cpu(), idx.cpu()))
+        return vals, idx
+
+    rtdetr_decoder.topk = spy_topk
+    try:
+        with torch.inference_mode(), highest_precision():
+            out_gpu = model32(x)
+            out_cpu = cpu(x.cpu())
+    finally:
+        rtdetr_decoder.topk = real_topk
+    (sorted_gpu, idx_gpu), (_, idx_cpu) = picks
+    k = cfg.num_queries
+    if torch.equal(idx_gpu, idx_cpu):
+        for key in ("pred_logits", "pred_points", "pred_sigmas"):
+            err = max_err(out_gpu[key].cpu(), out_cpu[key])
+            log(f"  RT-DETR {key}: float32 card vs CPU, the same {k} tokens selected, max err "
+                f"{err:.3e} (tolerance 2e-3)")
+            require(err <= 2e-3, f"float32 RT-DETR on the card disagrees with the CPU ({key})")
+    else:
+        gap = (sorted_gpu[:, k - 1] - sorted_gpu[:, k]).abs().max().item()
+        a, b = out_gpu["pred_points"].cpu(), out_cpu["pred_points"]
+        chamfer = (a[:, :, None] - b[:, None]).norm(dim=-1).amin(-1).median().item()
+        log(f"  RT-DETR float32 card vs CPU: the selected tokens differ; k-th vs (k+1)-th score "
+            f"gap {gap:.3e} (tolerance 1e-3), points chamfer median {chamfer:.3e} (tolerance 1e-3)")
+        require(gap <= 1e-3 and chamfer <= 1e-3, "float32 RT-DETR selects other tokens on the card")
+    del model32, cpu, x
+
+    # The sigma solvers on the card: known poses, 1 px noise, per-point
+    # variances; the same solve on the CPU beside it.
+    gc = torch.Generator().manual_seed(14)
+    quat, tvec, points, probs, sigmas, area = known_pose_keypoints(torch, 64, 30, gc)
+    args = {"sigma": (points, probs, sigmas), "self_assessed": (points, probs, sigmas, area)}
+    for name, fn in (("sigma", solvers.solve_pose_sigma),
+                     ("self_assessed", solvers.solve_pose_self_assessed)):
+        q_gpu, t_gpu, v_gpu = fn(world.to(dev), *(a.to(dev) for a in args[name]))
+        q_cpu, t_cpu, v_cpu = fn(world, *args[name])
+        score = scoring.speed_score_batch(q_gpu, t_gpu, quat.to(dev), tvec.to(dev))["score"]
+        score_cpu = scoring.speed_score_batch(q_cpu, t_cpu, quat, tvec)["score"]
+        agree = scoring.speed_score_batch(q_gpu.cpu(), t_gpu.cpu(), q_cpu, t_cpu)["score"]
+        log(f"  {name} solver, 64 poses: valid {int(v_gpu.sum())}/64, mean SPEED score "
+            f"{score.mean().item():.6f} (limit 1e-2; CPU {score_cpu.mean().item():.6f}); card vs "
+            f"CPU solve: max score {agree.max().item():.3e}")
+        require(bool(v_gpu.all()) and score.mean().item() < 1e-2, f"{name} solver on the card")
+
+    # Throughput and the spans of one step (median of 3).
+    pool = [make_batch(B, g) for _ in range(steps * windows)]
+    r = rates(sigma_step, model, pool, B)
+    log(f"  RT-DETR eval step B={B} bf16 @512, sigma solver: {rate_line(r)} on {card}")
+    b = pool[0]
+    with torch.inference_mode():
+        imgs = crop_resize_cubic_mxu(b["image"], b["clip_bbox_buf"], size).to(bf16)
+        outs = model(imgs)
+        clip = b["clip_bbox"]
+        wh = clip[:, 2:4] - clip[:, 0:2]
+        probs_b = torch.softmax(outs["pred_logits"], -1)
+        pts_b = outs["pred_points"] * wh[:, None] + clip[:, None, :2]
+        sig_b = torch.exp(outs["pred_sigmas"]) * wh[:, None] ** 2
+        world_d = world.to(dev)
+        nchw = imgs.permute(0, 3, 1, 2)
+        feats = model.backbone(nchw)
+        enc = model.encoder(feats)
+        stages = {
+            "warp": lambda: crop_resize_cubic_mxu(b["image"], b["clip_bbox_buf"], size),
+            "model": lambda: model(imgs),
+            "backbone": lambda: model.backbone(nchw),
+            "encoder": lambda: model.encoder(feats),
+            "decoder": lambda: model.decoder(enc),
+            "solver": lambda: solvers.solve_pose_sigma(world_d, pts_b, probs_b, sig_b),
+            "self-assessed solver": lambda: solvers.solve_pose_self_assessed(
+                world_d, pts_b, probs_b, sig_b, b["bbox_area"]),
+        }
+        spans = {}
+        for name, fn in stages.items():
+            spans[name] = statistics.median(cuda_ms(fn, 1, torch) for _ in range(3))
+            log(f"  RT-DETR stage {name}: {spans[name]:.3f} ms per B={B} step on {card}")
+        for name in ("solver", "self-assessed solver"):
+            log(f"  RT-DETR {name}: {device_launches(torch, stages[name])} device kernels a call")
+    del pool, imgs, outs, feats, enc, nchw
+
+    # K1 at the AIFI shape and layout: (B, T, H, D) views of bf16, beside
+    # SDPA (the yardstick; the port never calls it).
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qkv = [torch.randn(B, 256, 8, 32, generator=g, device=dev, dtype=bf16).transpose(1, 2)
+           for _ in range(3)]
+    out = fa.fused_self_attention(*qkv, sm_scale)
+    ref = fa.attention_plain(*qkv, sm_scale)
+    aifi_err, rel = max_err(out, ref), rel_l2(out, ref)
+    tol = 2e-2 * (1.0 + ref.float().abs().max().item())
+    log(f"  K1 ({B},8,256,32) bf16: max|kernel-plain| = {aifi_err:.3e} (tolerance {tol:.3e}), "
+        f"relative L2 {rel:.3e} (limit 1e-2)")
+    require(aifi_err <= tol and rel <= 1e-2, "K1 disagrees with plain at the AIFI shape")
+    del out, ref
+    aifi, runs = timed(torch, lambda: fa.fused_self_attention(*qkv, sm_scale),
+                       lambda: fa.attention_plain(*qkv, sm_scale),
+                       lambda: sdpa(*qkv, scale=sm_scale), iters=50)
+    aifi.update(attention_bound(qkv[0], products=2, tensors=4, row_stats=1))
+    log(f"  K1 ({B},8,256,32) bf16: kernel {aifi['ms']:.4f} ms, plain {aifi['plain_ms']:.4f} ms, "
+        f"SDPA {aifi['library_ms']:.4f} ms, bound {aifi['bound_ms']:.4f} ms ({aifi['bound_by']}; "
+        f"{100 * aifi['bound_ms'] / aifi['ms']:.1f}% of it) (runs plain, library, kernel, kernel, "
+        f"library, plain: {runs}) on {card}")
+    del qkv, model
+    torch.cuda.empty_cache()
+    log("phase 14 ok")
+
+    # -- 15. bench's RT-DETR eval default: int8 static at 256, B = 256 -------
+    cfg = RTDETRConfig(depth=50, expansion=0.5)
+    size, EB = 256, 256
+    with quantize.quantized_inference():
+        model = build_rtdetr_model(cfg, seed=0, device=dev)
+    float_model = build_rtdetr_model(cfg, seed=0, device=dev)
+    float_model.load_state_dict(model.state_dict())  # the same weights, float32
+    sites = layers.int8_sites(model)
+    pool = [eval_batch(torch, dev, EB, g) for _ in range(steps * windows + 3)]
+    for b in pool:
+        clip = b["clip_bbox"]
+        b["bbox_area"] = (clip[:, 2] - clip[:, 0]) * (clip[:, 3] - clip[:, 1])
+    warp = [crop_resize_cubic_mxu(b["image"], b["clip_bbox_buf"], size, True) for b in pool[:2]]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    quant = calibrate_act_scales(model, warp, compute_dtype=bf16)
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t0
+    amax = torch.stack(list(quant.values()))
+    log(f"  RT-DETR int8 scope {os.environ.get('SPE_INT8_SCOPE', 'conv,ffn')}: {len(sites)} int8 "
+        f"sites; calibrated on 2 warped batches of {EB} in {calib_s:.3f} s; amax min "
+        f"{amax.min().item():.4g}, max {amax.max().item():.4g}")
+    require(set(quant) == set(sites) and bool(torch.isfinite(amax).all()),
+            "RT-DETR calibration: a site is missing or its amax is not finite")
+    del warp
+    step8 = make_eval_step(out_size=size, solver="sigma", compute_dtype=bf16, quant=quant)
+    step16 = make_eval_step(out_size=size, solver="sigma", compute_dtype=bf16)
+    for step, net in ((step8, model), (step16, float_model)):
+        step(net, pool[0])  # warm-up
+    torch.cuda.synchronize()
+    zero_counts()
+    results = [step8(model, b) for b in pool[:3]]
+    torch.cuda.synchronize()
+    seen = counts()
+    log(f"  RT-DETR int8 static eval: launches in 3 steps of B={EB} {seen} (expected none: the "
+        f"AIFI level has 8 x 8 = 64 tokens, the plain core)")
+    require(seen == expected(), "RT-DETR int8 eval launch counts")
+    for res in results:
+        for key, val in res.items():
+            if val.is_floating_point():
+                require(bool(torch.isfinite(val).all()), f"RT-DETR int8 eval {key} not finite")
+    r8 = rates(step8, model, pool[3:], EB)
+    r16 = rates(step16, float_model, pool[3:], EB)
+    log(f"  RT-DETR eval step int8 static B={EB} @256: {rate_line(r8)} on {card}")
+    log(f"  RT-DETR eval step bf16 (same weights, autocast) B={EB} @256: {rate_line(r16)} on {card}")
+    static = layers.site_scales(model, quant)
+    imgs = crop_resize_cubic_mxu(pool[3]["image"], pool[3]["clip_bbox_buf"], size, True)
+
+    def span(fn):
+        with torch.inference_mode(), torch.autocast("cuda", dtype=bf16), \
+                layers.static_scales(static):
+            fn()
+            torch.cuda.synchronize()
+            return statistics.median(cuda_ms(fn, 1, torch) for _ in range(3))
+
+    nchw = imgs.permute(0, 3, 1, 2)
+    for name, (f8, f16) in {
+            "model": (lambda: model(imgs), lambda: float_model(imgs)),
+            "backbone": (lambda: model.backbone(nchw), lambda: float_model.backbone(nchw)),
+            "backbone + encoder": (lambda: model.encoder(model.backbone(nchw)),
+                        lambda: float_model.encoder(float_model.backbone(nchw)))}.items():
+        log(f"  RT-DETR stage {name}: int8 {span(f8):.3f} ms, bf16 (autocast) {span(f16):.3f} ms "
+            f"per B={EB} step on {card}")
+    del imgs, nchw, float_model
+
+    # The float32 int8 model on the card (TF32 off) against the CPU on the
+    # same static scales: every site quantizes with the same scale, in the
+    # same order.
+    with quantize.quantized_inference():
+        cpu8 = build_rtdetr_model(cfg, seed=0, device="cpu")
+    small = {k: v[:2] for k, v in pool[0].items()}
+    cpu_quant = {k: v.cpu() for k, v in quant.items()}
+    with highest_precision():
+        out_gpu, rec_gpu = recorded_quantize(
+            quantize, lambda: make_eval_step(out_size=size, solver="sigma", quant=quant)(
+                model, small))
+        out_cpu, rec_cpu = recorded_quantize(
+            quantize, lambda: make_eval_step(out_size=size, solver="sigma", quant=cpu_quant)(
+                cpu8, {k: v.cpu() for k, v in small.items()}))
+    scales_equal = (len(rec_gpu) == len(rec_cpu) == len(sites)
+                    and all(torch.equal(rec_gpu[i][1], rec_cpu[i][1]) for i in rec_gpu))
+    d = (out_gpu["probs"].cpu() - out_cpu["probs"]).abs()
+    log(f"  RT-DETR float32 int8 model, card vs CPU, B=2: {len(rec_gpu)} and {len(rec_cpu)} "
+        f"quantized sites of {len(sites)}, static scales equal site by site: {scales_equal}; "
+        f"probabilities median {d.median().item():.3e}, max {d.max().item():.3e} (not gated: a "
+        f"random-init RT-DETR may select other tokens)")
+    require(scales_equal, "RT-DETR int8 sites quantize with other scales on the card")
+    del model, cpu8, pool, results
+    torch.cuda.empty_cache()
+    log("phase 15 ok")
+    return {"k1": rt_launches, "aifi": dict(aifi, max_abs_err=aifi_err), "spans": spans}
 
 
 if __name__ == "__main__":

@@ -11,5 +11,11 @@ from .projection import project_points, project_points_quat
 from .scoring import speed_score, speed_score_batch
 from .p3p import p3p_solutions
 from .ransac import ransac_p3p
-from .refine import gauss_newton_pnp
-from .solvers import SolverConfig, select_keypoints, solve_pose_simple
+from .refine import gauss_newton_pnp, huber_weighted_pnp
+from .solvers import (
+    SolverConfig,
+    select_keypoints,
+    solve_pose_self_assessed,
+    solve_pose_sigma,
+    solve_pose_simple,
+)

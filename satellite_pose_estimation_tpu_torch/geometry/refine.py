@@ -1,5 +1,7 @@
 """Gauss-Newton / Levenberg-Marquardt PnP refinement, batched (counterpart
-of geometry/refine.py).
+of geometry/refine.py): ``gauss_newton_pnp``, the pixel-space LM refine of
+the R1 solver, and ``huber_weighted_pnp``, the sigma-weighted Huber LM on
+normalised coordinates of the R2 solvers (the reference's Ceres refine).
 
 Fixed iteration count, analytic Jacobians, 6x6 damped normal equations
 solved by an unrolled Cholesky. Every operation carries the image batch as
@@ -9,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from .projection import normalize_points
 from .rotations import inverse_rodrigues, rodrigues
 
 
@@ -123,6 +126,56 @@ def gauss_newton_pnp(world, image_pix, K, rvec0, tvec0, mask, iters=15):
         R_new = rodrigues(dx[:, :3]) @ R
         t_new = t + dx[:, 3:]
         res_new, _ = _residual_and_jacobian(world, obs, (fx, fy), R_new, t_new, m)
+        cost1 = torch.sum(res_new * res_new, dim=(-2, -1))
+        improved = cost1 < cost0
+        R = torch.where(improved[:, None, None], R_new, R)
+        t = torch.where(improved[:, None], t_new, t)
+        lam = torch.clamp(torch.where(improved, lam * 0.5, lam * 4.0), 1e-9, 1e6)
+    return inverse_rodrigues(R), t
+
+
+def _huber_block_weights(res, delta):
+    """Ceres-style Huber IRLS weight of each residual block (a point's
+    2-vector): sqrt(rho'(s)) with s = ||r||^2. res (B, N, 2) -> (B, N, 1)."""
+    s = torch.sum(res * res, dim=-1)
+    w2 = torch.where(s <= delta * delta, 1.0, delta / torch.sqrt(torch.clamp(s, min=1e-24)))
+    return torch.sqrt(w2)[..., None]
+
+
+def huber_weighted_pnp(world, image_pix, K, sigmas, rvec0, tvec0, mask, huber_delta=0.005,
+                       iters=20):
+    """Sigma-weighted Huber LM on normalised camera coordinates from initial
+    poses, masked. Per point and axis the weight is
+    (1 / (sqrt(sigma) + 1e-6)) / sum over the valid points of the same, the
+    residual w * (projection - observation), robustified by Huber(delta)
+    on each point's residual block.
+
+    Args: world (N, 3), image_pix (B, N, 2), K (3, 3), sigmas (B, N, 2)
+    variances in pixel^2, rvec0 / tvec0 (B, 3), mask (B, N).
+    Returns (rvec (B, 3), tvec (B, 3)).
+    """
+    obs = normalize_points(image_pix, K)
+    m = mask.to(world.dtype)
+    w1 = 1.0 / (torch.sqrt(torch.clamp(sigmas, min=0.0)) + 1e-6) * m[..., None]
+    w = w1 / torch.clamp(torch.sum(w1, dim=-2, keepdim=True), min=1e-12)  # (B, N, 2)
+    unit = (1.0, 1.0)
+
+    def robust(R, t):
+        res, J = _residual_and_jacobian(world, obs, unit, R, t, m)
+        res, J = res * w, J * w[..., None]
+        hw = _huber_block_weights(res, huber_delta)
+        return res * hw, J * hw[..., None]
+
+    R = rodrigues(rvec0)
+    t = tvec0
+    lam = torch.full(t.shape[:1], 1e-3, dtype=world.dtype, device=world.device)
+    for _ in range(iters):
+        res_h, J_h = robust(R, t)
+        cost0 = torch.sum(res_h * res_h, dim=(-2, -1))
+        dx = _solve_step(res_h, J_h, lam)
+        R_new = rodrigues(dx[:, :3]) @ R
+        t_new = t + dx[:, 3:]
+        res_new, _ = robust(R_new, t_new)
         cost1 = torch.sum(res_new * res_new, dim=(-2, -1))
         improved = cost1 < cost0
         R = torch.where(improved[:, None, None], R_new, R)

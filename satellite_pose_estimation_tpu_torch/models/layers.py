@@ -93,6 +93,16 @@ def norm_layer(kind: str, features: int) -> nn.Module:
     raise ValueError(f"unknown norm kind: {kind}")
 
 
+_ACTIVATIONS = {"relu": torch.relu, "gelu": nn.functional.gelu,  # erf GELU, as JAX's
+                "silu": nn.functional.silu, "swish": nn.functional.silu}
+
+
+def get_activation(name):
+    """The activation ``name`` (JAX ``get_activation``: relu, gelu (erf),
+    silu / swish), or the identity for None."""
+    return (lambda x: x) if name is None else _ACTIVATIONS[name]
+
+
 class MLP(nn.Module):
     """DETR-style MLP head: (num_layers-1) x [Linear + ReLU] + Linear."""
 

@@ -4,6 +4,7 @@
   valid) the normalised cumulative sum of the reference reduces to a linear
   ramp, computed in closed form.
 * ``PositionEmbeddingLearned``: 50-row learned row / column tables.
+* ``build_2d_sincos_position_embedding``: the RT-DETR AIFI embedding.
 """
 from __future__ import annotations
 
@@ -63,3 +64,20 @@ class PositionEmbeddingLearned(nn.Module):
         x_emb = self.col_embed[:w][None].expand(h, -1, -1)
         y_emb = self.row_embed[:h][:, None].expand(-1, w, -1)
         return torch.cat([x_emb, y_emb], dim=-1).to(dtype)
+
+
+def build_2d_sincos_position_embedding(w: int, h: int, embed_dim: int = 256,
+                                       temperature: float = 10000.0, device=None):
+    """RT-DETR AIFI flavour: [sin(wx), cos(wx), sin(wy), cos(wy)] blocks of
+    embed_dim / 4 over the grid, float32 (h*w, embed_dim). As in the JAX
+    version (and the reference), the grid is meshed (w, h) with "ij"
+    indexing, so the rows run over w first."""
+    grid_w = torch.arange(w, dtype=torch.float32, device=device)
+    grid_h = torch.arange(h, dtype=torch.float32, device=device)
+    grid_w, grid_h = torch.meshgrid(grid_w, grid_h, indexing="ij")
+    pos_dim = embed_dim // 4
+    omega = torch.arange(pos_dim, dtype=torch.float32, device=device) / pos_dim
+    omega = 1.0 / (temperature ** omega)
+    out_w = grid_w.reshape(-1)[:, None] * omega[None, :]
+    out_h = grid_h.reshape(-1)[:, None] * omega[None, :]
+    return torch.cat([out_w.sin(), out_w.cos(), out_h.sin(), out_h.cos()], dim=1)

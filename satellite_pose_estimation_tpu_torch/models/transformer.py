@@ -23,7 +23,7 @@ from torch.utils.checkpoint import checkpoint
 from ..ops.flash_attention import flash_self_attention
 from ..ops.fused_attention import fused_self_attention
 from ..ops.quantize import quant_scope
-from .layers import linear
+from .layers import get_activation, linear
 
 
 class _Attention(nn.Module):
@@ -92,10 +92,6 @@ class _Attention(nn.Module):
         return self.mha_out(out.transpose(1, 2).flatten(2))
 
 
-_ACTIVATIONS = {"relu": torch.relu,
-                "gelu": nn.functional.gelu}  # erf GELU, as JAX's approximate=False
-
-
 def _ffn(layer, x):
     return layer.linear2(layer.drop(layer.act(layer.linear1(x))))
 
@@ -105,7 +101,7 @@ class EncoderLayer(nn.Module):
                  use_flash=False, activation="relu", normalize_before=False, quant=False):
         super().__init__()
         self.normalize_before = normalize_before
-        self.act = _ACTIVATIONS[activation]
+        self.act = get_activation(activation)
         self.self_attn = _Attention(d_model, nhead, dropout,
                                     "flash" if use_flash else "fused", generator, quant)
         qffn = quant and quant_scope("ffn")
@@ -132,7 +128,7 @@ class DecoderLayer(nn.Module):
                  activation="relu", normalize_before=False, quant=False):
         super().__init__()
         self.normalize_before = normalize_before
-        self.act = _ACTIVATIONS[activation]
+        self.act = get_activation(activation)
         self.self_attn = _Attention(d_model, nhead, dropout, "plain", generator, quant)
         self.cross_attn = _Attention(d_model, nhead, dropout, "plain", generator, quant)
         self.linear1 = linear(d_model, dim_feedforward, generator, quant)

@@ -20,6 +20,10 @@
   edges.
 * ``affine_warp_bilinear`` — inverse-affine bilinear warp of a batch, one
   (2, 3) output-to-source matrix per image, outside samples zero.
+* ``resize_bicubic_torch`` / ``resize_bilinear_torch`` — feature-map
+  resizes with torch's ``F.interpolate(align_corners=False)`` semantics
+  (half-pixel centres, no antialiasing) as two dense per-axis matmuls
+  whose weights take the input's dtype, as the JAX versions write them.
 """
 from __future__ import annotations
 
@@ -276,3 +280,64 @@ def upsample_bilinear_align_corners(x, scale: int = 2):
     mx = torch.as_tensor(_align_corners_matrix(w, w * scale), device=x.device).to(x.dtype)
     y = torch.einsum("ph,bchw->bcpw", my, x)
     return torch.einsum("qw,bcpw->bcpq", mx, y)
+
+
+def _halfpixel_matrix(n_in: int, n_out: int) -> np.ndarray:
+    """Dense (n_out, n_in) linear-interpolation matrix with half-pixel
+    centres, edge-clamped and without antialiasing (torch ``bilinear``,
+    ``align_corners=False``), weights formed in float64."""
+    pos = np.clip((np.arange(n_out) + 0.5) * n_in / n_out - 0.5, 0.0, n_in - 1)
+    lo = np.minimum(np.floor(pos).astype(np.int64), max(n_in - 2, 0))
+    frac = (pos - lo).astype(np.float32)
+    mat = np.zeros((n_out, n_in), np.float32)
+    rows = np.arange(n_out)
+    mat[rows, lo] = 1.0 - frac
+    mat[rows, np.minimum(lo + 1, n_in - 1)] += frac
+    return mat
+
+
+def _halfpixel_cubic_matrix(n_in: int, n_out: int) -> np.ndarray:
+    """Dense (n_out, n_in) bicubic matrix (a = -0.75) with half-pixel
+    centres, edge-clamped taps and no antialiasing (torch ``bicubic``,
+    ``align_corners=False``), weights formed in float64."""
+    a = -0.75
+
+    def k(d):
+        d = np.abs(d)
+        near = ((a + 2.0) * d - (a + 3.0)) * d * d + 1.0
+        far = ((a * d - 5.0 * a) * d + 8.0 * a) * d - 4.0 * a
+        return np.where(d <= 1.0, near, np.where(d < 2.0, far, 0.0))
+
+    pos = (np.arange(n_out) + 0.5) * n_in / n_out - 0.5
+    base = np.floor(pos).astype(np.int64)
+    frac = pos - base
+    w = np.stack([k(frac + 1.0), k(frac), k(1.0 - frac), k(2.0 - frac)], -1)
+    mat = np.zeros((n_out, n_in), np.float32)
+    for tap in range(4):
+        np.add.at(mat, (np.arange(n_out), np.clip(base - 1 + tap, 0, n_in - 1)),
+                  w[:, tap].astype(np.float32))
+    return mat
+
+
+def _resize(x, my: np.ndarray, mx: np.ndarray):
+    """Y = My @ X @ Mx^T per (batch, channel) plane of an NCHW tensor, the
+    matrices in x's dtype."""
+    my = torch.as_tensor(my, device=x.device).to(x.dtype)
+    mx = torch.as_tensor(mx, device=x.device).to(x.dtype)
+    return torch.einsum("qw,bcpw->bcpq", mx, torch.einsum("ph,bchw->bcpw", my, x))
+
+
+def resize_bicubic_torch(x, out_h: int, out_w: int):
+    """``F.interpolate(mode="bicubic", align_corners=False)`` of an NCHW
+    tensor to (out_h, out_w), as two per-axis matrix products: the RT-DETR
+    PAN's 0.5x downsample. (PyTorch's CUDA bicubic kernel gives each thread
+    one output pixel and loops over batch and channels.)"""
+    _, _, h, w = x.shape
+    return _resize(x, _halfpixel_cubic_matrix(h, out_h), _halfpixel_cubic_matrix(w, out_w))
+
+
+def resize_bilinear_torch(x, out_h: int, out_w: int):
+    """``F.interpolate(mode="bilinear", align_corners=False)`` of an NCHW
+    tensor to (out_h, out_w), as two per-axis matrix products."""
+    _, _, h, w = x.shape
+    return _resize(x, _halfpixel_matrix(h, out_h), _halfpixel_matrix(w, out_w))

@@ -23,9 +23,36 @@ convolution reads with no copy.
 from __future__ import annotations
 
 import os
+import threading
+from contextlib import contextmanager
 
 import torch
 import torch.nn.functional as F
+
+_build = threading.local()
+
+
+@contextmanager
+def quantized_inference():
+    """Models BUILT inside this context make their eval-path convolutions
+    int8: RT-DETR's PResNet ``ConvNorm`` and HybridEncoder
+    ``ConvNormLayer`` become ``QConv``, and its AIFI layer takes
+    ``quant`` (int8 FFN under the ``ffn`` scope). The build-time
+    counterpart of the JAX trace-time toggle, for models whose config has no
+    int8 flag (DETR has ``quantize_int8``). Build the model in float32 and
+    evaluate it under ``torch.autocast``, as any int8 model."""
+    prev = getattr(_build, "on", False)
+    _build.on = True
+    try:
+        yield
+    finally:
+        _build.on = prev
+
+
+def quantization_active() -> bool:
+    """Whether a ``quantized_inference`` context is open in this thread."""
+    return getattr(_build, "on", False)
+
 
 def quant_scope(name: str) -> bool:
     """Whether op family ``name`` runs int8 under the quant flags: ``conv``

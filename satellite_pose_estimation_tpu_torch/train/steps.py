@@ -17,9 +17,15 @@ import torch
 from ..data.augment import AugmentConfig, augment_batch, augment_batch_pallas
 from ..geometry.camera import WORLD_POINTS
 from ..geometry.scoring import speed_score_batch
-from ..geometry.solvers import SolverConfig, solve_pose_simple
+from ..geometry.solvers import (
+    SolverConfig,
+    solve_pose_self_assessed,
+    solve_pose_sigma,
+    solve_pose_simple,
+)
 from ..losses.criterion import CriterionConfig, set_criterion
 from ..models.layers import site_scales, static_scales
+from ..models.postprocess import collect_aux_points
 from ..ops.image_warp import crop_resize_cubic_mxu
 from .ema import ema_update
 from .state import TrainConfig, TrainState, clip_by_global_norm_
@@ -97,15 +103,21 @@ def make_eval_step(criterion_cfg: Optional[CriterionConfig] = None,
     Batch dict: image (B,P,P,3) uint8 canvases, clip_bbox_buf (B,4) crop
     boxes in canvas pixels, clip_bbox (B,4) the same boxes in original
     image pixels, plus quat_gt (B,4) / tvec_gt (B,3) when ground truth is
-    available and landmarks_buf (B,K,2) / labels (B,K) for the eval losses.
-    Returns quat_pr, tvec_pr, valid, points, probs, sigmas (ones),
-    aux_points_<i> (raw aux-layer logits, the JAX eval-log contract), with
-    ground truth score_tvec / score_quat / score, and with ``criterion_cfg``
-    and landmarks ``eval_losses`` (loss_total and the criterion's dict).
+    available, landmarks_buf (B,K,2) / labels (B,K) for the eval losses and,
+    for ``solver="self_assessed"``, bbox_area (B,). Returns quat_pr,
+    tvec_pr, valid, points, probs, sigmas, aux_points_<i> (float32 raw
+    aux-layer logits, the JAX eval-log contract), with ground truth
+    score_tvec / score_quat / score, and with ``criterion_cfg`` and
+    landmarks ``eval_losses`` (loss_total and the criterion's dict).
+
+    ``solver``: "simple" (R1: P3P-RANSAC + pixel LM; sigmas are ones),
+    "sigma" or "self_assessed" (R2, for a model with ``pred_sigmas``:
+    sigmas = exp(pred_sigmas) * (crop extent)^2 in original pixel^2, then
+    ``solve_pose_sigma`` / ``solve_pose_self_assessed``).
 
     Given a ``TrainState``, the step evaluates its model, with
-    ``use_ema`` on the EMA shadow (parameters and buffers) cast to the
-    model's dtype. The model runs in eval mode. ``compute_dtype`` (e.g.
+    ``use_ema`` on the EMA shadow (parameters and buffers, BN running
+    statistics included) cast to the model's dtype. The model runs in eval mode. ``compute_dtype`` (e.g.
     ``torch.bfloat16``) runs it under ``torch.autocast``, as the train
     step does, so a train state's float32 parameters are evaluated in the
     model dtype the JAX eval step uses; None computes in the parameters'
@@ -130,8 +142,8 @@ def make_eval_step(criterion_cfg: Optional[CriterionConfig] = None,
             entry = resolved[model] = (device, site_scales(model, quant, device))
         return static_scales(entry[1])
 
-    if solver != "simple":
-        raise NotImplementedError(f"solver {solver!r} is not ported; only 'simple' is")
+    if solver not in ("simple", "sigma", "self_assessed"):
+        raise ValueError(f"unknown solver {solver!r}")
 
     @torch.inference_mode()
     def eval_step(model_or_state, batch):
@@ -163,17 +175,29 @@ def make_eval_step(criterion_cfg: Optional[CriterionConfig] = None,
         pts_pix = pts * wh[:, None, :] + clip[:, None, 0:2]
 
         world = torch.as_tensor(WORLD_POINTS, dtype=pts_pix.dtype, device=pts.device)
-        quat, tvec, valid = solve_pose_simple(world, pts_pix, probs, solver_cfg)
+        if solver == "simple":
+            quat, tvec, valid = solve_pose_simple(world, pts_pix, probs, solver_cfg)
+            sigmas_pix = torch.ones_like(pts_pix)
+        else:
+            # Sigmas are predicted in normalised crop units: variances scale
+            # to original pixels^2 with the square of the crop extent.
+            sigmas_pix = torch.exp(outputs["pred_sigmas"]) * wh[:, None, :] ** 2
+            if solver == "sigma":
+                quat, tvec, valid = solve_pose_sigma(world, pts_pix, probs, sigmas_pix,
+                                                     solver_cfg)
+            else:
+                quat, tvec, valid = solve_pose_self_assessed(
+                    world, pts_pix, probs, sigmas_pix, batch["bbox_area"], solver_cfg)
         result = {
             "quat_pr": quat,
             "tvec_pr": tvec,
             "valid": valid,
             "points": pts_pix,
             "probs": probs,
-            "sigmas": torch.ones_like(pts_pix),
+            "sigmas": sigmas_pix,
         }
-        for i, aux in enumerate(outputs.get("aux_outputs", [])):
-            result[f"aux_points_{i}"] = aux["pred_logits"]
+        for i, logits in collect_aux_points(outputs):
+            result[f"aux_points_{i}"] = logits
         if "quat_gt" in batch:
             result.update(speed_score_batch(quat, tvec, batch["quat_gt"], batch["tvec_gt"]))
         if criterion_cfg is not None and "landmarks_buf" in batch:

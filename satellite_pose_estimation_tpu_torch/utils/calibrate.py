@@ -1,8 +1,10 @@
 """Static-PTQ calibration: collect each int8 site's activation range
 (counterpart of utils/calibrate.py).
 
-Run a few representative batches through an int8 model; every ``QConv`` /
-``QDense`` records its running max |activation|
+Run a few representative batches through an int8 model (a DETR with
+``quantize_int8``, or an RT-DETR built under
+``ops.quantize.quantized_inference``, as bench.py calibrates it); every
+``QConv`` / ``QDense`` records its running max |activation|
 (``models.layers.calibration``). Feeding the result to
 ``make_eval_step(..., quant=...)`` replaces each per-call max reduction
 with a constant scale.

@@ -18,6 +18,12 @@ names, so each leaf maps by its path; only the layouts change:
   backbone (``nn.BatchNorm2d``) a ``num_batches_tracked`` of 0, which JAX
   does not count.
 
+``flax_rtdetr_to_state_dict(params, batch_stats, freeze_norm)`` does the
+same for ``models.rtdetr.RTDETR``: PResNet's norms are ``FrozenBatchNorm``
+(``freeze_norm``) or ``nn.BatchNorm2d``, the encoder's and decoder's are
+``nn.BatchNorm2d``; the fused RepVgg convs (``conv_fused``, deploy) carry a
+bias.
+
 ``flax_quant_to_port(quant)`` takes the JAX ``quant`` collection of a
 calibrated int8 model (nested dicts of numpy scalars) and returns the
 port's calibration dict (``utils.calibrate.calibrate_act_scales``'s
@@ -74,6 +80,18 @@ def flax_detr_to_state_dict(params: dict, batch_stats: dict | None = None,
         state[".".join(path[:-1] + (name,))] = torch.tensor(x)
         if bn in ("bn", "sync_bn") and name == "running_mean":
             state[".".join(path[:-1] + ("num_batches_tracked",))] = torch.tensor(0)
+    return state
+
+
+def flax_rtdetr_to_state_dict(params: dict, batch_stats: dict | None = None,
+                              freeze_norm: bool = True) -> dict:
+    """JAX RT-DETR ``params`` / ``batch_stats`` (nested dicts of numpy
+    arrays) -> the port's ``state_dict`` (CPU tensors of the arrays'
+    dtypes). ``freeze_norm`` is the model's ``RTDETRConfig.freeze_norm``."""
+    state = flax_detr_to_state_dict(params, batch_stats)
+    for key in list(state):
+        if key.endswith(".running_mean") and not (freeze_norm and key.startswith("backbone.")):
+            state[key[:-len("running_mean")] + "num_batches_tracked"] = torch.tensor(0)
     return state
 
 

@@ -31,6 +31,26 @@ def randomize_frozen_bn(params, stats, rng):
             randomize_frozen_bn(params[key], sub, rng)
 
 
+def randomize_norms(model, rng):
+    """Non-trivial statistics and affines for every norm of a port model
+    (FrozenBatchNorm, BatchNorm2d; GroupNorm's affines), in place, so the
+    converter's mapping of each is tested."""
+    import torch
+
+    from satellite_pose_estimation_tpu_torch.models.layers import FrozenBatchNorm
+
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (FrozenBatchNorm, torch.nn.BatchNorm2d)):
+                n = m.running_mean.shape
+                m.running_mean.copy_(torch.from_numpy(rng.normal(0.0, 0.1, n)))
+                m.running_var.copy_(torch.from_numpy(rng.uniform(0.5, 1.5, n)))
+            if isinstance(m, (FrozenBatchNorm, torch.nn.BatchNorm2d, torch.nn.GroupNorm)):
+                n = m.weight.shape
+                m.weight.copy_(torch.from_numpy(rng.uniform(0.5, 1.0, n)))
+                m.bias.copy_(torch.from_numpy(rng.normal(0.0, 0.1, n)))
+
+
 def variables(params, stats):
     return {"params": params, "batch_stats": stats} if stats else {"params": params}
 
@@ -67,3 +87,33 @@ def port_to_flax(jmodel, state_dict, *args, bn="frozen_bn", **kwargs):
     assert not np.isnan(flat).any()
     out = [flat[s:s + n].reshape(leaf.shape) for s, n, leaf in zip(starts, sizes, leaves)]
     return numpy_tree(jax.tree_util.tree_unflatten(treedef, out))
+
+
+def poses(rng, n):
+    """``n`` random unit quaternions and translations 6-15 m ahead, float32."""
+    q = rng.randn(n, 4)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    t = np.stack([rng.uniform(-1, 1, n), rng.uniform(-1, 1, n),
+                  rng.uniform(6, 15, n)], axis=1)
+    return q.astype(np.float32), t.astype(np.float32)
+
+
+def project_tango(q, t):
+    """The Tango world points through poses (q, t) and the SPEED camera:
+    (n, 11, 2) float64 pixels."""
+    import torch
+
+    from satellite_pose_estimation_tpu_torch.geometry.camera import WORLD_POINTS, Camera
+    from satellite_pose_estimation_tpu_torch.geometry.rotations import quat_to_rotmat
+
+    R = quat_to_rotmat(torch.from_numpy(q).double()).numpy()
+    pc = WORLD_POINTS[None] @ R.transpose(0, 2, 1) + t[:, None]
+    K = Camera.K
+    return np.stack([K[0, 0] * pc[..., 0] / pc[..., 2] + K[0, 2],
+                     K[1, 1] * pc[..., 1] / pc[..., 2] + K[1, 2]], axis=-1)
+
+
+def quat_angle(qa, qb):
+    """The rotation angle between unit quaternions (rad, float64)."""
+    dot = np.abs(np.sum(qa.astype(np.float64) * qb, axis=-1))
+    return 2.0 * np.arccos(np.minimum(dot, 1.0))

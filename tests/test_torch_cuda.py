@@ -3,7 +3,10 @@ K2, its backward; K3, the rotation; K4, the fused photometric chain; K5,
 flash attention forward and backward) against its plain PyTorch version,
 the model builders' default device, the bf16 eval of a train state, and
 the int8 path (cuBLASLt's int8 GEMMs bit for bit against the CPU's, the
-int8 DETR and its calibration against the CPU, K1 in the int8 eval step).
+int8 DETR and its calibration against the CPU, K1 in the int8 eval step),
+and the RT-DETR eval path (K1 on its AIFI layer at 512, the model, the
+deformable sampling, the query selection, the sigma solvers and the int8
+RT-DETR against the CPU).
 These tests need a CUDA device and skip without one. The file imports no
 JAX, so on a machine without JAX it runs on its own:
 
@@ -12,6 +15,12 @@ JAX, so on a machine without JAX it runs on its own:
 import pytest
 import torch
 
+from satellite_pose_estimation_tpu_torch.geometry import solvers
+from satellite_pose_estimation_tpu_torch.geometry.camera import WORLD_POINTS, Camera
+from satellite_pose_estimation_tpu_torch.geometry.projection import project_points
+from satellite_pose_estimation_tpu_torch.geometry.rotations import quat_to_rotmat
+from satellite_pose_estimation_tpu_torch.geometry.scoring import speed_score_batch
+from satellite_pose_estimation_tpu_torch.models import layers
 from satellite_pose_estimation_tpu_torch.models.detr import (
     DETRConfig,
     build_detr_model,
@@ -21,7 +30,10 @@ from satellite_pose_estimation_tpu_torch.ops import fused_attention as fa
 from satellite_pose_estimation_tpu_torch.ops import flash_attention as fl
 from satellite_pose_estimation_tpu_torch.models.layers import QConv, QDense
 from satellite_pose_estimation_tpu_torch.ops import image_warp, pallas_augment, pallas_rotate
+from satellite_pose_estimation_tpu_torch.models.rtdetr import RTDETRConfig, build_rtdetr_model
 from satellite_pose_estimation_tpu_torch.ops import quantize as tq
+from satellite_pose_estimation_tpu_torch.ops.deform_attn import deformable_attention_core
+from satellite_pose_estimation_tpu_torch.ops.topk import topk
 from satellite_pose_estimation_tpu_torch.ops.precision import highest_precision
 from satellite_pose_estimation_tpu_torch.train.state import TrainConfig, create_train_state
 from satellite_pose_estimation_tpu_torch.train.steps import make_eval_step
@@ -644,3 +656,160 @@ def test_cuda_int8_eval_step_runs_k1_once_per_encoder_layer(cuda_device):
     torch.cuda.synchronize()
     assert fa.launch_count - before == 4
     assert all(torch.isfinite(v).all() for v in out.values() if v.is_floating_point())
+
+
+# -- RT-DETR -------------------------------------------------------------------
+
+RT_SIZES = dict(depth=18, hidden_dim=64, nhead=2, dim_feedforward=128, num_queries=12,
+                num_decoder_layers=2, expansion=0.5)
+
+
+def _rt_batch(dev, n, pack, box):
+    g = torch.Generator(device=dev).manual_seed(21)
+    return {"image": torch.randint(0, 256, (n, pack, pack, 3), generator=g, device=dev,
+                                   dtype=torch.uint8),
+            "clip_bbox_buf": torch.tensor([box], device=dev).repeat(n, 1),
+            "clip_bbox": torch.tensor([[700.0, 400.0, 1100.0, 800.0]], device=dev).repeat(n, 1),
+            "bbox_area": torch.full((n,), 160000.0, device=dev)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size,launches", [(512, 1), (256, 0)])
+def test_cuda_rtdetr_eval_runs_k1_on_the_aifi_layer_from_512(cuda_device, size, launches):
+    """bf16 RT-DETR: at 512 the AIFI level has 16 x 16 tokens and K1 runs
+    once a step; at 256 (8 x 8) the plain core does."""
+    model = build_rtdetr_model(RTDETRConfig(**RT_SIZES), seed=0, device=cuda_device,
+                               dtype=torch.bfloat16)
+    batch = _rt_batch(cuda_device, 2, size + 16, [8.0, 8.0, size + 8.0, size + 8.0])
+    fa.launch_count = 0
+    for solver in ("sigma", "self_assessed"):
+        res = make_eval_step(out_size=size, solver=solver)(model, batch)
+        for key, val in res.items():
+            if val.is_floating_point():
+                assert torch.isfinite(val).all(), key
+    assert fa.launch_count == 2 * launches
+
+
+@pytest.mark.cuda
+def test_cuda_rtdetr_float32_matches_the_cpu(cuda_device):
+    cfg = RTDETRConfig(**RT_SIZES, freeze_norm=False)
+    x = torch.randn(2, 64, 64, 3, generator=torch.Generator().manual_seed(22))
+    with torch.inference_mode(), highest_precision():
+        out = build_rtdetr_model(cfg, seed=1, device=cuda_device)(x.to(cuda_device))
+        ref = build_rtdetr_model(cfg, seed=1, device="cpu")(x)
+    for key in ("pred_logits", "pred_points", "pred_sigmas"):
+        torch.testing.assert_close(out[key].cpu(), ref[key], rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_deformable_core_matches_the_cpu(cuda_device, dtype):
+    g = torch.Generator().manual_seed(23)
+    shapes = [(64, 64), (32, 32), (16, 16)]
+    value = torch.randn(2, sum(h * w for h, w in shapes), 8, 32, generator=g).to(dtype)
+    loc = torch.rand(2, 30, 8, 3, 4, 2, generator=g) * 1.4 - 0.2
+    attw = torch.softmax(torch.randn(2, 30, 8, 12, generator=g), -1).reshape(2, 30, 8, 3, 4)
+    with highest_precision():
+        out = deformable_attention_core(value.to(cuda_device), shapes, loc.to(cuda_device),
+                                        attw.to(cuda_device))
+    ref = deformable_attention_core(value, shapes, loc, attw)
+    assert out.dtype == dtype
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(out.cpu().float(), ref.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_cuda_topk_resolves_ties_as_the_cpu(cuda_device):
+    scores = torch.randint(0, 7, (4, 5376), generator=torch.Generator().manual_seed(24)) * 0.25
+    for dtype in (torch.float32, torch.bfloat16):
+        vals, idx = topk(scores.to(cuda_device, dtype), 30)
+        ref_vals, ref_idx = topk(scores.to(dtype), 30)
+        assert torch.equal(idx.cpu(), ref_idx) and torch.equal(vals.cpu(), ref_vals)
+
+
+@pytest.mark.cuda
+def test_cuda_sigma_solvers_agree_with_the_cpu(cuda_device):
+    g = torch.Generator().manual_seed(25)
+    n = 32
+    quat = torch.nn.functional.normalize(torch.randn(n, 4, generator=g), dim=-1)
+    tvec = torch.stack([torch.rand(n, generator=g) - 0.5, torch.rand(n, generator=g) - 0.5,
+                        6 + 6 * torch.rand(n, generator=g)], -1)
+    world = torch.tensor(WORLD_POINTS, dtype=torch.float32)
+    pix, _ = project_points(world, Camera.K_torch(), quat_to_rotmat(quat), tvec)
+    points = torch.zeros(n, 16, 2)
+    points[:, :11] = pix + torch.randn(pix.shape, generator=g)
+    probs = torch.full((n, 16, 12), 0.01)
+    probs[:, torch.arange(11), torch.arange(11)] = 0.9
+    probs[:, 11:, 11] = 0.9
+    sigmas = 0.5 + 3.5 * torch.rand(n, 16, 2, generator=g)
+    area = torch.full((n,), 90000.0)
+    for fn, args in ((solvers.solve_pose_sigma, (points, probs, sigmas)),
+                     (solvers.solve_pose_self_assessed, (points, probs, sigmas, area))):
+        q_gpu, t_gpu, v_gpu = fn(world.to(cuda_device), *(a.to(cuda_device) for a in args))
+        q_cpu, t_cpu, v_cpu = fn(world, *args)
+        assert torch.equal(v_gpu.cpu(), v_cpu) and v_cpu.all()
+        score = speed_score_batch(q_gpu.cpu(), t_gpu.cpu(), quat, tvec)["score"]
+        assert score.mean().item() < 1e-2
+        if fn is solvers.solve_pose_sigma:  # no EPnP: no eigenvector signs in the way
+            agree = speed_score_batch(q_gpu.cpu(), t_gpu.cpu(), q_cpu, t_cpu)["score"]
+            assert agree.max().item() < 5e-3
+
+
+@pytest.mark.cuda
+def test_cuda_self_assessed_solver_takes_images_without_keypoints(cuda_device):
+    """No foreground query (no valid point) or two: a zero pose marked
+    invalid, no error and nothing non-finite (EPnP raised on such images
+    on the card before it solved them on all their points)."""
+    world = torch.tensor(WORLD_POINTS, dtype=torch.float32, device=cuda_device)
+    points = torch.rand(3, 16, 2, generator=torch.Generator().manual_seed(26)).to(cuda_device)
+    probs = torch.full((3, 16, 12), 0.01, device=cuda_device)
+    probs[..., 11] = 0.9  # every query background
+    probs[1, 0, 0] = probs[1, 1, 1] = 0.95  # two keypoints
+    probs[2, torch.arange(11), torch.arange(11)] = 0.95  # eleven
+    sigmas = torch.ones(3, 16, 2, device=cuda_device)
+    q, t, valid = solvers.solve_pose_self_assessed(world, points * 1000.0, probs, sigmas,
+                                                   torch.full((3,), 9e4, device=cuda_device))
+    assert valid.tolist() == [False, False, True]
+    assert torch.isfinite(q).all() and torch.isfinite(t).all()
+    assert not q[:2].any() and not t[:2].any()
+
+
+@pytest.mark.cuda
+def test_cuda_int8_rtdetr_quantizes_each_site_with_the_cpus_scale(cuda_device):
+    """Built under ``quantized_inference`` and calibrated on the card, the
+    int8 RT-DETR runs every site on the same static scale as the CPU's
+    model, site by site in the same order."""
+    cfg = RTDETRConfig(**RT_SIZES)
+    with tq.quantized_inference():
+        model = build_rtdetr_model(cfg, seed=2, device=cuda_device)
+        cpu = build_rtdetr_model(cfg, seed=2, device="cpu")
+    batch = _rt_batch(cuda_device, 2, 80, [4.0, 4.0, 76.0, 76.0])
+    warp = image_warp.crop_resize_cubic_mxu(batch["image"], batch["clip_bbox_buf"], 64, True)
+    quant = calibrate_act_scales(model, [warp], compute_dtype=torch.bfloat16)
+    assert set(quant) == set(layers.int8_sites(model))
+    scales = []
+    real = tq._act_quantize
+
+    def spy(x, scale=None):
+        q, sc = real(x, scale)
+        scales.append(sc.cpu())
+        return q, sc
+
+    tq._act_quantize = spy
+    try:
+        with highest_precision():
+            make_eval_step(out_size=64, solver="sigma", quant=quant)(model, batch)
+            make_eval_step(out_size=64, solver="sigma",
+                           quant={k: v.cpu() for k, v in quant.items()})(
+                cpu, {k: v.cpu() for k, v in batch.items()})
+    finally:
+        tq._act_quantize = real
+    n = len(quant)
+    assert len(scales) == 2 * n
+    assert all(torch.equal(a, b) for a, b in zip(scales[:n], scales[n:]))
+
+
+@pytest.mark.cuda
+def test_cuda_rtdetr_builder_puts_the_model_on_the_card_by_default(cuda_device):
+    model = build_rtdetr_model(RTDETRConfig(**RT_SIZES))
+    assert all(p.device.type == "cuda" for p in model.parameters())

@@ -34,7 +34,7 @@ from satellite_pose_estimation_tpu_torch.utils.checkpoint_convert import (
     flax_detr_to_state_dict,
 )
 
-from _torch_parity import port_to_flax
+from _torch_parity import port_to_flax, randomize_norms
 
 SIZES = dict(hidden_dim=32, nheads=4, enc_layers=1, dec_layers=2, dim_feedforward=64,
              num_queries=20, dropout=0.0)
@@ -58,26 +58,10 @@ CONFIGS = {
 }
 
 
-def _randomize_norms(model, rng):
-    """Non-trivial statistics and affines for every backbone norm (in
-    place), so the converter's mapping of each is tested."""
-    with torch.no_grad():
-        for m in model.modules():
-            if isinstance(m, (layers.FrozenBatchNorm, torch.nn.BatchNorm2d)):
-                n = m.running_mean.shape
-                m.running_mean.copy_(torch.from_numpy(rng.normal(0.0, 0.1, n)))
-                m.running_var.copy_(torch.from_numpy(rng.uniform(0.5, 1.5, n)))
-            if isinstance(m, (layers.FrozenBatchNorm, torch.nn.BatchNorm2d,
-                              torch.nn.GroupNorm)):
-                n = m.weight.shape
-                m.weight.copy_(torch.from_numpy(rng.uniform(0.5, 1.0, n)))
-                m.bias.copy_(torch.from_numpy(rng.normal(0.0, 0.1, n)))
-
-
 def _pair(cfg):
     """(JAX model, its variables, the port model loaded from them)."""
     source = build_detr_model(DETRConfig(**cfg), seed=0, device="cpu")
-    _randomize_norms(source, np.random.RandomState(0))
+    randomize_norms(source, np.random.RandomState(0))
     jmodel = JaxDETR(JaxDETRConfig(**cfg))
     jvars = port_to_flax(jmodel, source.state_dict(), jnp.zeros((1, INPUT, INPUT, 3)),
                          bn=cfg.get("bn", "frozen_bn"), train=False)

@@ -20,28 +20,9 @@ from satellite_pose_estimation_tpu_torch.geometry import scoring as tscore
 from satellite_pose_estimation_tpu_torch.geometry import solvers as tsolv
 from satellite_pose_estimation_tpu_torch.geometry.camera import WORLD_POINTS, Camera
 
+from _torch_parity import poses, project_tango, quat_angle
+
 F32 = np.float32
-
-
-def _poses(rng, n):
-    q = rng.randn(n, 4)
-    q /= np.linalg.norm(q, axis=1, keepdims=True)
-    t = np.stack([rng.uniform(-1, 1, n), rng.uniform(-1, 1, n),
-                  rng.uniform(6, 15, n)], axis=1)
-    return q.astype(F32), t.astype(F32)
-
-
-def _project(q, t):
-    R = trot.quat_to_rotmat(torch.from_numpy(q).double()).numpy()
-    pc = WORLD_POINTS[None] @ R.transpose(0, 2, 1) + t[:, None]
-    K = Camera.K
-    return np.stack([K[0, 0] * pc[..., 0] / pc[..., 2] + K[0, 2],
-                     K[1, 1] * pc[..., 1] / pc[..., 2] + K[1, 2]], axis=-1)
-
-
-def _angle(qa, qb):
-    dot = np.abs(np.sum(qa.astype(np.float64) * qb, axis=-1))
-    return 2.0 * np.arccos(np.minimum(dot, 1.0))
 
 
 def test_rotations_match_jax():
@@ -67,7 +48,7 @@ def test_rotations_match_jax():
 
 def test_project_points_matches_jax():
     rng = np.random.RandomState(1)
-    q, t = _poses(rng, 4)
+    q, t = poses(rng, 4)
     R = trot.quat_to_rotmat(torch.from_numpy(q))
     K = Camera.K.astype(F32)
     uv_t, z_t = tproj.project_points(torch.from_numpy(WORLD_POINTS.astype(F32)),
@@ -85,9 +66,9 @@ def test_p3p_candidates_match_jax_in_float64():
     triple has a candidate at the true pose. (In float32 a close triple is
     ill-conditioned in both versions; the whole solver is compared below.)"""
     rng = np.random.RandomState(2)
-    q, t = _poses(rng, 8)
+    q, t = poses(rng, 8)
     q, t = q.astype(np.float64), t.astype(np.float64)
-    pix = _project(q, t)
+    pix = project_tango(q, t)
     R_true = trot.quat_to_rotmat(torch.from_numpy(q)).numpy()
     for tri in [(0, 1, 2), (3, 5, 9), (2, 7, 10), (1, 4, 8)]:
         w3 = WORLD_POINTS[list(tri)]
@@ -111,7 +92,7 @@ def test_select_keypoints_ties_and_background_match_jax():
     probs[0, 4, 11] = 0.9  # background query
     probs[0, 5, 7] = 0.3
     points = np.arange(12, dtype=F32).reshape(1, 6, 2)
-    kp_t, mask_t = tsolv.select_keypoints(torch.from_numpy(points), torch.from_numpy(probs))
+    kp_t, mask_t, _ = tsolv.select_keypoints(torch.from_numpy(points), torch.from_numpy(probs))
     kp_j, mask_j, _ = jsolv.select_keypoints(jnp.asarray(points[0]), jnp.asarray(probs[0]))
     np.testing.assert_array_equal(mask_t[0].numpy(), np.asarray(mask_j))
     np.testing.assert_array_equal(kp_t[0].numpy(), np.asarray(kp_j))
@@ -131,8 +112,8 @@ def _keypoint_batch(seed, n=6, Q=20):
     keypoint 5 is never predicted (masked), keypoint 3 is an 80 px
     outlier, and the last queries are background."""
     rng = np.random.RandomState(seed)
-    q, t = _poses(rng, n)
-    pix = _project(q, t) + rng.randn(n, 11, 2)
+    q, t = poses(rng, n)
+    pix = project_tango(q, t) + rng.randn(n, 11, 2)
     pix[:, 3] += 80.0
     points = rng.uniform(0, 1900, (n, Q, 2))
     probs = np.full((n, Q, 12), 0.01)
@@ -160,7 +141,7 @@ def test_solve_pose_simple_and_score_match_jax():
     np.testing.assert_array_equal(tt[-1].numpy(), 0.0)
     # float32 port against the JAX reference (which solves P3P in float64
     # here): the same pose to 2e-3 rad and 1e-4 relative translation.
-    assert np.all(_angle(qt[:-1].numpy(), np.asarray(qj)[:-1]) < 2e-3)
+    assert np.all(quat_angle(qt[:-1].numpy(), np.asarray(qj)[:-1]) < 2e-3)
     rel_t = (np.linalg.norm(tt.numpy()[:-1] - np.asarray(tj)[:-1], axis=-1)
              / np.linalg.norm(t[:-1], axis=-1))
     assert np.all(rel_t < 1e-4)

@@ -151,6 +151,47 @@ assert not loaded, loaded
 print("OK", len(quant))
 """
 
+_TINY_RTDETR = r"""
+import sys
+for name in ("jax", "jaxlib", "flax", "optax", "satellite_pose_estimation_tpu"):
+    sys.modules[name] = None  # any import of these now raises ImportError
+
+import torch
+from satellite_pose_estimation_tpu_torch.models.rtdetr import RTDETRConfig, build_rtdetr_model
+from satellite_pose_estimation_tpu_torch.ops.image_warp import crop_resize_cubic_mxu
+from satellite_pose_estimation_tpu_torch.ops.quantize import quantized_inference
+from satellite_pose_estimation_tpu_torch.train.steps import make_eval_step
+from satellite_pose_estimation_tpu_torch.utils.calibrate import calibrate_act_scales
+
+cfg = RTDETRConfig(depth=18, hidden_dim=64, nhead=2, dim_feedforward=128, num_queries=12,
+                   num_decoder_layers=2, expansion=0.5)
+model = build_rtdetr_model(cfg, seed=0, device="cpu")
+g = torch.Generator().manual_seed(0)
+batch = {
+    "image": torch.randint(0, 256, (2, 80, 80, 3), generator=g, dtype=torch.uint8),
+    "clip_bbox_buf": torch.tensor([[4.0, 4.0, 76.0, 76.0]] * 2),
+    "clip_bbox": torch.tensor([[700.0, 400.0, 1100.0, 800.0]] * 2),
+    "quat_gt": torch.tensor([[1.0, 0.0, 0.0, 0.0]] * 2),
+    "tvec_gt": torch.tensor([[0.0, 0.0, 12.0]] * 2),
+    "bbox_area": torch.tensor([40000.0, 90000.0]),
+}
+for solver in ("sigma", "self_assessed"):
+    res = make_eval_step(out_size=64, solver=solver)(model, batch)
+    assert res["quat_pr"].shape == (2, 4) and torch.isfinite(res["score"]).all()
+    assert torch.isfinite(res["sigmas"]).all()
+with quantized_inference():
+    model8 = build_rtdetr_model(cfg, seed=0, device="cpu")
+quant = calibrate_act_scales(
+    model8, [crop_resize_cubic_mxu(batch["image"], batch["clip_bbox_buf"], 64, True)])
+res = make_eval_step(out_size=64, solver="sigma", quant=quant)(model8, batch)
+assert torch.isfinite(res["probs"]).all()
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "flax", "satellite_pose_estimation_tpu")
+                and sys.modules[m] is not None)
+assert not loaded, loaded
+print("OK", len(quant))
+"""
+
 
 def test_port_runs_an_eval_step_with_jax_blocked():
     proc = subprocess.run([sys.executable, "-c", _TINY_EVAL], cwd=ROOT,
@@ -177,6 +218,15 @@ def test_port_runs_the_kernel_routes_with_jax_blocked():
 
 def test_port_calibrates_and_runs_an_int8_eval_step_with_jax_blocked():
     proc = subprocess.run([sys.executable, "-c", _TINY_INT8], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.startswith("OK")
+
+
+def test_port_runs_rtdetr_sigma_eval_steps_with_jax_blocked():
+    """A tiny RT-DETR through the sigma and self-assessed eval steps, and its
+    int8 build under ``quantized_inference`` calibrated and evaluated."""
+    proc = subprocess.run([sys.executable, "-c", _TINY_RTDETR], cwd=ROOT,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.startswith("OK")
