@@ -8,7 +8,7 @@ target). It builds the port's CUDA kernels from ``satellite_pose_estimation
 _tpu_torch/csrc`` with nvcc (K1, the fused attention forward; K2, its
 backward; K3, the rotation; K4, the fused photometric chain; K5, flash
 attention -- one nvcc per source, all started together), then runs
-fifteen phases and exits non-zero if any fails:
+seventeen phases and exits non-zero if any fails:
 
 1. the card's name and power limit, the kernel build time, and each
    kernel's registers, shared memory and spills (ptxas's own lines);
@@ -99,7 +99,31 @@ fifteen phases and exits non-zero if any fails:
    bf16 rates of the same weights with their model / backbone /
    backbone + encoder spans, and the
    float32 int8 model on the card against the CPU, each site with the
-   same static scale in the same order.
+   same static scale in the same order;
+16. the R2 recipe's RT-DETR train step (configs/speed/
+   rtdetr_r50vd_kl_1_512.yml at full width: trainable BatchNorm, the
+   ``points_uncert`` criterion with the sigmoid-cost matcher, the registry
+   AdamW's three regex groups, clip 0.1, EMA; float32 parameters under
+   bf16 autocast) at 512, batch 16: each group at the YAML's lr and weight
+   decay, K1 and K2 launched once a step on bf16 (16, 8, 256, 32) and no
+   other kernel, finite losses, every BatchNorm running statistic moved,
+   the loss falling over 10 steps on one fixed batch, and the float32
+   gradients of a batch-2 step on the card (K1 + K2, TF32 off) on the
+   card's selected tokens: with BatchNorm on its running statistics
+   against the CPU's, and through batch statistics against the CPU's
+   float64 gradients, within twice the CPU float32's distance; K2 against
+   its plain version at the AIFI shape, bf16 and
+   float32; the train rate (median, min and max of 3 windows) with stage
+   spans and peak memory, K2's time beside its plain version, SDPA's
+   backward and its bound, and one bf16 eval step of the train state's
+   EMA (K1 once);
+17. the same model with CDN (num_denoising 100: 198 dn queries in 9
+   groups): every dn loss finite, the label table trained, and in float32
+   the matching queries' outputs equal to a num_denoising = 0 twin's; then
+   bench.py's RT-DETR train shape (``RTDETRConfig(depth=50,
+   expansion=0.5)``, FrozenBN, at 256, batch 256, or the largest power of
+   two that fits): no K1 / K2 launch, the FrozenBN buffers untouched, the
+   rate, spans and peak memory.
 
 K1, K2 and K5 are held to their plain versions by two gates per output:
 the largest error within 1e-5 (float32) or 2e-2 (bf16) times 1 + the
@@ -116,6 +140,7 @@ prints no result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
@@ -124,6 +149,65 @@ import sys
 import textwrap
 import time
 from concurrent.futures import ThreadPoolExecutor
+
+
+# The R2 recipe configs/speed/rtdetr_r50vd_kl_1_512.yml as literals (the
+# card's machine has no PyYAML): its two includes as parsed, and the leaf's
+# loss, batch and input. tests/test_torch_optim.py holds them equal to the
+# files and recipe_configs() to what the JAX package's YAML loader builds.
+RECIPE_OPTIMIZER_YML = {
+    "use_ema": True,
+    "ema": {"decay": 0.9999, "warmups": 2000},
+    "optimizer": {
+        "type": "AdamW", "lr": 0.0003, "betas": [0.9, 0.999], "weight_decay": 0.0001,
+        "params": [
+            {"params": "^(?=.*backbone)(?=.*norm).*$", "lr": 0.00003, "weight_decay": 0.0},
+            {"params": "^(?=.*backbone)(?!.*norm).*$", "lr": 0.00003},
+            {"params": "^(?=.*(?:encoder|decoder))(?=.*(?:norm|bias)).*$", "weight_decay": 0.0},
+        ],
+    },
+    "lr_scheduler": {"type": "MultiStepLR", "milestones": [1000], "gamma": 0.1},
+    "clip_max_norm": 0.1,
+    "epoches": 96,
+    "checkpoint_step": 12,
+    "log_step": 20,
+}
+RECIPE_MODEL_YML = {
+    "model": "RTDETR",
+    "use_focal_loss": True,
+    "PResNet": {"depth": 50, "variant": "d", "return_idx": [1, 2, 3], "freeze_norm": False},
+    "HybridEncoder": {"hidden_dim": 256, "nhead": 8, "dim_feedforward": 1024,
+                      "expansion": 0.5},
+    "RTDETRTransformer": {"num_queries": 30, "num_decoder_layers": 3, "num_denoising": 0},
+    "SetCriterion": {
+        "weight_dict": {"loss_ce": 1, "loss_bbox": 5},
+        "losses": ["labels", "points"],
+        "eos_coef": 0.0001,
+        "matcher": {"type": "HungarianMatcher", "weight_dict": {"cost_class": 2, "cost_bbox": 5}},
+    },
+}
+RECIPE_LOSSES, RECIPE_BATCH, RECIPE_INPUT = ["labels", "points_uncert"], 16, 512
+# bench.py's RT-DETR train shape (BENCH_ARCH=rtdetr BENCH_MODE=train).
+BENCH_RTDETR_INPUT, BENCH_RTDETR_BATCH = 256, 256
+
+
+def recipe_configs():
+    """The recipe's ``RTDETRConfig`` and ``CriterionConfig`` keyword
+    arguments, read as the JAX package's YAML loader reads them."""
+    m = RECIPE_MODEL_YML
+    p, h, t, s = m["PResNet"], m["HybridEncoder"], m["RTDETRTransformer"], m["SetCriterion"]
+    model = dict(depth=p["depth"], variant=p["variant"], return_idx=tuple(p["return_idx"]),
+                 freeze_norm=p["freeze_norm"], hidden_dim=h["hidden_dim"], nhead=h["nhead"],
+                 dim_feedforward=h["dim_feedforward"], expansion=float(h["expansion"]),
+                 num_queries=t["num_queries"], num_decoder_layers=t["num_decoder_layers"],
+                 num_denoising=t["num_denoising"])
+    costs = s["matcher"]["weight_dict"]
+    criterion = dict(point_loss="uncert" if "points_uncert" in RECIPE_LOSSES else "l1",
+                     use_focal=bool(m["use_focal_loss"]), eos_coef=float(s["eos_coef"]),
+                     cost_class=float(costs["cost_class"]), cost_pts=float(costs["cost_bbox"]),
+                     weight_ce=float(s["weight_dict"]["loss_ce"]),
+                     weight_points=float(s["weight_dict"]["loss_bbox"]))
+    return model, criterion
 
 
 def log(*args):
@@ -274,6 +358,21 @@ def k3_device_launches():
     return json.loads(out.stdout.strip().splitlines()[-1])
 
 
+def grad_gap(got, ref):
+    """Two gradient dicts (name -> tensor on the CPU): the global relative
+    L2 error of ``got`` and the three worst tensors' max error over
+    max(|ref| of the tensor, 1e-4 of the largest gradient anywhere), the
+    floor because some gradients are exactly zero (the attention key
+    biases': a constant added to a row's scores leaves its softmax
+    unchanged), so theirs is rounding noise. Returns (rel, [(err, name)])."""
+    num = sum(float((got[n] - r).double().pow(2).sum()) for n, r in ref.items())
+    den = sum(float(r.double().pow(2).sum()) for r in ref.values())
+    floor = 1e-4 * max(r.abs().max().item() for r in ref.values())
+    worst = sorted(((max_err(got[n], r) / max(r.abs().max().item(), floor), n)
+                    for n, r in ref.items()), reverse=True)[:3]
+    return (num / den) ** 0.5, worst
+
+
 def stage_spans(torch, step, state, batches, gen):
     """Median ms between the train step's stage ends (CUDA events), one
     step per batch, as a printable line."""
@@ -353,11 +452,12 @@ def eval_batch(torch, dev, n, gen, pack=256):
     }
 
 
-def train_batch(torch, dev, n, gen, pack=256):
-    """A train batch of ``n`` random 256 x 256 uint8 canvases with crop
-    boxes of 200-231 px and 11 landmarks inside them."""
+def train_batch(torch, dev, n, gen, pack=256, side=200):
+    """A train batch of ``n`` random ``pack`` x ``pack`` uint8 canvases with
+    crop boxes of ``side`` to ``side`` + 31 px and 11 landmarks inside
+    them."""
     off = torch.randint(0, 24, (n, 2), generator=gen, device=dev).float()
-    side = 200.0 + torch.randint(0, 32, (n, 1), generator=gen, device=dev).float()
+    side = side + torch.randint(0, 32, (n, 1), generator=gen, device=dev).float()
     bb = torch.cat([off, off + side], dim=1)
     lm = bb[:, None, :2] + torch.rand(n, 11, 2, generator=gen, device=dev) * side[:, None]
     return {"image": torch.randint(0, 256, (n, pack, pack, 3), generator=gen, device=dev,
@@ -579,6 +679,7 @@ def main() -> int:
     routes = route_phases(torch, card, dev, g, sm_scale)
     int8 = int8_phases(torch, card, dev, g)
     rtdetr = rtdetr_phases(torch, card, dev, g, sm_scale)
+    rt_train = rtdetr_train_phases(torch, card, dev, g, sm_scale)
 
     log(json.dumps({"kernels": [{
         "name": "fused_attention",
@@ -586,13 +687,18 @@ def main() -> int:
         "source": "satellite_pose_estimation_tpu_torch/csrc/fused_attention.cu",
         "replaces": "satellite_pose_estimation_tpu/ops/fused_attention.py:31",
         "launches": (main_path_launches + train["k1_launches"] + train["k1_eval_bf16_launches"]
-                     + routes["b"]["k1"] + int8["k1"] + rtdetr["k1"]),
+                     + routes["b"]["k1"] + int8["k1"] + rtdetr["k1"]
+                     + sum(rt_train[p]["k1"] for p in ("train", "eval", "cdn", "bench"))),
         "launches_by_path": {"eval": main_path_launches, "train": train["k1_launches"],
                              "train_state_eval_bf16": train["k1_eval_bf16_launches"],
                              "train_pallas_augment": routes["b"]["k1"],
                              "eval_int8_static": int8["k1"],
                              "rtdetr_eval_512": rtdetr["k1"],
-                             "rtdetr_eval_int8_static_256": 0},
+                             "rtdetr_eval_int8_static_256": 0,
+                             "rtdetr_train_512": rt_train["train"]["k1"],
+                             "rtdetr_train_state_eval_512": rt_train["eval"]["k1"],
+                             "rtdetr_train_cdn_512": rt_train["cdn"]["k1"],
+                             "rtdetr_train_256": rt_train["bench"]["k1"]},
         "max_abs_err": k1_err,
         **k1_times,
         "rtdetr_aifi": {"shape": [64, 8, 256, 32], "dtype": "bfloat16", **rtdetr["aifi"]},
@@ -601,11 +707,17 @@ def main() -> int:
         "route": "cuda",
         "source": "satellite_pose_estimation_tpu_torch/csrc/fused_attention_bwd.cu",
         "replaces": "satellite_pose_estimation_tpu/ops/fused_attention.py:141",
-        "launches": train["k2_launches"] + routes["b"]["k2"],
+        "launches": (train["k2_launches"] + routes["b"]["k2"]
+                     + sum(rt_train[p]["k2"] for p in ("train", "cdn", "bench"))),
         "launches_by_path": {"train": train["k2_launches"],
-                             "train_pallas_augment": routes["b"]["k2"]},
+                             "train_pallas_augment": routes["b"]["k2"],
+                             "rtdetr_train_512": rt_train["train"]["k2"],
+                             "rtdetr_train_cdn_512": rt_train["cdn"]["k2"],
+                             "rtdetr_train_256": rt_train["bench"]["k2"]},
         "max_abs_err": train["k2_err"],
         **train["k2_times"],
+        "rtdetr_aifi": {"shape": [RECIPE_BATCH, 8, 256, 32], "dtype": "bfloat16",
+                        **rt_train["k2_aifi"]},
     }, {
         "name": "rotate_shear3",
         "route": "cuda",
@@ -757,16 +869,7 @@ def train_phases(torch, card, dev, g, sm_scale):
             total.backward()
         grads[where] = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
         del model
-    num = sum(float((grads["cuda"][n] - gc).pow(2).sum()) for n, gc in grads["cpu"].items())
-    den = sum(float(gc.pow(2).sum()) for gc in grads["cpu"].values())
-    rel = (num / den) ** 0.5
-    # Per tensor, the error against the tensor's largest gradient, floored
-    # at 1e-4 of the largest gradient anywhere: the attention key biases
-    # have a gradient of exactly zero (a constant added to every score of a
-    # row leaves the softmax unchanged), so theirs is rounding noise.
-    floor = 1e-4 * max(gc.abs().max().item() for gc in grads["cpu"].values())
-    worst = sorted(((max_err(grads["cuda"][n], gc) / max(gc.abs().max().item(), floor), n)
-                    for n, gc in grads["cpu"].items()), reverse=True)[:3]
+    rel, worst = grad_gap(grads["cuda"], grads["cpu"])
     log(f"  float32 B=2 gradients, card vs CPU: relative L2 error {rel:.3e} (tolerance 1e-3); "
         "worst tensors, max error / max(max |grad|, 1e-4 of the global max): "
         + ", ".join(f"{v:.3e} {n}" for v, n in worst) + " (tolerance 1e-2)")
@@ -1805,6 +1908,376 @@ def rtdetr_phases(torch, card, dev, g, sm_scale):
     log("phase 15 ok")
     return {"k1": rt_launches, "aifi": dict(aifi, max_abs_err=aifi_err), "spans": spans}
 
+
+def rtdetr_train_phases(torch, card, dev, g, sm_scale):
+    """Phases 16-17: the R2 recipe's RT-DETR train step at 512 (K1 and K2 at
+    the AIFI shape), with CDN, and bench's RT-DETR train shape at 256."""
+    from satellite_pose_estimation_tpu_torch.data.augment import AugmentConfig, augment_batch
+    from satellite_pose_estimation_tpu_torch.losses.criterion import CriterionConfig, set_criterion
+    from satellite_pose_estimation_tpu_torch.models import rtdetr_decoder
+    from satellite_pose_estimation_tpu_torch.models.layers import FrozenBatchNorm
+    from satellite_pose_estimation_tpu_torch.models.rtdetr import (
+        RTDETRConfig,
+        build_rtdetr_train_model,
+    )
+    from satellite_pose_estimation_tpu_torch.ops import fused_attention as fa
+    from satellite_pose_estimation_tpu_torch.ops.precision import highest_precision
+    from satellite_pose_estimation_tpu_torch.train.optim import build_optimizer
+    from satellite_pose_estimation_tpu_torch.train.state import TrainConfig, create_train_state
+    from satellite_pose_estimation_tpu_torch.train.steps import make_eval_step, make_train_step
+
+    bf16 = torch.bfloat16
+    steps_per_window, windows = 5, 3
+    model_kw, crit_kw = recipe_configs()
+    R = RECIPE_OPTIMIZER_YML
+    cfg = RTDETRConfig(**model_kw)
+    crit = CriterionConfig(**crit_kw)
+    tcfg = TrainConfig(use_ema=R["use_ema"], ema_decay=R["ema"]["decay"],
+                       ema_warmups=float(R["ema"]["warmups"]), clip_max_norm=R["clip_max_norm"])
+    size, B, pack = RECIPE_INPUT, RECIPE_BATCH, RECIPE_INPUT + 32
+    no_aug = AugmentConfig(out_size=size, p_hflip=0.0, p_rotate=0.0, p_affine=0.0,
+                           p_blur=0.0, p_blur_family=0.0, p_noise=0.0, p_jpeg=0.0,
+                           p_iso=0.0, p_cutout=0.0, p_trunc=0.0)
+
+    def registry(model):
+        # The recipe's milestone (1000 epochs) lies past its 96-epoch
+        # schedule: the rates stay at the YAML's.
+        return build_optimizer(R["optimizer"], model, 1, R["lr_scheduler"], R["clip_max_norm"])
+
+    def make_batch(n, gen):
+        return train_batch(torch, dev, n, gen, pack, side=RECIPE_INPUT - 32)
+
+    def bn_stats(model):
+        return {n: b.clone() for n, b in model.named_buffers() if n.endswith("running_mean")}
+
+    def rate_windows(step, state, pool, n):
+        rates = []
+        for w in range(windows):
+            t0 = time.perf_counter()
+            for b in pool[w * steps_per_window:(w + 1) * steps_per_window]:
+                step(state, b, gen)
+            torch.cuda.synchronize()
+            rates.append(n * steps_per_window / (time.perf_counter() - t0))
+        return (f"median {statistics.median(rates):.2f} img/s (min {min(rates):.2f}, max "
+                f"{max(rates):.2f}; {windows} windows of {steps_per_window} steps)")
+
+    shapes, real_fwd, real_bwd = [], fa._launch_fwd, fa._launch_bwd
+
+    def spy_fwd(q, k, v, s):
+        shapes.append(("K1", tuple(q.shape), q.dtype))
+        return real_fwd(q, k, v, s)
+
+    def spy_bwd(q, k, v, o, lse, go, s):
+        shapes.append(("K2", tuple(q.shape), q.dtype))
+        return real_bwd(q, k, v, o, lse, go, s)
+
+    def counted(fn):
+        """fn() with every kernel's count zeroed before it and the K1 / K2
+        input shapes recorded: (result, counts, shapes)."""
+        shapes.clear()
+        fa._launch_fwd, fa._launch_bwd = spy_fwd, spy_bwd
+        try:
+            zero_counts()
+            out = fn()
+            torch.cuda.synchronize()
+            return out, counts(), sorted(set(shapes))
+        finally:
+            fa._launch_fwd, fa._launch_bwd = real_fwd, real_bwd
+
+    # -- 16. the R2 recipe's train step at 512 -----------------------------
+    # configs/speed/rtdetr_r50vd_kl_1_512.yml at full width: PResNet-50vd
+    # with trainable BatchNorm, hidden 256, 8 heads, FFN 1024, expansion
+    # 0.5, 30 queries, 3 decoder layers; points_uncert with the sigmoid-cost
+    # matcher; the registry AdamW's three regex groups, clip 0.1, EMA;
+    # float32 parameters under bf16 autocast, batch 16.
+    gen = torch.Generator(device=dev).manual_seed(16)
+    model = build_rtdetr_train_model(cfg, seed=0, device=dev)
+    state = create_train_state(model, tcfg, registry(model))
+    groups = [(grp["lr"], grp["weight_decay"], len(grp["params"]))
+              for grp in state.optimizer.param_groups]
+    want = [(p.get("lr", R["optimizer"]["lr"]), p.get("weight_decay", R["optimizer"]["weight_decay"]))
+            for p in R["optimizer"]["params"]] + [(R["optimizer"]["lr"],
+                                                   R["optimizer"]["weight_decay"])]
+    log(f"  RT-DETR recipe param groups (lr, weight decay, tensors): {groups}")
+    require([(lr, wd) for lr, wd, _ in groups] == want, "param groups' lr / weight decay")
+    step = make_train_step(crit, tcfg, AugmentConfig(out_size=size), compute_dtype=bf16)
+    batches = [make_batch(B, gen) for _ in range(3)]
+    step(state, batches[0], gen)  # warm-up (cuDNN / cuBLAS plans)
+    before = bn_stats(state.model)
+    losses, seen, kshapes = counted(lambda: [step(state, b, gen) for b in batches])
+    train_launches = seen
+    log(f"  RT-DETR train @{size} B={B}: launches in 3 steps {seen}, K1 / K2 inputs {kshapes} "
+        f"(expected K1 and K2 once a step on bf16 ({B}, 8, 256, 32), no other)")
+    require(seen == expected(k1=3, k2=3), "RT-DETR train launch counts")
+    require(kshapes == [("K1", (B, 8, 256, 32), bf16), ("K2", (B, 8, 256, 32), bf16)],
+            "K1 / K2 shapes on the RT-DETR train path")
+    for ls in losses:
+        require(all(bool(torch.isfinite(v)) for v in ls.values()), "an RT-DETR loss is not finite")
+    after = bn_stats(state.model)
+    moved = sum(not torch.equal(after[n], before[n]) for n in before)
+    log("  losses: " + ", ".join(f"{ls['loss_total'].item():.4f}" for ls in losses)
+        + f"; BatchNorm running means moved: {moved} of {len(before)}; group lr after the "
+        f"steps {[grp['lr'] for grp in state.optimizer.param_groups]}")
+    require(moved == len(before) > 0, "BatchNorm running statistics did not move")
+    require([grp["lr"] for grp in state.optimizer.param_groups] == [lr for lr, _ in want],
+            "a group's lr left the YAML's")
+
+    # The loss on one fixed batch without augmentation falls over 10 steps.
+    fixed_model = build_rtdetr_train_model(cfg, seed=1, device=dev)
+    fixed_state = create_train_state(fixed_model, tcfg, registry(fixed_model))
+    fixed_step = make_train_step(crit, tcfg, no_aug, compute_dtype=bf16)
+    fixed = make_batch(B, gen)
+    trace = [fixed_step(fixed_state, fixed, gen)["loss_total"].item() for _ in range(10)]
+    log("  fixed-batch loss over 10 steps: " + ", ".join(f"{v:.4f}" for v in trace))
+    require(trace[-1] < trace[0] - 0.05 * abs(trace[0]), "the loss does not fall on a fixed batch")
+    del fixed_state, fixed_step, fixed_model
+
+    # float32 gradients of one batch-2 step: card (K1 + K2, TF32 off)
+    # against the CPU (plain versions); a second card run shows the share
+    # of the deformable sampler's atomic backward (grid_sample). The
+    # BatchNorm layers normalise with their running statistics for this
+    # gate: through batch statistics the convolution weights before them
+    # are scale-invariant and their float32 gradients a small difference of
+    # large terms, so no float32 run sits within 1e-3 of another. Then the
+    # train mode as it is (batch statistics): the card's float32 gradients
+    # no farther from the CPU's float64 ones than twice the CPU's own
+    # float32 gradients are. A random-init model's top-k can pick other
+    # tokens on the CPU where scores tie within rounding, which would
+    # compare gradients of other queries: each CPU run takes the tokens of
+    # the card run before it, once their CPU scores are shown to sit within
+    # 1e-3 of the CPU's own k-th score.
+    small = {k: v[:2] for k, v in fixed.items()}
+    grads, card_pick, gaps, on_cpu = {}, [None], [], [False]
+    real_topk = rtdetr_decoder.topk
+
+    def spy_topk(scores, k):
+        vals, idx = real_topk(scores, k)
+        if on_cpu[0]:
+            own, idx = idx, card_pick[0].to(idx)
+            vals = scores.gather(1, idx)
+            gap = (vals.double().amin(-1) - scores.double().gather(1, own).amin(-1)).abs().max()
+            gaps.append((int(sum(len(set(a.tolist()) - set(b.tolist()))
+                                 for a, b in zip(own, idx))), gap.item()))
+        else:
+            card_pick[0] = idx.cpu()
+        return vals, idx
+
+    runs = [("card", dev, torch.float32, False), ("cpu", "cpu", torch.float32, False),
+            ("card", dev, torch.float32, False), ("card bn", dev, torch.float32, True),
+            ("cpu bn", "cpu", torch.float32, True), ("cpu bn float64", "cpu", torch.float64, True)]
+    rtdetr_decoder.topk = spy_topk
+    try:
+        for name, where, dtype, batch_stats in runs:
+            on_cpu[0] = name.startswith("cpu")
+            model = build_rtdetr_train_model(cfg, seed=2, device=where).to(dtype)
+            for m in model.modules():
+                if isinstance(m, torch.nn.BatchNorm2d) and not batch_stats:
+                    m.eval()
+            batch = {k: v.to(where) for k, v in small.items()}
+            with highest_precision():
+                images, kp = augment_batch(torch.Generator(device=where).manual_seed(0),
+                                           batch["image"], batch["clip_bbox_buf"],
+                                           batch["landmarks_buf"], no_aug)
+                total, _ = set_criterion(model(images.to(dtype)), {"labels": batch["labels"],
+                                                                   "landmarks": kp}, crit)
+                total.backward()
+            grads.setdefault(name, []).append(
+                {n: p.grad.detach().cpu().double() for n, p in model.named_parameters()})
+            del model
+    finally:
+        rtdetr_decoder.topk = real_topk
+    log(f"  RT-DETR float32 B=2 selection: each CPU run's own top-{cfg.num_queries} differs from "
+        f"the card's in {[n for n, _ in gaps]} tokens; the card's tokens' lowest CPU score lies "
+        f"{max(g for _, g in gaps):.3e} from the CPU's k-th (tolerance 1e-3)")
+    require(max(g for _, g in gaps) <= 1e-3, "the card selects tokens the CPU scores lower")
+    rel, worst = grad_gap(grads["card"][0], grads["cpu"][0])
+    rerun, _ = grad_gap(grads["card"][1], grads["card"][0])
+    log(f"  RT-DETR float32 B=2 gradients, BN on running statistics, card vs CPU: relative L2 "
+        f"error {rel:.3e} (tolerance 1e-3); worst tensors "
+        + ", ".join(f"{v:.3e} {n}" for v, n in worst) + f"; two card runs differ by {rerun:.3e} "
+        f"relative L2 (grid_sample's atomic backward), {100 * rerun / max(rel, 1e-30):.1f}% of "
+        "the card-vs-CPU error")
+    require(rel <= 1e-3, "RT-DETR card and CPU gradients disagree")
+    ref64 = grads["cpu bn float64"][0]
+    card_bn, _ = grad_gap(grads["card bn"][0], ref64)
+    cpu_bn, cpu_worst = grad_gap(grads["cpu bn"][0], ref64)
+    between, _ = grad_gap(grads["card bn"][0], grads["cpu bn"][0])
+    log(f"  RT-DETR B=2 gradients through BN batch statistics, relative L2 from the CPU's float64: "
+        f"card float32 {card_bn:.3e}, CPU float32 {cpu_bn:.3e} (the card's limit: twice the "
+        f"CPU's; CPU's worst tensors " + ", ".join(f"{v:.3e} {n}" for v, n in cpu_worst)
+        + f"); card vs CPU float32 {between:.3e}")
+    require(card_bn <= 2 * cpu_bn, "RT-DETR card gradients through BN batch statistics")
+    del grads
+
+    # K2 against its plain version at the AIFI shape, bf16 and float32.
+    tolerances = {torch.float32: (1e-4, 1e-5), bf16: (2e-2, 1e-2)}
+    for dtype, (tol, rel_tol) in tolerances.items():
+        q, k, v, go = (torch.randn(B, 256, 8, 32, generator=g, device=dev).to(dtype)
+                       .transpose(1, 2) for _ in range(4))
+        o, lse = fa._launch_fwd(q, k, v, sm_scale)
+        out = fa._launch_bwd(q, k, v, o, lse, go, sm_scale)
+        ref = fa.attention_plain_bwd(q, k, v, go, sm_scale)
+        rels = [rel_l2(a, r) for a, r in zip(out, ref)]
+        errs = [max_err(a, r) for a, r in zip(out, ref)]
+        log(f"  K2 ({B},8,256,32) {str(dtype)[6:]}: max|kernel-plain| dq/dk/dv "
+            + "/".join(f"{e:.3e}" for e in errs) + f" (tolerance {tol:g} x (1 + max|grad|)), "
+            "relative L2 " + "/".join(f"{x:.3e}" for x in rels) + f" (limit {rel_tol:g})")
+        for name, e, r, x in zip(("dq", "dk", "dv"), errs, ref, rels):
+            require(e <= tol * (1.0 + r.float().abs().max().item()) and x <= rel_tol,
+                    f"K2 {name} disagrees with plain at the AIFI shape, {dtype}")
+        if dtype == bf16:
+            k2_err = max(errs)
+    log("phase 16 ok: the RT-DETR recipe's train step ran through K1 and K2")
+
+    # Rate, spans, peak memory; K2's time at the AIFI shape.
+    pool = [make_batch(B, gen) for _ in range(steps_per_window * windows)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    line = rate_windows(step, state, pool, B)
+    log(f"  RT-DETR train step B={B} bf16 @{size}: {line}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {card}")
+    log(f"  RT-DETR stage times per B={B} step (CUDA events between stage ends, median of 3): "
+        + stage_spans(torch, step, state, pool[:3], gen))
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    lib_out = torch.nn.functional.scaled_dot_product_attention(*leaves, scale=sm_scale)
+    qkvg = (q, k, v, go)
+
+    def sdpa_bwd():
+        return torch.autograd.grad(lib_out, leaves, go, retain_graph=True)
+
+    k2_times, runs = timed(torch, lambda: fa._launch_bwd(q, k, v, o, lse, go, sm_scale),
+                           lambda: fa.attention_plain_bwd(*qkvg, sm_scale), sdpa_bwd, iters=50)
+    k2_times.update(attention_bound(q, products=5, tensors=8, row_stats=1))
+    log(f"  K2 ({B},8,256,32) bf16: kernel {k2_times['ms']:.4f} ms, plain "
+        f"{k2_times['plain_ms']:.4f} ms, SDPA backward {k2_times['library_ms']:.4f} ms, bound "
+        f"{k2_times['bound_ms']:.4f} ms ({k2_times['bound_by']}; "
+        f"{100 * k2_times['bound_ms'] / k2_times['ms']:.1f}% of it) (runs plain, library, "
+        f"kernel, kernel, library, plain: {runs}) on {card}")
+    del pool, leaves, lib_out, q, k, v, go, o, lse
+
+    # One eval step of the train state: bf16 autocast on the EMA shadow.
+    eval_step = make_eval_step(out_size=size, solver="sigma", use_ema=True, compute_dtype=bf16)
+    eb = eval_batch(torch, dev, B, gen, pack)
+    eb["clip_bbox_buf"] = torch.tensor([[16.0, 16.0, 16.0 + size, 16.0 + size]],
+                                       device=dev).repeat(B, 1)
+    res, seen, kshapes = counted(lambda: eval_step(state, eb))
+    eval_launches = seen
+    log(f"  eval of the train state (EMA, bf16 autocast, sigma solver) B={B}: launches {seen}, "
+        f"K1 inputs {kshapes} (expected K1 once, bf16, no other)")
+    require(seen == expected(k1=1) and kshapes == [("K1", (B, 8, 256, 32), bf16)],
+            "the train-state eval does not run the bf16 K1")
+    for key, val in res.items():
+        if val.is_floating_point():
+            require(bool(torch.isfinite(val).all()), f"train-state eval {key} not finite")
+    del state, step, res
+    torch.cuda.empty_cache()
+
+    # -- 17. CDN, and bench's RT-DETR train shape --------------------------
+    # The recipe's model with the upstream RT-DETR's num_denoising 100: 9
+    # groups of 11 positives and 11 negatives, 198 dn queries.
+    dn_cfg = dataclasses.replace(cfg, num_denoising=100)
+    dn_model = build_rtdetr_train_model(dn_cfg, seed=3, device=dev)
+    dn_state = create_train_state(dn_model, tcfg, registry(dn_model))
+    dn_step = make_train_step(crit, tcfg, AugmentConfig(out_size=size), compute_dtype=bf16,
+                              denoising=True)
+    table = dn_model.decoder.denoising_class_embed.weight.detach().clone()
+    dn_step(dn_state, batches[0], gen)  # warm-up
+    dn_losses, seen, _ = counted(lambda: [dn_step(dn_state, b, gen) for b in batches])
+    cdn_launches = seen
+    dn_keys = {f"loss_{t}_dn_{i}" for t in ("ce", "points") for i in range(cfg.num_decoder_layers)}
+    log(f"  CDN train @{size} B={B} (num_denoising 100): launches in 3 steps {seen}; losses "
+        + ", ".join(f"{ls['loss_total'].item():.4f}" for ls in dn_losses) + "; dn losses of the "
+        "last step " + ", ".join(f"{k} {dn_losses[-1][k].item():.4f}" for k in sorted(dn_keys)))
+    require(seen == expected(k1=3, k2=3), "CDN train launch counts")
+    for ls in dn_losses:
+        require(dn_keys <= set(ls) and all(bool(torch.isfinite(v)) for v in ls.values()),
+                "a CDN loss is missing or not finite")
+    moved = (dn_model.decoder.denoising_class_embed.weight - table).abs().max().item()
+    log(f"  denoising_class_embed moved by up to {moved:.3e}")
+    require(moved > 0, "denoising_class_embed was not updated")
+
+    # float32 on the card (TF32 off): the matching queries' outputs with CDN
+    # equal the num_denoising = 0 twin's on the same weights.
+    twin = build_rtdetr_train_model(cfg, seed=3, device=dev)
+    weights = {k: v for k, v in dn_model.state_dict().items() if "denoising_class_embed" not in k}
+    twin.load_state_dict(weights)
+    b = batches[1]
+    with torch.no_grad(), highest_precision():
+        images, kp = augment_batch(torch.Generator(device=dev).manual_seed(0), b["image"],
+                                   b["clip_bbox_buf"], b["landmarks_buf"], no_aug)
+        out_dn = dn_model(images, {"labels": b["labels"], "points": kp},
+                          torch.Generator(device=dev).manual_seed(1))
+        out = twin(images)
+    errs = {key: max_err(out_dn[key], out[key]) for key in ("pred_logits", "pred_points",
+                                                              "pred_sigmas")}
+    log(f"  float32 matching-query outputs with CDN vs the num_denoising=0 twin: "
+        + ", ".join(f"{k} {e:.3e}" for k, e in errs.items()) + " (tolerance 1e-4); "
+        f"{out_dn['dn_aux_outputs'][0]['pred_points'].shape[1]} dn queries a layer")
+    require(max(errs.values()) <= 1e-4 and out_dn["dn_meta"]["dn_num_group"] == 9,
+            "the matching queries change under CDN")
+    del dn_state, dn_step, dn_model, twin, out_dn, out, images, batches
+    torch.cuda.empty_cache()
+    log("  CDN checks ok")
+
+    # bench.py's BENCH_ARCH=rtdetr BENCH_MODE=train (bench.py:126-134,
+    # 182-217): RTDETRConfig(depth=50, expansion=0.5) (FrozenBN), the
+    # default two-group AdamW of TrainConfig(), AugmentConfig(out_size=256),
+    # batch 256 (the largest power of two that fits if 256 does not).
+    bcfg = RTDETRConfig(depth=50, expansion=0.5)
+    bcrit = CriterionConfig(point_loss="uncert", use_focal=True, eos_coef=1e-4)
+    btcfg = TrainConfig()
+    bsize, bench_b = BENCH_RTDETR_INPUT, BENCH_RTDETR_BATCH
+
+    def bench_batch(n):
+        bb = eval_batch(torch, dev, n, gen)
+        lm = torch.rand(n, 11, 2, generator=gen, device=dev) * 200 + 20
+        return {"image": bb["image"], "clip_bbox_buf": bb["clip_bbox_buf"], "landmarks_buf": lm,
+                "labels": torch.arange(11, device=dev).repeat(n, 1)}
+
+    bstate = create_train_state(build_rtdetr_train_model(bcfg, seed=0, device=dev), btcfg)
+    bstep = make_train_step(bcrit, btcfg, AugmentConfig(out_size=bsize), compute_dtype=bf16)
+    frozen = {n: b.clone() for n, b in bstate.model.named_buffers()}
+    require(any(isinstance(m, FrozenBatchNorm) for m in bstate.model.modules()),
+            "bench's RT-DETR has FrozenBN")
+    while True:
+        try:
+            bpool = [bench_batch(bench_b) for _ in range(steps_per_window * windows)]
+            bstep(bstate, bpool[0], gen)  # warm-up
+            torch.cuda.synchronize()
+            break
+        except torch.cuda.OutOfMemoryError as e:
+            log(f"  bench RT-DETR train B={bench_b} @256: out of device memory "
+                f"({str(e).splitlines()[0]}); halving the batch")
+            require(bench_b > 1, "bench's RT-DETR train does not fit at batch 1")
+            bpool = None
+            bench_b //= 2
+            bstate.optimizer.zero_grad(set_to_none=True)
+            torch.cuda.empty_cache()
+    blosses, seen, _ = counted(lambda: [bstep(bstate, b, gen) for b in bpool[:3]])
+    bench_launches = seen
+    log(f"  bench RT-DETR train @{bsize} B={bench_b}: launches in 3 steps {seen} (expected none: "
+        "the AIFI level has 8 x 8 = 64 tokens, the plain core)")
+    require(seen == expected(), "bench RT-DETR train launch counts")
+    for ls in blosses:
+        require(all(bool(torch.isfinite(v)) for v in ls.values()), "a bench loss is not finite")
+    for n, b in bstate.model.named_buffers():
+        if any(n.startswith(m + ".") for m, mod in bstate.model.named_modules()
+               if isinstance(mod, FrozenBatchNorm)):
+            require(torch.equal(b, frozen[n]), f"FrozenBN buffer {n} changed")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    line = rate_windows(bstep, bstate, bpool, bench_b)
+    log(f"  bench RT-DETR train step B={bench_b} bf16 @{bsize}: {line}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; FrozenBN buffers unchanged on "
+        f"{card}")
+    log(f"  bench RT-DETR stage times per B={bench_b} step (median of 3): "
+        + stage_spans(torch, bstep, bstate, bpool[:3], gen))
+    del bstate, bstep, bpool
+    torch.cuda.empty_cache()
+    log("phase 17 ok")
+    return {"train": train_launches, "eval": eval_launches, "cdn": cdn_launches,
+            "bench": bench_launches, "k2_aifi": dict(k2_times, max_abs_err=k2_err),
+            "bench_batch": bench_b}
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -2,15 +2,18 @@
 cross entropy with ``eos_coef`` on the background class, a smooth-L1
 (beta = 1/200), L1 or Laplace-KL point loss over matched pairs divided by
 the number of points, the cardinality and class-error metrics, and the same
-terms for every auxiliary decoder layer.
+terms for every auxiliary decoder layer, and RT-DETR's denoising (CDN)
+branch.
 
 The Hungarian matchings of all decoder layers are solved in one batched
-call. RT-DETR's denoising (CDN) branch is not ported: outputs carrying
-``dn_*`` entries raise.
+call; the CDN levels need none (their positives are matched to their
+targets by construction). ``nf_point_loss`` is the normalizing-flow point
+loss over a ``models.real_nvp.RealNVP``.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
@@ -94,10 +97,14 @@ def set_criterion(outputs, targets, cfg: CriterionConfig = CriterionConfig()):
     Returns:
         (total, losses): losses holds loss_ce, loss_points,
         cardinality_error, class_error, loss_ce_<i> / loss_points_<i> per
-        auxiliary layer, and loss_total.
+        auxiliary layer, loss_ce_dn_<i> / loss_points_dn_<i> per CDN level,
+        and loss_total.
+
+    With ``dn_aux_outputs`` and ``dn_meta`` (an RT-DETR trained with
+    ``num_denoising > 0``), each decoder layer's dn queries add a level:
+    group g's positives (queries g * 2T + [0, T)) are matched to the T
+    targets, tiled G times, over G times the number of points.
     """
-    if "dn_aux_outputs" in outputs or "dn_meta" in outputs:
-        raise NotImplementedError("the RT-DETR denoising (CDN) loss is not ported")
     B, T = targets["labels"].shape
     num_points = max(float(B * T), 1.0)
 
@@ -120,5 +127,36 @@ def set_criterion(outputs, targets, cfg: CriterionConfig = CriterionConfig()):
                          + cfg.weight_points * aux_losses["loss_points"])
         losses[f"loss_ce_{i}"] = aux_losses["loss_ce"]
         losses[f"loss_points_{i}"] = aux_losses["loss_points"]
+
+    if "dn_aux_outputs" in outputs and "dn_meta" in outputs:
+        G = int(outputs["dn_meta"]["dn_num_group"])
+        device = targets["labels"].device
+        q4t_dn = (torch.arange(T, device=device)[None, :]
+                  + 2 * T * torch.arange(G, device=device)[:, None]).reshape(1, G * T).repeat(B, 1)
+        dn_targets = {"labels": targets["labels"].repeat(1, G),
+                      "landmarks": targets["landmarks"].repeat(1, G, 1)}
+        for i, aux in enumerate(outputs["dn_aux_outputs"]):
+            dn_losses = _one_level(aux, dn_targets, cfg, num_points * G, log=False, q4t=q4t_dn)
+            total = total + (cfg.weight_ce * dn_losses["loss_ce"]
+                             + cfg.weight_points * dn_losses["loss_points"])
+            losses[f"loss_ce_dn_{i}"] = dn_losses["loss_ce"]
+            losses[f"loss_points_dn_{i}"] = dn_losses["loss_points"]
     losses["loss_total"] = total
     return total, losses
+
+
+def nf_point_loss(flow, pred_pts, tgt_pts, pred_sigmas):
+    """The normalizing-flow residual-density point loss, per element:
+
+        sigma = sigmoid(pred_sigmas); bar_mu = (pred - gt) / sigma
+        loss  = log(sigma) - flow.log_prob(bar_mu)
+                + log(sigma / amp) + |gt - pred| / (sqrt(2) sigma + 1e-9)
+
+    with amp = 1 / sqrt(2 pi); ``flow`` a ``models.real_nvp.RealNVP``.
+    Callers reduce and normalise it as the other point losses."""
+    amp = 1.0 / math.sqrt(2.0 * math.pi)
+    sigma = torch.sigmoid(pred_sigmas)
+    bar_mu = (pred_pts - tgt_pts) / sigma
+    nf = torch.log(sigma) - flow.log_prob(bar_mu)[..., None]
+    log_q = torch.log(sigma / amp) + (tgt_pts - pred_pts).abs() / (math.sqrt(2.0) * sigma + 1e-9)
+    return nf + log_q

@@ -1,7 +1,9 @@
 """RT-DETR, the R2 landmarker: PResNet -> HybridEncoder -> RTDETRTransformer
-(counterpart of models/rtdetr.py), eval only.
+(counterpart of models/rtdetr.py).
 
-``build_rtdetr_model`` builds one from a seed; built inside
+``build_rtdetr_model`` builds one from a seed for evaluation and
+``build_rtdetr_train_model`` one to train (float32 parameters, training
+mode; ``train.steps.make_train_step``); built inside
 ``ops.quantize.quantized_inference`` it is the int8 deployment model (the
 PResNet and encoder ``ConvNorm`` convolutions and the AIFI FFN int8, the
 rest float): build it in float32, calibrate it with
@@ -29,7 +31,7 @@ from .rtdetr_decoder import RTDETRTransformer
 class RTDETRConfig:
     """The JAX ``RTDETRConfig`` (the rtdetr_r50vd speed config surface) less
     its ``dtype``, which ``build_rtdetr_model`` takes. Only the ``presnet``
-    backbone is ported; ``num_denoising > 0`` (training) raises."""
+    backbone and point queries (``box_dim = 2``) are ported."""
 
     backbone: str = "presnet"  # presnet | mobilenetv3_large | mobilenetv3_small | ghostnetv2
     depth: int = 50
@@ -72,11 +74,20 @@ class RTDETR(nn.Module):
             nhead=cfg.nhead, num_decoder_layers=cfg.num_decoder_layers,
             dim_feedforward=cfg.dim_feedforward, dropout=cfg.dropout,
             learnt_init_query=cfg.learnt_init_query, box_dim=cfg.box_dim,
-            num_denoising=cfg.num_denoising, generator=g)
+            num_denoising=cfg.num_denoising, label_noise_ratio=cfg.label_noise_ratio,
+            box_noise_scale=cfg.box_noise_scale, generator=g)
 
-    def forward(self, images):
-        """images: (B, H, W, 3) normalised crops in the model's dtype."""
-        return self.decoder(self.encoder(self.backbone(images.permute(0, 3, 1, 2))))
+    def forward(self, images, targets=None, generator=None):
+        """images: (B, H, W, 3) normalised crops in the model's dtype.
+
+        In training with ``num_denoising > 0`` the decoder builds its CDN
+        groups from ``targets`` {"labels" (B, T), "points" (B, T, 2)
+        normalised}, which it then requires, drawing their noise from
+        ``generator``, a ``torch.Generator`` on the images' device (the
+        train step passes its own; None takes the device's default
+        generator). Otherwise both are ignored."""
+        feats = self.encoder(self.backbone(images.permute(0, 3, 1, 2)))
+        return self.decoder(feats, targets, generator)
 
 
 def convert_params_to_deploy(state_dict: dict) -> dict:
@@ -114,3 +125,12 @@ def build_rtdetr_model(config: RTDETRConfig = RTDETRConfig(), seed: int = 0, dev
     generator = torch.Generator().manual_seed(seed)
     model = RTDETR(config, generator)
     return model.to(device=device, dtype=dtype).eval()
+
+
+def build_rtdetr_train_model(config: RTDETRConfig = RTDETRConfig(), seed: int = 0,
+                             device="cuda") -> RTDETR:
+    """An RT-DETR to train: the weights of ``build_rtdetr_model(config,
+    seed)`` in float32 (run it in bf16 with ``make_train_step(...,
+    compute_dtype=torch.bfloat16)``), in training mode, on the card unless
+    ``device="cpu"`` is asked for."""
+    return build_rtdetr_model(config, seed, device).train()

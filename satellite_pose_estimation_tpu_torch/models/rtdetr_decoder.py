@@ -1,5 +1,5 @@
 """RT-DETR point-query decoder with per-layer Gaussian sigma heads
-(counterpart of models/rtdetr_decoder.py), eval only.
+(counterpart of models/rtdetr_decoder.py).
 
 * per-pixel (x, y) anchors in logit space over every level; anchors
   outside (eps, 1 - eps) get the logit +inf, as in JAX (which computes the
@@ -7,7 +7,9 @@
   by it);
 * an encoder head scores every token; the top ``num_queries`` tokens give
   the initial reference points and the query features
-  (``ops.topk``: ties to the lowest index, exact row gathers);
+  (``ops.topk``: ties to the lowest index, exact row gathers), or with
+  ``learnt_init_query`` a learnt query table (``tgt_embed``) gives the
+  features;
 * decoder layers: query self-attention, multi-scale deformable
   cross-attention, FFN, with iterative inverse-sigmoid point refinement;
 * a sigma head MLP(h, h, 1, 3) per layer, broadcast to (x, y);
@@ -15,11 +17,19 @@
   ``aux_outputs`` (every earlier layer, then the encoder's top-k without
   sigmas), in the loss dtype.
 
-Training (``module.training``) and CDN denoising (``num_denoising > 0``)
-belong to the RT-DETR train slice and raise here, as do the learnt query
-table and the detection task's 4-D box queries, which no speed config
-selects. Module names follow the
-JAX package. The decoder stays float under
+In training (``module.training``) the gradient paths are JAX's: the
+initial reference points and the selected query features are detached
+(the features not with ``learnt_init_query``), each layer takes detached
+reference points, and a layer's output point is refined from the previous
+layer's undetached point, so the gradient reaches the previous point head;
+the encoder's top-k outputs keep theirs through the gather. With
+``num_denoising > 0`` a training call needs ``targets``: CDN groups
+(``models.denoising``, embedded by ``denoising_class_embed``) go ahead of
+the matching queries under a block self-attention mask, and the outputs
+gain ``dn_aux_outputs`` (every layer, with sigmas) and ``dn_meta``.
+
+The detection task's 4-D box queries (``box_dim = 4``) are not ported.
+Module names follow the JAX package. The decoder stays float under
 ``ops.quantize.quantized_inference``, as in JAX.
 """
 from __future__ import annotations
@@ -32,6 +42,7 @@ from torch import nn
 from ..ops.deform_attn import deformable_attention_core
 from ..ops.precision import to_loss_dtype
 from ..ops.topk import select_rows, topk
+from . import denoising
 from .layers import MLP, conv2d, get_activation, linear, norm_layer
 from .transformer import _Attention
 
@@ -97,9 +108,9 @@ class RTDecoderLayer(nn.Module):
         self.act = get_activation(activation)
         self.drop = nn.Dropout(dropout)
 
-    def forward(self, tgt, reference_points, memory, spatial_shapes, query_pos):
+    def forward(self, tgt, reference_points, memory, spatial_shapes, query_pos, attn_mask=None):
         qk = tgt + query_pos
-        tgt = self.norm1(tgt + self.drop(self.self_attn(qk, qk, tgt)))
+        tgt = self.norm1(tgt + self.drop(self.self_attn(qk, qk, tgt, attn_mask)))
         ca = self.cross_attn(tgt + query_pos, reference_points, memory, spatial_shapes)
         tgt = self.norm2(tgt + self.drop(ca))
         ff = self.linear2(self.drop(self.act(self.linear1(tgt))))
@@ -111,18 +122,16 @@ class RTDETRTransformer(nn.Module):
                  feat_channels=(256, 256, 256), num_levels=3, num_decoder_points=4, nhead=8,
                  num_decoder_layers=3, dim_feedforward=1024, dropout=0.0, activation="relu",
                  learnt_init_query=False, box_dim=2, eps=1e-2, aux_loss=True, num_denoising=0,
-                 generator=None):
+                 label_noise_ratio=0.5, box_noise_scale=1.0, generator=None):
         super().__init__()
-        if num_denoising > 0:
-            raise NotImplementedError("CDN denoising (num_denoising > 0) trains RT-DETR; "
-                                      "RT-DETR training is not ported")
-        if learnt_init_query or box_dim != 2:
-            raise NotImplementedError("the learnt query table and box queries (box_dim 4, the "
-                                      "detection task) are not ported")
+        if box_dim != 2:
+            raise NotImplementedError("box queries (box_dim 4, the detection task) are not ported")
         g = generator
         h = hidden_dim
         self.num_queries, self.num_decoder_layers = num_queries, num_decoder_layers
-        self.eps, self.aux_loss = eps, aux_loss
+        self.num_classes, self.eps, self.aux_loss = num_classes, eps, aux_loss
+        self.num_denoising = num_denoising
+        self.label_noise_ratio, self.box_noise_scale = label_noise_ratio, box_noise_scale
         for i, cin in enumerate(feat_channels):
             self.add_module(f"input_proj_{i}_conv", conv2d(cin, h, 1, bias=False, generator=g))
             self.add_module(f"input_proj_{i}_norm", norm_layer("bn", h))
@@ -131,6 +140,15 @@ class RTDETRTransformer(nn.Module):
         self.enc_score_head = linear(h, num_classes + 1, g)
         self.enc_bbox_head = MLP(h, h, 2, 3, generator=g)
         self.query_pos_head = MLP(2, 2 * h, h, 2, generator=g)
+        if learnt_init_query:
+            self.tgt_embed = nn.Embedding(num_queries, h)
+            nn.init.xavier_uniform_(self.tgt_embed.weight, generator=g)
+        else:
+            self.tgt_embed = None
+        if num_denoising > 0:
+            self.denoising_class_embed = nn.Embedding(num_classes + 1, h)
+            with torch.no_grad():
+                self.denoising_class_embed.weight.normal_(generator=g)
         for i in range(num_decoder_layers):
             self.add_module(f"decoder_layer_{i}", RTDecoderLayer(
                 h, nhead, dim_feedforward, dropout, activation, num_levels,
@@ -156,17 +174,25 @@ class RTDETRTransformer(nn.Module):
         logit = torch.log(anchors / (1 - anchors))
         return torch.where(valid, logit, torch.inf)
 
-    def forward(self, feats):
-        """feats: NCHW maps of ``feat_channels`` -> the output dict."""
-        if self.training:
-            raise NotImplementedError("RT-DETR training is not ported; put the model in "
-                                      "eval mode")
+    def forward(self, feats, targets=None, generator=None):
+        """feats: NCHW maps of ``feat_channels`` -> the output dict.
+
+        ``targets`` {"labels" (B, T), "points" (B, T, 2) normalised} and
+        ``generator`` (the ``torch.Generator`` the CDN draws come from; None:
+        the device's default) are read only in training with
+        ``num_denoising > 0``, where ``targets`` is required."""
+        train = self.training
+        dn = train and self.num_denoising > 0
+        if dn and targets is None:
+            raise ValueError("num_denoising > 0 requires `targets` in training (labels + "
+                             "points): pass them through the train step or set num_denoising: 0")
         proj, spatial_shapes = [], []
         for i, feat in enumerate(feats):
             x = getattr(self, f"input_proj_{i}_norm")(getattr(self, f"input_proj_{i}_conv")(feat))
             spatial_shapes.append(tuple(x.shape[-2:]))
             proj.append(x.flatten(2).transpose(1, 2))
         memory = torch.cat(proj, dim=1)  # (B, L, C)
+        B = memory.shape[0]
 
         # Encoder head and the top-k query selection.
         anchors = self._anchors(spatial_shapes, memory.device)
@@ -174,33 +200,61 @@ class RTDETRTransformer(nn.Module):
         enc_logits = self.enc_score_head(out_mem)
         enc_coord_unact = self.enc_bbox_head(out_mem) + anchors[None]  # float32
         _, topk_ind = topk(enc_logits.amax(-1), self.num_queries)
-        ref_points_unact = select_rows(enc_coord_unact, topk_ind)
-        enc_topk_points = torch.sigmoid(ref_points_unact)
+        coord_unact = select_rows(enc_coord_unact, topk_ind)
+        ref_points_unact = coord_unact.detach()
+        enc_topk_points = torch.sigmoid(coord_unact)
         enc_topk_logits = select_rows(enc_logits, topk_ind)
-        output = select_rows(out_mem, topk_ind)
+        if self.tgt_embed is not None:
+            target = self.tgt_embed.weight[None].expand(B, -1, -1).to(memory.dtype)
+        else:
+            target = select_rows(out_mem, topk_ind).detach()
+
+        # CDN groups ahead of the matching queries (training only).
+        attn_mask, dn_meta = None, None
+        if dn:
+            dn_embed, dn_points_unact, attn_mask, dn_meta = denoising.build_denoising_group(
+                generator, targets["labels"], targets["points"].to(torch.float32),
+                self.denoising_class_embed.weight, self.num_queries, self.num_classes,
+                self.num_denoising, self.label_noise_ratio, self.box_noise_scale)
+            target = torch.cat([dn_embed.to(target.dtype), target], dim=1)
+            ref_points_unact = torch.cat([dn_points_unact.detach().to(ref_points_unact.dtype),
+                                          ref_points_unact], dim=1)
 
         # Decoder with iterative refinement and sigma heads. The float32
         # reference points enter the layers' linears in the memory's dtype.
+        # Each layer takes detached reference points in training; the output
+        # point of a layer after the first refines the previous layer's
+        # undetached one (the same values; in eval the same function).
         logits, points, sigmas = [], [], []
-        ref_points = enc_topk_points
+        ref_points_detach = torch.sigmoid(ref_points_unact)
+        ref_points = None
+        output = target
         for i in range(self.num_decoder_layers):
-            query_pos = self.query_pos_head(ref_points.to(memory.dtype))
-            output = getattr(self, f"decoder_layer_{i}")(output, ref_points, memory,
-                                                          spatial_shapes, query_pos)
+            query_pos = self.query_pos_head(ref_points_detach.to(memory.dtype))
+            output = getattr(self, f"decoder_layer_{i}")(output, ref_points_detach, memory,
+                                                          spatial_shapes, query_pos, attn_mask)
             delta = getattr(self, f"dec_bbox_head_{i}")(output)
-            ref_points = torch.sigmoid(delta + inverse_sigmoid(ref_points))
+            inter_ref = torch.sigmoid(delta + inverse_sigmoid(ref_points_detach))
             logits.append(getattr(self, f"dec_score_head_{i}")(output))
-            points.append(ref_points)
+            points.append(inter_ref if i == 0 or not train
+                          else torch.sigmoid(delta + inverse_sigmoid(ref_points)))
             sigmas.append(getattr(self, f"sigma_embed_{i}")(output).repeat(1, 1, 2))
+            ref_points = inter_ref
+            ref_points_detach = inter_ref.detach() if train else inter_ref
 
-        out = {"pred_logits": to_loss_dtype(logits[-1]),
-               "pred_points": to_loss_dtype(points[-1]),
-               "pred_sigmas": to_loss_dtype(sigmas[-1])}
+        def level(i, lo, hi):
+            return {"pred_logits": to_loss_dtype(logits[i][:, lo:hi]),
+                    "pred_points": to_loss_dtype(points[i][:, lo:hi]),
+                    "pred_sigmas": to_loss_dtype(sigmas[i][:, lo:hi])}
+
+        n_dn = dn_meta["dn_num_split"][0] if dn else 0
+        out = level(-1, n_dn, None)
+        if dn:
+            out["dn_aux_outputs"] = [level(i, 0, n_dn) for i in range(self.num_decoder_layers)]
+            out["dn_meta"] = dn_meta
         if self.aux_loss:
-            out["aux_outputs"] = [
-                {"pred_logits": to_loss_dtype(logits[i]), "pred_points": to_loss_dtype(points[i]),
-                 "pred_sigmas": to_loss_dtype(sigmas[i])}
-                for i in range(self.num_decoder_layers - 1)
-            ] + [{"pred_logits": to_loss_dtype(enc_topk_logits),
-                  "pred_points": to_loss_dtype(enc_topk_points)}]
+            out["aux_outputs"] = [level(i, n_dn, None)
+                                  for i in range(self.num_decoder_layers - 1)] + [
+                {"pred_logits": to_loss_dtype(enc_topk_logits),
+                 "pred_points": to_loss_dtype(enc_topk_points)}]
         return out

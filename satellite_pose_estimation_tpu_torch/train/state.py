@@ -4,7 +4,8 @@ learning-rate schedule, global-norm clipping and the EMA shadow
 
 FrozenBatchNorm statistics and affines are buffers, so the optimizer never
 sees them: they are neither updated nor decayed. The registry optimizers of
-the RT-DETR recipes (the JAX ``train/optim.py``) are not ported.
+the RT-DETR recipes (``train/optim.py``) replace the default AdamW through
+``create_train_state(..., tx=build_optimizer(...))``.
 """
 from __future__ import annotations
 
@@ -33,13 +34,15 @@ class TrainConfig:
 @dataclasses.dataclass
 class TrainState:
     """The model (float32 parameters), its optimizer and schedule, the EMA
-    shadow (None without EMA) and the number of optimizer steps taken. The
-    train step updates it in place."""
+    shadow (None without EMA), the global-norm clip of the gradients (0:
+    none) and the number of optimizer steps taken. The train step updates
+    it in place."""
     model: torch.nn.Module
     optimizer: torch.optim.Optimizer
     scheduler: torch.optim.lr_scheduler.LRScheduler
     ema: Optional[dict]
     step: int = 0
+    clip_max_norm: float = 0.0
 
 
 def make_optimizer(cfg: TrainConfig, model: torch.nn.Module):
@@ -78,10 +81,17 @@ def clip_by_global_norm_(parameters, max_norm: float) -> torch.Tensor:
     return norm
 
 
-def create_train_state(model: torch.nn.Module, cfg: TrainConfig) -> TrainState:
-    """Wrap a model with float32 parameters (``build_detr_train_model``)
-    into a train state: optimizer, schedule and, with ``use_ema``, the
-    shadow."""
-    optimizer, scheduler = make_optimizer(cfg, model)
+def create_train_state(model: torch.nn.Module, cfg: TrainConfig, tx=None) -> TrainState:
+    """Wrap a model with float32 parameters (``build_detr_train_model``,
+    ``build_rtdetr_train_model``) into a train state: optimizer, schedule,
+    clip and, with ``use_ema``, the shadow. ``tx`` (a
+    ``train.optim.RegistryOptimizer`` from ``build_optimizer``, built on
+    this model) replaces the default, ``make_optimizer(cfg, model)`` with
+    ``cfg.clip_max_norm``."""
+    if tx is None:
+        optimizer, scheduler = make_optimizer(cfg, model)
+        clip = cfg.clip_max_norm
+    else:
+        optimizer, scheduler, clip = tx
     return TrainState(model=model, optimizer=optimizer, scheduler=scheduler,
-                      ema=ema_init(model) if cfg.use_ema else None)
+                      ema=ema_init(model) if cfg.use_ema else None, clip_max_norm=clip)

@@ -1,7 +1,8 @@
 """Train and eval steps (counterpart of train/steps.py).
 
 Train: augment -> model (training mode) -> set criterion -> backward ->
-global-norm clip -> AdamW step and schedule -> EMA. Eval: warp -> model ->
+global-norm clip -> optimizer step and schedule -> EMA (parameters and
+buffers, the BatchNorm running statistics the forward updated included). Eval: warp -> model ->
 softmax / pixel de-normalisation -> batched PnP -> SPEED scores (and, with a
 criterion, the eval losses). Everything runs on the tensors' device with no
 host round trip.
@@ -46,15 +47,15 @@ def make_train_step(criterion_cfg: CriterionConfig, train_cfg: TrainConfig,
     ``torch.autocast`` on float32 parameters; None computes in the
     parameters' dtype. ``use_pallas_augment`` augments with
     ``augment_batch_pallas`` (one affine warp, then the fused photometric
-    kernel K4 on the GPU) instead of ``augment_batch``. The state is updated
-    in place; the returned losses are detached tensors (no host
-    synchronisation).
+    kernel K4 on the GPU) instead of ``augment_batch``. ``denoising`` hands
+    an RT-DETR trained with ``num_denoising > 0`` its targets ({"labels",
+    "points": the augmented normalised landmarks}) and ``generator`` for its
+    CDN groups. The state is updated in place; the returned losses are
+    detached tensors (no host synchronisation).
     """
     augment = augment_batch_pallas if use_pallas_augment else augment_batch
     if axis_name is not None:
         raise NotImplementedError("data-parallel training (axis_name) is not ported")
-    if denoising:
-        raise NotImplementedError("RT-DETR denoising training is not ported")
 
     def train_step(state: TrainState, batch, generator, on_stage=None):
         """``on_stage(name)``, if given, is called as each stage ends
@@ -71,7 +72,11 @@ def make_train_step(criterion_cfg: CriterionConfig, train_cfg: TrainConfig,
             images = images.to(next(model.parameters()).dtype)
         with torch.autocast(images.device.type, dtype=compute_dtype,
                             enabled=compute_dtype is not None):
-            outputs = model(images)
+            if denoising:
+                outputs = model(images, {"labels": batch["labels"], "points": kp_norm},
+                                generator)
+            else:
+                outputs = model(images)
         mark("forward")
         total, losses = set_criterion(outputs, targets, criterion_cfg)
         mark("loss")
@@ -79,7 +84,8 @@ def make_train_step(criterion_cfg: CriterionConfig, train_cfg: TrainConfig,
         state.optimizer.zero_grad(set_to_none=True)
         total.backward()
         mark("backward")
-        clip_by_global_norm_(model.parameters(), train_cfg.clip_max_norm)
+        if state.clip_max_norm > 0:
+            clip_by_global_norm_(model.parameters(), state.clip_max_norm)
         state.optimizer.step()
         state.scheduler.step()
         if state.ema is not None:

@@ -12,8 +12,8 @@ names, so each leaf maps by its path; only the layouts change:
 * attention projections: ``mha_query/key/value`` kernels (d, H, Dh) ->
   (H*Dh, d) with biases (H, Dh) -> (H*Dh,), and ``mha_out`` kernels
   (H, Dh, d) -> (d, H*Dh);
-* FrozenBatchNorm / BatchNorm / GroupNorm / LayerNorm ``scale`` ->
-  ``weight``; ``batch_stats`` ``mean``/``var`` ->
+* FrozenBatchNorm / BatchNorm / GroupNorm / LayerNorm ``scale`` and
+  ``nn.Embed`` ``embedding`` -> ``weight``; ``batch_stats`` ``mean``/``var`` ->
   ``running_mean``/``running_var``, and for a ``bn`` / ``sync_bn``
   backbone (``nn.BatchNorm2d``) a ``num_batches_tracked`` of 0, which JAX
   does not count.
@@ -22,7 +22,10 @@ names, so each leaf maps by its path; only the layouts change:
 same for ``models.rtdetr.RTDETR``: PResNet's norms are ``FrozenBatchNorm``
 (``freeze_norm``) or ``nn.BatchNorm2d``, the encoder's and decoder's are
 ``nn.BatchNorm2d``; the fused RepVgg convs (``conv_fused``, deploy) carry a
-bias.
+bias; a trained model's learnt query table (``tgt_embed``) and CDN label
+table (``denoising_class_embed``) come as embeddings and its trainable
+BatchNorm statistics as ``batch_stats``. ``flax_realnvp_to_state_dict``
+carries a ``models.real_nvp.RealNVP``'s parameters.
 
 ``flax_quant_to_port(quant)`` takes the JAX ``quant`` collection of a
 calibrated int8 model (nested dicts of numpy scalars) and returns the
@@ -60,7 +63,7 @@ def _convert_param(path, x):
         raise ValueError(f"unexpected kernel rank at {'/'.join(path)}: {x.shape}")
     if leaf == "bias":
         return "bias", x.reshape(-1) if parent.startswith("mha_") else x
-    if leaf == "scale":
+    if leaf in ("scale", "embedding"):
         return "weight", x
     return leaf, x  # query_embed
 
@@ -93,6 +96,12 @@ def flax_rtdetr_to_state_dict(params: dict, batch_stats: dict | None = None,
         if key.endswith(".running_mean") and not (freeze_norm and key.startswith("backbone.")):
             state[key[:-len("running_mean")] + "num_batches_tracked"] = torch.tensor(0)
     return state
+
+
+def flax_realnvp_to_state_dict(params: dict) -> dict:
+    """JAX RealNVP ``params`` (``s_{i}`` / ``t_{i}``, each ``fc1..fc3``) ->
+    the port's ``state_dict``."""
+    return flax_detr_to_state_dict(params)
 
 
 def flax_quant_to_port(quant: dict) -> dict:

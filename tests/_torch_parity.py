@@ -1,6 +1,7 @@
 """Helpers shared by the tests/test_torch_*.py parity tests: build a JAX
 module's variables and hand them to the PyTorch port as numpy trees."""
 import jax
+import jax.numpy as jnp
 import numpy as np
 
 
@@ -87,6 +88,48 @@ def port_to_flax(jmodel, state_dict, *args, bn="frozen_bn", **kwargs):
     assert not np.isnan(flat).any()
     out = [flat[s:s + n].reshape(leaf.shape) for s, n, leaf in zip(starts, sizes, leaves)]
     return numpy_tree(jax.tree_util.tree_unflatten(treedef, out))
+
+
+def jax_cdn_draws(key, B, G, D=2, T=11, num_classes=11, label_noise_ratio=0.5):
+    """The draws JAX's ``build_denoising_group`` makes from ``key`` (its
+    models/denoising.py:72-92) for B images of T targets in G groups, as
+    the port's ``draw_denoising_noise`` returns them: (flip, rand_labels,
+    u, sign) tensors."""
+    import torch
+
+    k1, k2, k3, k4 = jax.random.split(key, 4)
+    shape = (B, 2 * G, T)
+    flip = jax.random.bernoulli(k1, label_noise_ratio * 0.5, shape)
+    rand_labels = jax.random.randint(k2, shape, 0, num_classes)
+    u = jax.random.uniform(k3, shape + (D,))
+    sign = jax.random.randint(k4, shape + (D,), 0, 2).astype(jnp.float32) * 2 - 1
+    return tuple(torch.from_numpy(np.array(a)) for a in (flip, rand_labels, u, sign))
+
+
+def jax_vjp(f, params, feats, rng):
+    """One jitted ``jax.vjp`` of ``f(params, feats) -> (outputs, aux)`` for
+    random output cotangents: (outputs, aux, parameter and feature
+    gradients, the cotangents)."""
+    shapes = jax.eval_shape(f, params, feats)[0]
+    cot = [rng.randn(*o.shape) for o in shapes]
+
+    @jax.jit
+    def run(p, fs, c):
+        out, vjp, aux = jax.vjp(f, p, fs, has_aux=True)
+        return (out, aux) + vjp(c)
+
+    out, aux, gp, gf = run(params, feats, [jnp.asarray(x) for x in cot])
+    return out, aux, gp, gf, cot
+
+
+def grads_close(got, ref, tol, what):
+    """Each gradient within ``tol`` of its tensor's largest reference value
+    (floored at 1e-3 of the largest anywhere: exact-zero gradients, such as
+    the attention key biases', compare as rounding noise)."""
+    floor = 1e-3 * max(r.abs().max().item() for r in ref.values())
+    for k, r in ref.items():
+        err = (got[k] - r).abs().max().item()
+        assert err <= tol * max(r.abs().max().item(), floor), (what, k, err)
 
 
 def poses(rng, n):

@@ -4,9 +4,10 @@ flash attention forward and backward) against its plain PyTorch version,
 the model builders' default device, the bf16 eval of a train state, and
 the int8 path (cuBLASLt's int8 GEMMs bit for bit against the CPU's, the
 int8 DETR and its calibration against the CPU, K1 in the int8 eval step),
-and the RT-DETR eval path (K1 on its AIFI layer at 512, the model, the
+the RT-DETR eval path (K1 on its AIFI layer at 512, the model, the
 deformable sampling, the query selection, the sigma solvers and the int8
-RT-DETR against the CPU).
+RT-DETR against the CPU), and the RT-DETR train step at 512 (K1 and K2 on
+its AIFI layer, with and without CDN).
 These tests need a CUDA device and skip without one. The file imports no
 JAX, so on a machine without JAX it runs on its own:
 
@@ -47,7 +48,9 @@ def cuda_device():
     return torch.device("cuda")
 
 
-SHAPES = [(8, 8, 784), (2, 4, 49), (2, 2, 100), (1, 2, 4096), (1, 1, 1)]
+# The DETR encoder's T, the RT-DETR recipe's AIFI shape (16, 8, 256) and
+# edge cases.
+SHAPES = [(8, 8, 784), (16, 8, 256), (2, 4, 49), (2, 2, 100), (1, 2, 4096), (1, 1, 1)]
 
 # The relative L2 limit of K1 and K2 against their plain versions: bf16
 # rounding alone gives a few 1e-3, a key tile left out far more.
@@ -280,18 +283,20 @@ def test_cuda_rotate_kernel_matches_plain_at_random_angles(cuda_device, N, S, cu
 @pytest.mark.parametrize("cubic", [False, True], ids=["bilinear", "cubic"])
 def test_cuda_rotate_is_one_device_kernel_per_call(cuda_device, cubic):
     """K3 takes theta's tan and sin itself and needs no scratch canvas: a
-    call on float32 images and angles runs exactly one device kernel."""
-    from torch.profiler import ProfilerActivity, profile
+    call on float32 images and angles runs exactly one device kernel,
+    counted by the profiler in a fresh process (chip_smoke.py's
+    ``k3_device_launches``): in a process that has run many other kernels
+    the profiler can miss a ctypes launch."""
+    import pathlib
+    import sys
 
-    x = torch.rand(26, 224, 224, 3, device=cuda_device) * 255
-    th = torch.linspace(-1.5, 1.5, 26, device=cuda_device)
-    pallas_rotate.rotate_shear3_pallas(x, th, cubic)  # build and warm up
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        pallas_rotate.rotate_shear3_pallas(x, th, cubic)
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
-    assert sum(e.count for e in kernels) == 1, [e.key for e in kernels]
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.pop(0)
+    count, names = chip_smoke.k3_device_launches()["cubic" if cubic else "bilinear"]
+    assert count == 1, names
 
 
 # -- K4, the fused photometric chain -----------------------------------------------
@@ -813,3 +818,41 @@ def test_cuda_int8_rtdetr_quantizes_each_site_with_the_cpus_scale(cuda_device):
 def test_cuda_rtdetr_builder_puts_the_model_on_the_card_by_default(cuda_device):
     model = build_rtdetr_model(RTDETRConfig(**RT_SIZES))
     assert all(p.device.type == "cuda" for p in model.parameters())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_denoising", [0, 22], ids=["plain", "cdn"])
+def test_cuda_rtdetr_train_step_runs_k1_and_k2_on_the_aifi_layer(cuda_device, num_denoising):
+    """A bf16-autocast RT-DETR train step at 512 (trainable BN, the recipe's
+    registry AdamW groups, EMA): K1 and K2 once each, finite losses, the
+    dn levels with CDN, the BN statistics moved."""
+    from satellite_pose_estimation_tpu_torch.data.augment import AugmentConfig
+    from satellite_pose_estimation_tpu_torch.losses.criterion import CriterionConfig
+    from satellite_pose_estimation_tpu_torch.models.rtdetr import build_rtdetr_train_model
+    from satellite_pose_estimation_tpu_torch.train.optim import build_optimizer
+    from satellite_pose_estimation_tpu_torch.train.steps import make_train_step
+
+    cfg = RTDETRConfig(**RT_SIZES, freeze_norm=False, num_denoising=num_denoising)
+    model = build_rtdetr_train_model(cfg, seed=0, device=cuda_device)
+    groups = [{"params": "^(?=.*backbone)(?=.*norm).*$", "lr": 3e-5, "weight_decay": 0.0},
+              {"params": "^(?=.*backbone)(?!.*norm).*$", "lr": 3e-5},
+              {"params": "^(?=.*(?:encoder|decoder))(?=.*(?:norm|bias)).*$", "weight_decay": 0.0}]
+    tx = build_optimizer({"type": "AdamW", "lr": 3e-4, "weight_decay": 1e-4, "params": groups},
+                         model, 1, {"type": "MultiStepLR", "milestones": [1000]}, 0.1)
+    tcfg = TrainConfig(use_ema=True)
+    state = create_train_state(model, tcfg, tx)
+    step = make_train_step(CriterionConfig(point_loss="uncert", use_focal=True, eos_coef=1e-4,
+                                           cost_class=2.0), tcfg, AugmentConfig(out_size=512),
+                           compute_dtype=torch.bfloat16, denoising=num_denoising > 0)
+    batch = _rt_batch(cuda_device, 2, 528, [8.0, 8.0, 520.0, 520.0])
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    batch["landmarks_buf"] = torch.rand(2, 11, 2, generator=g, device=cuda_device) * 400 + 60
+    batch["labels"] = torch.arange(11, device=cuda_device).repeat(2, 1)
+    means = {n: b.clone() for n, b in model.named_buffers() if n.endswith("running_mean")}
+    fa.launch_count = fa.bwd_launch_count = 0
+    losses = step(state, batch, g)
+    torch.cuda.synchronize()
+    assert (fa.launch_count, fa.bwd_launch_count) == (1, 1)
+    assert ("loss_points_dn_1" in losses) == (num_denoising > 0)
+    assert all(torch.isfinite(v) for v in losses.values())
+    assert all(not torch.equal(b, means[n]) for n, b in model.named_buffers() if n in means)

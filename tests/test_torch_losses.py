@@ -117,10 +117,22 @@ def test_set_criterion_gradient_reaches_every_level():
 
 
 def test_set_criterion_without_aux_and_cdn_raises():
+    """Without ``aux_loss`` no aux level is scored; with ``dn_aux_outputs``
+    and ``dn_meta`` (the CDN branch, once not ported and raising) every dn
+    level is scored without a Hungarian, as JAX scores it (1e-5)."""
     out, tgt = _outputs(4)
     _, losses = set_criterion(_torch_tree(out), _torch_tree(tgt), CriterionConfig(aux_loss=False))
     assert "loss_ce_0" not in losses
-    tout = _torch_tree(out)
-    tout["dn_aux_outputs"] = []
-    with pytest.raises(NotImplementedError):
-        set_criterion(tout, _torch_tree(tgt), CriterionConfig())
+    G, B = 2, 3
+    dn = [_outputs(5 + i, Q=2 * G * 11, levels=1, sigmas=True)[0] for i in range(2)]
+    out = dict(_outputs(4, sigmas=True)[0], dn_aux_outputs=dn)
+    meta = {"dn_num_group": G, "dn_num_split": (2 * G * 11, 20)}
+    cfg, jcfg = (C(point_loss="uncert", use_focal=True) for C in (CriterionConfig,
+                                                                  JaxCriterionConfig))
+    ref_total, ref = jax_set_criterion(dict(_jax_tree(out), dn_meta=meta), _jax_tree(tgt), jcfg)
+    total, losses = set_criterion(dict(_torch_tree(out), dn_meta=meta), _torch_tree(tgt), cfg)
+    assert set(losses) == set(ref) and {"loss_ce_dn_1", "loss_points_dn_1"} <= set(losses)
+    for key, val in ref.items():
+        np.testing.assert_allclose(losses[key].item(), float(val), rtol=1e-5, atol=1e-6,
+                                   err_msg=key)
+    np.testing.assert_allclose(total.item(), float(ref_total), rtol=1e-5)

@@ -193,6 +193,53 @@ print("OK", len(quant))
 """
 
 
+_TINY_RTDETR_TRAIN = r"""
+import sys
+for name in ("jax", "jaxlib", "flax", "optax", "satellite_pose_estimation_tpu"):
+    sys.modules[name] = None  # any import of these now raises ImportError
+
+import torch
+from satellite_pose_estimation_tpu_torch.data.augment import AugmentConfig
+from satellite_pose_estimation_tpu_torch.losses.criterion import CriterionConfig
+from satellite_pose_estimation_tpu_torch.models.rtdetr import RTDETRConfig, build_rtdetr_train_model
+from satellite_pose_estimation_tpu_torch.train.optim import build_optimizer
+from satellite_pose_estimation_tpu_torch.train.state import TrainConfig, create_train_state
+from satellite_pose_estimation_tpu_torch.train.steps import make_train_step
+
+cfg = RTDETRConfig(depth=18, freeze_norm=False, hidden_dim=32, nhead=2, dim_feedforward=64,
+                   num_queries=12, num_decoder_layers=2, expansion=0.5, num_denoising=22)
+model = build_rtdetr_train_model(cfg, seed=0, device="cpu")
+optimizer = {"type": "AdamW", "lr": 0.0003, "betas": [0.9, 0.999], "weight_decay": 0.0001,
+             "params": [{"params": "^(?=.*backbone)(?=.*norm).*$", "lr": 0.00003,
+                         "weight_decay": 0.0},
+                        {"params": "^(?=.*backbone)(?!.*norm).*$", "lr": 0.00003},
+                        {"params": "^(?=.*(?:encoder|decoder))(?=.*(?:norm|bias)).*$",
+                         "weight_decay": 0.0}]}
+tx = build_optimizer(optimizer, model, 1, {"type": "MultiStepLR", "milestones": [1000]}, 0.1)
+tcfg = TrainConfig(use_ema=True)
+state = create_train_state(model, tcfg, tx)
+step = make_train_step(CriterionConfig(point_loss="uncert", use_focal=True, eos_coef=1e-4,
+                                       cost_class=2.0), tcfg, AugmentConfig(out_size=64),
+                       denoising=True)
+g = torch.Generator().manual_seed(0)
+batch = {
+    "image": torch.randint(0, 256, (2, 80, 80, 3), generator=g, dtype=torch.uint8),
+    "clip_bbox_buf": torch.tensor([[4.0, 4.0, 76.0, 76.0]] * 2),
+    "landmarks_buf": torch.rand(2, 11, 2, generator=g) * 60 + 10,
+    "labels": torch.arange(11).repeat(2, 1),
+}
+losses = step(state, batch, g)
+assert state.step == 1 and "loss_points_dn_1" in losses
+assert all(torch.isfinite(v) for v in losses.values())
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
+                                       "satellite_pose_estimation_tpu")
+                and sys.modules[m] is not None)
+assert not loaded, loaded
+print("OK", losses["loss_total"].item())
+"""
+
+
 def test_port_runs_an_eval_step_with_jax_blocked():
     proc = subprocess.run([sys.executable, "-c", _TINY_EVAL], cwd=ROOT,
                           capture_output=True, text=True, timeout=300)
@@ -227,6 +274,15 @@ def test_port_runs_rtdetr_sigma_eval_steps_with_jax_blocked():
     """A tiny RT-DETR through the sigma and self-assessed eval steps, and its
     int8 build under ``quantized_inference`` calibrated and evaluated."""
     proc = subprocess.run([sys.executable, "-c", _TINY_RTDETR], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.startswith("OK")
+
+
+def test_port_runs_an_rtdetr_cdn_train_step_with_jax_blocked():
+    """A tiny RT-DETR through one CDN train step with the recipe's registry
+    AdamW groups, trainable BatchNorm and EMA."""
+    proc = subprocess.run([sys.executable, "-c", _TINY_RTDETR_TRAIN], cwd=ROOT,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.startswith("OK")

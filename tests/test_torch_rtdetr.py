@@ -364,12 +364,15 @@ def test_builder_defaults_to_the_card_and_the_unported_surface_raises():
     for backbone in ("mobilenetv3_large", "ghostnetv2"):
         with pytest.raises(NotImplementedError):
             RTDETR(dataclasses.replace(cfg, backbone=backbone))
-    for unported in (dict(num_denoising=10), dict(learnt_init_query=True), dict(box_dim=4)):
-        with pytest.raises(NotImplementedError):
-            RTDETR(dataclasses.replace(cfg, **unported))
-    model = build_rtdetr_model(cfg, device="cpu").train()
     with pytest.raises(NotImplementedError):
-        model(torch.zeros(1, INPUT, INPUT, 3))
+        RTDETR(dataclasses.replace(cfg, box_dim=4))
+    # CDN, the learnt query table and training, once unported, now build and run.
+    for ported in (dict(num_denoising=10), dict(learnt_init_query=True)):
+        RTDETR(dataclasses.replace(cfg, **ported))
+    model = build_rtdetr_model(cfg, device="cpu").train()
+    out = model(torch.zeros(1, INPUT, INPUT, 3))
+    assert out["pred_points"].shape == (1, SIZES["num_queries"], 2)
+    assert torch.isfinite(out["pred_points"]).all() and out["pred_points"].requires_grad
     with quantized_inference(), pytest.raises(ValueError):
         build_rtdetr_model(cfg, device="cpu", dtype=torch.bfloat16)
     assert set(f.name for f in dataclasses.fields(RTDETRConfig)) == (
