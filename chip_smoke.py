@@ -8,7 +8,7 @@ target). It builds the port's CUDA kernels from ``satellite_pose_estimation
 _tpu_torch/csrc`` with nvcc (K1, the fused attention forward; K2, its
 backward; K3, the rotation; K4, the fused photometric chain; K5, flash
 attention -- one nvcc per source, all started together), then runs
-seventeen phases and exits non-zero if any fails:
+nineteen phases and exits non-zero if any fails:
 
 1. the card's name and power limit, the kernel build time, and each
    kernel's registers, shared memory and spills (ptxas's own lines);
@@ -123,7 +123,30 @@ seventeen phases and exits non-zero if any fails:
    bench.py's RT-DETR train shape (``RTDETRConfig(depth=50,
    expansion=0.5)``, FrozenBN, at 256, batch 256, or the largest power of
    two that fits): no K1 / K2 launch, the FrozenBN buffers untouched, the
-   rate, spans and peak memory.
+   rate, spans and peak memory;
+18. the R1 CLI (``tools/main.py``'s ``main``) at full width on a SPEED set
+   rendered into a temporary directory (96 frames at 1920 x 1200, train
+   0-63, val 64-95): the flagship flags (resnet50s8, 4 + 4 layers, 20
+   queries, input 224, batch 32, bf16, dropout 0.1) for 1 epoch of 2 train
+   steps and 1 val step (no kernel in the dropout-0.1 train steps, K1 four
+   times on bf16 (32, 8, 784, 32) in the val step), log.txt's keys and
+   finite losses, the 32-image eval log and the checkpoint; ``--resume``
+   of it for epoch 1; ``--eval`` equal to epoch 1's eval (1e-6); the
+   surgery of a seeded public-surface ``detr-r50-e632da11.pth`` (every
+   copied and sliced tensor in its module bit for bit, with the kept,
+   sliced and dropped keys); the single-model submission (one row per
+   image; with the frames' landmarks as the model's output every pose
+   solved with a unit quaternion, 1e-5); each loop's img/s and loader-wait
+   share, the host's decode + pack ms a frame and peak memory;
+19. the R2 CLI (``tools/train.py``'s ``main``) on
+   configs/speed/rtdetr_r50vd_kl_1_512.yml (or, without PyYAML, its merged
+   dict) with ``-u compute_dtype=bfloat16`` over the same frames: 1 epoch
+   of 4 train steps (K1 and K2 once a
+   step on bf16 (16, 8, 256, 32)) and 2 eval steps (K1 once each), the
+   registry AdamW's groups at the YAML's rates, the BatchNorm statistics
+   moved, the sigma solver's scores in log.txt; ``-t checkpoint_best
+   --test-only`` loading every tensor with the EMA re-seeded; img/s,
+   loader-wait share and peak memory.
 
 K1, K2 and K5 are held to their plain versions by two gates per output:
 the largest error within 1e-5 (float32) or 2e-2 (bf16) times 1 + the
@@ -152,9 +175,10 @@ from concurrent.futures import ThreadPoolExecutor
 
 
 # The R2 recipe configs/speed/rtdetr_r50vd_kl_1_512.yml as literals (the
-# card's machine has no PyYAML): its two includes as parsed, and the leaf's
-# loss, batch and input. tests/test_torch_optim.py holds them equal to the
-# files and recipe_configs() to what the JAX package's YAML loader builds.
+# card's machine may lack PyYAML): its two includes as parsed, and the
+# leaf's loss, batch and input. tests/test_torch_optim.py holds them equal
+# to the files, and the configs the port's YAMLConfig reads from
+# recipe_merged() to what the JAX package's YAML loader builds.
 RECIPE_OPTIMIZER_YML = {
     "use_ema": True,
     "ema": {"decay": 0.9999, "warmups": 2000},
@@ -187,27 +211,44 @@ RECIPE_MODEL_YML = {
     },
 }
 RECIPE_LOSSES, RECIPE_BATCH, RECIPE_INPUT = ["labels", "points_uncert"], 16, 512
+# Its first include (include/dataset.yml) and the leaf itself, so that
+# recipe_merged() is the whole file as load_config merges it
+# (tests/test_torch_yaml_config.py holds the two equal).
+RECIPE_DATASET_YML = {
+    "task": "landmarker",
+    "num_classes": 11,
+    "train_dataloader": {
+        "batch_size": 50, "shuffle": True, "drop_last": True,
+        "dataset": {"ann_file": "wz_train.json", "index_file": "train_1.txt",
+                    "img_dir": "images/train", "resize": 256, "train": True}},
+    "val_dataloader": {
+        "batch_size": 50, "shuffle": False, "drop_last": False,
+        "dataset": {"ann_file": "wz_train.json", "index_file": "val_1.txt",
+                    "img_dir": "images/train", "resize": 256, "train": False}},
+}
+RECIPE_LEAF_YML = {
+    "output_dir": "output/rtdetr_r50vd_kl_1_512",
+    "SetCriterion": {"losses": RECIPE_LOSSES},
+    "train_dataloader": {"batch_size": RECIPE_BATCH,
+                         "dataset": {"index_file": "train_1.txt", "resize": RECIPE_INPUT}},
+    "val_dataloader": {"batch_size": RECIPE_BATCH,
+                       "dataset": {"index_file": "val_1.txt", "resize": RECIPE_INPUT}},
+}
 # bench.py's RT-DETR train shape (BENCH_ARCH=rtdetr BENCH_MODE=train).
 BENCH_RTDETR_INPUT, BENCH_RTDETR_BATCH = 256, 256
 
 
-def recipe_configs():
-    """The recipe's ``RTDETRConfig`` and ``CriterionConfig`` keyword
-    arguments, read as the JAX package's YAML loader reads them."""
-    m = RECIPE_MODEL_YML
-    p, h, t, s = m["PResNet"], m["HybridEncoder"], m["RTDETRTransformer"], m["SetCriterion"]
-    model = dict(depth=p["depth"], variant=p["variant"], return_idx=tuple(p["return_idx"]),
-                 freeze_norm=p["freeze_norm"], hidden_dim=h["hidden_dim"], nhead=h["nhead"],
-                 dim_feedforward=h["dim_feedforward"], expansion=float(h["expansion"]),
-                 num_queries=t["num_queries"], num_decoder_layers=t["num_decoder_layers"],
-                 num_denoising=t["num_denoising"])
-    costs = s["matcher"]["weight_dict"]
-    criterion = dict(point_loss="uncert" if "points_uncert" in RECIPE_LOSSES else "l1",
-                     use_focal=bool(m["use_focal_loss"]), eos_coef=float(s["eos_coef"]),
-                     cost_class=float(costs["cost_class"]), cost_pts=float(costs["cost_bbox"]),
-                     weight_ce=float(s["weight_dict"]["loss_ce"]),
-                     weight_points=float(s["weight_dict"]["loss_bbox"]))
-    return model, criterion
+def recipe_merged() -> dict:
+    """configs/speed/rtdetr_r50vd_kl_1_512.yml merged as load_config merges
+    it (includes in order, then the leaf)."""
+    import copy
+
+    from satellite_pose_estimation_tpu_torch.core.yaml_utils import merge_dict
+
+    merged: dict = {}
+    for part in (RECIPE_DATASET_YML, RECIPE_OPTIMIZER_YML, RECIPE_MODEL_YML, RECIPE_LEAF_YML):
+        merge_dict(merged, copy.deepcopy(part))
+    return merged
 
 
 def log(*args):
@@ -680,6 +721,7 @@ def main() -> int:
     int8 = int8_phases(torch, card, dev, g)
     rtdetr = rtdetr_phases(torch, card, dev, g, sm_scale)
     rt_train = rtdetr_train_phases(torch, card, dev, g, sm_scale)
+    cli = cli_phases(torch, card, dev)
 
     log(json.dumps({"kernels": [{
         "name": "fused_attention",
@@ -688,7 +730,8 @@ def main() -> int:
         "replaces": "satellite_pose_estimation_tpu/ops/fused_attention.py:31",
         "launches": (main_path_launches + train["k1_launches"] + train["k1_eval_bf16_launches"]
                      + routes["b"]["k1"] + int8["k1"] + rtdetr["k1"]
-                     + sum(rt_train[p]["k1"] for p in ("train", "eval", "cdn", "bench"))),
+                     + sum(rt_train[p]["k1"] for p in ("train", "eval", "cdn", "bench"))
+                     + cli["r1"]["launches"]["k1"] + cli["r2"]["launches"]["k1"]),
         "launches_by_path": {"eval": main_path_launches, "train": train["k1_launches"],
                              "train_state_eval_bf16": train["k1_eval_bf16_launches"],
                              "train_pallas_augment": routes["b"]["k1"],
@@ -698,7 +741,9 @@ def main() -> int:
                              "rtdetr_train_512": rt_train["train"]["k1"],
                              "rtdetr_train_state_eval_512": rt_train["eval"]["k1"],
                              "rtdetr_train_cdn_512": rt_train["cdn"]["k1"],
-                             "rtdetr_train_256": rt_train["bench"]["k1"]},
+                             "rtdetr_train_256": rt_train["bench"]["k1"],
+                             "r1_cli": cli["r1"]["launches"]["k1"],
+                             "r2_cli": cli["r2"]["launches"]["k1"]},
         "max_abs_err": k1_err,
         **k1_times,
         "rtdetr_aifi": {"shape": [64, 8, 256, 32], "dtype": "bfloat16", **rtdetr["aifi"]},
@@ -708,12 +753,14 @@ def main() -> int:
         "source": "satellite_pose_estimation_tpu_torch/csrc/fused_attention_bwd.cu",
         "replaces": "satellite_pose_estimation_tpu/ops/fused_attention.py:141",
         "launches": (train["k2_launches"] + routes["b"]["k2"]
-                     + sum(rt_train[p]["k2"] for p in ("train", "cdn", "bench"))),
+                     + sum(rt_train[p]["k2"] for p in ("train", "cdn", "bench"))
+                     + cli["r2"]["launches"]["k2"]),
         "launches_by_path": {"train": train["k2_launches"],
                              "train_pallas_augment": routes["b"]["k2"],
                              "rtdetr_train_512": rt_train["train"]["k2"],
                              "rtdetr_train_cdn_512": rt_train["cdn"]["k2"],
-                             "rtdetr_train_256": rt_train["bench"]["k2"]},
+                             "rtdetr_train_256": rt_train["bench"]["k2"],
+                             "r2_cli": cli["r2"]["launches"]["k2"]},
         "max_abs_err": train["k2_err"],
         **train["k2_times"],
         "rtdetr_aifi": {"shape": [RECIPE_BATCH, 8, 256, 32], "dtype": "bfloat16",
@@ -764,6 +811,7 @@ def main() -> int:
 
 def train_phases(torch, card, dev, g, sm_scale):
     """Phases 6-8: K2, the full-width train slice and its timing."""
+    from satellite_pose_estimation_tpu_torch.core.yaml_config import YAMLConfig
     from satellite_pose_estimation_tpu_torch.data.augment import AugmentConfig, augment_batch
     from satellite_pose_estimation_tpu_torch.losses.criterion import CriterionConfig, set_criterion
     from satellite_pose_estimation_tpu_torch.models.detr import DETRConfig, build_detr_train_model
@@ -1912,6 +1960,7 @@ def rtdetr_phases(torch, card, dev, g, sm_scale):
 def rtdetr_train_phases(torch, card, dev, g, sm_scale):
     """Phases 16-17: the R2 recipe's RT-DETR train step at 512 (K1 and K2 at
     the AIFI shape), with CDN, and bench's RT-DETR train shape at 256."""
+    from satellite_pose_estimation_tpu_torch.core.yaml_config import YAMLConfig
     from satellite_pose_estimation_tpu_torch.data.augment import AugmentConfig, augment_batch
     from satellite_pose_estimation_tpu_torch.losses.criterion import CriterionConfig, set_criterion
     from satellite_pose_estimation_tpu_torch.models import rtdetr_decoder
@@ -1928,10 +1977,9 @@ def rtdetr_train_phases(torch, card, dev, g, sm_scale):
 
     bf16 = torch.bfloat16
     steps_per_window, windows = 5, 3
-    model_kw, crit_kw = recipe_configs()
+    recipe = YAMLConfig(cfg=recipe_merged())
     R = RECIPE_OPTIMIZER_YML
-    cfg = RTDETRConfig(**model_kw)
-    crit = CriterionConfig(**crit_kw)
+    cfg, crit = recipe.model_config(), recipe.criterion_config()
     tcfg = TrainConfig(use_ema=R["use_ema"], ema_decay=R["ema"]["decay"],
                        ema_warmups=float(R["ema"]["warmups"]), clip_max_norm=R["clip_max_norm"])
     size, B, pack = RECIPE_INPUT, RECIPE_BATCH, RECIPE_INPUT + 32
@@ -2278,6 +2326,381 @@ def rtdetr_train_phases(torch, card, dev, g, sm_scale):
     return {"train": train_launches, "eval": eval_launches, "cdn": cdn_launches,
             "bench": bench_launches, "k2_aifi": dict(k2_times, max_abs_err=k2_err),
             "bench_batch": bench_b}
+
+class _LandmarkModel:
+    """A stand-in for the keypoint model in phase 18's submission check: each
+    call returns the next batch's outputs, the frames' own landmarks
+    normalised to their crops (11 keypoint queries, the rest background)."""
+
+    def __init__(self, torch, outputs, dev):
+        self.outputs = list(outputs)
+        self.weight = torch.zeros((), device=dev)
+        self.training = False
+
+    def parameters(self):
+        return iter([self.weight])
+
+    def eval(self):
+        return self
+
+    def train(self, mode=True):
+        return self
+
+    def __call__(self, images):
+        return self.outputs.pop(0)
+
+
+def _landmark_outputs(torch, dataset, batch_size, landmarks, dev):
+    """Per batch of ``dataset.batches(batch_size)``: logits and points that
+    put each frame's 11 landmarks (``landmarks[filename]``) on queries 0-10
+    of 20, in its crop's normalised coordinates."""
+    import numpy as np
+
+    outs = []
+    for b in dataset.batches(batch_size, prefetch=0):
+        clip = b["clip_bbox"].astype(np.float64)
+        wh = clip[:, 2:4] - clip[:, 0:2]
+        n = len(clip)
+        names = b["filename"] + [b["filename"][-1]] * (n - len(b["filename"]))
+        lm = np.stack([np.asarray(landmarks[f], np.float64) for f in names])
+        points = np.full((n, 20, 2), 0.5)
+        points[:, :11] = (lm - clip[:, None, :2]) / wh[:, None]
+        logits = np.full((n, 20, 12), -4.0)
+        logits[:, np.arange(11), np.arange(11)] = 4.0
+        logits[:, 11:, 11] = 4.0
+        outs.append({"pred_logits": torch.tensor(logits, dtype=torch.float32, device=dev),
+                     "pred_points": torch.tensor(points, dtype=torch.float32, device=dev)})
+    return outs
+
+
+def cli_phases(torch, card, dev):
+    """Phases 18-19: the R1 CLI (tools/main.py) and the R2 CLI
+    (tools/train.py) through their own ``main`` on a SPEED set rendered
+    into a temporary directory: 96 frames at 1920 x 1200, train split 0-63,
+    val split 64-95."""
+    import contextlib
+    import csv
+    import importlib.util
+    import tempfile
+
+    from satellite_pose_estimation_tpu_torch.data.crop import generate_clip_bbox_val
+    from satellite_pose_estimation_tpu_torch.data.dataset import (
+        SpeedSubmissionDataset,
+        _decode,
+        pack_crop,
+    )
+    from satellite_pose_estimation_tpu_torch.models.layers import FrozenBatchNorm
+    from satellite_pose_estimation_tpu_torch.ops import fused_attention as fa
+    from satellite_pose_estimation_tpu_torch.tools import gen_submission_single as gsub
+    from satellite_pose_estimation_tpu_torch.tools import main as r1_cli
+    from satellite_pose_estimation_tpu_torch.tools import train as r2_cli
+    from satellite_pose_estimation_tpu_torch.tools.synthetic_selfcheck import (
+        public_detr_r50_surface,
+        render_dataset,
+    )
+    from satellite_pose_estimation_tpu_torch.train.solver import SpeedSolver
+    from satellite_pose_estimation_tpu_torch.utils.checkpoint_convert import r1_state_dict_to_port
+
+    bf16 = torch.bfloat16
+    have = {m: importlib.util.find_spec(m) is not None
+            for m in ("PIL", "yaml", "cv2", "tensorboardX")}
+    log("  host packages: " + ", ".join(f"{m} {'present' if v else 'absent'}"
+                                        for m, v in have.items()))
+
+    # Each train_one_epoch / evaluate call of a solver, with the kernels it
+    # launched, the K1 / K2 input shapes, and the BatchNorm running means
+    # before and after a train epoch.
+    calls, shapes = [], []
+    real_fwd, real_bwd = fa._launch_fwd, fa._launch_bwd
+    real_train, real_eval = SpeedSolver.train_one_epoch, SpeedSolver.evaluate
+
+    def spy_fwd(q, k, v, s):
+        shapes.append(("K1", tuple(q.shape), q.dtype))
+        return real_fwd(q, k, v, s)
+
+    def spy_bwd(q, k, v, o, lse, go, s):
+        shapes.append(("K2", tuple(q.shape), q.dtype))
+        return real_bwd(q, k, v, o, lse, go, s)
+
+    def bn_means(model):
+        return {n: b.clone() for n, b in model.named_buffers() if n.endswith("running_mean")
+                and not isinstance(model.get_submodule(n.rsplit(".", 1)[0]), FrozenBatchNorm)}
+
+    def delta(c0):
+        return {k: v - c0[k] for k, v in counts().items()}
+
+    def recorded(kind, real):
+        def run(self, *args, **kwargs):
+            torch.cuda.synchronize()
+            c0 = counts()
+            shapes.clear()
+            before = bn_means(self.state.model) if kind == "train" else None
+            out = real(self, *args, **kwargs)
+            torch.cuda.synchronize()
+            entry = {"kind": kind, "counts": delta(c0), "shapes": sorted(set(shapes)),
+                     "timing": dict(self.timings.get(kind, {}))}
+            if kind == "val":
+                entry["stats"] = out[0]
+            if before is not None:
+                after = bn_means(self.state.model)
+                entry["bn_moved"] = (sum(not torch.equal(after[n], before[n]) for n in before),
+                                     len(before))
+            calls.append(entry)
+            return out
+        return run
+
+    @contextlib.contextmanager
+    def recording():
+        fa._launch_fwd, fa._launch_bwd = spy_fwd, spy_bwd
+        SpeedSolver.train_one_epoch = recorded("train", real_train)
+        SpeedSolver.evaluate = recorded("val", real_eval)
+        try:
+            yield
+        finally:
+            fa._launch_fwd, fa._launch_bwd = real_fwd, real_bwd
+            SpeedSolver.train_one_epoch, SpeedSolver.evaluate = real_train, real_eval
+
+    def rate(entry):
+        t = entry["timing"]
+        return (f"{t['images'] / t['seconds']:.2f} img/s ({t['images']} images in "
+                f"{t['seconds']:.3f} s), loader wait {t['loader_wait_s']:.3f} s = "
+                f"{100 * t['loader_wait_s'] / t['seconds']:.1f}%")
+
+    def read_log(out):
+        with open(os.path.join(out, "log.txt")) as f:
+            return [json.loads(line) for line in f]
+
+    required_keys = {"train_loss_total", "train_lr", "test_num_images", "test_score",
+                     "test_score_tvec", "test_score_quat", "test_loss_total",
+                     "test_speed_eval_pose", "epoch", "n_parameters"}
+
+    def check_log_entry(e, what):
+        require(required_keys <= set(e) and all(
+            k.startswith(("train_", "test_")) or k in ("epoch", "n_parameters") for k in e),
+            f"{what}: log.txt keys {sorted(e)}")
+        require(all(v == v and abs(v) != float("inf") for k, v in e.items()
+                    if k.startswith("train_")), f"{what}: a train loss is not finite")
+
+    result = {}
+    with tempfile.TemporaryDirectory() as tmp, recording():
+        root = os.path.join(tmp, "speed")
+        t0 = time.perf_counter()
+        info = render_dataset(root, 96, seed=18, n_train=64)
+        log(f"  rendered 96 SPEED frames at 1920x1200 ({info['fmt']}) in "
+            f"{time.perf_counter() - t0:.2f} s; train 0-63, val 64-95")
+        with open(os.path.join(root, "annos", "wz_train.json")) as f:
+            anns = json.load(f)
+        decode_s = pack_s = 0.0
+        for a in anns[:16]:
+            t0 = time.perf_counter()
+            img = _decode(os.path.join(root, "images/train", a["filename"]))
+            t1 = time.perf_counter()
+            pack_crop(img, generate_clip_bbox_val(a["bbox_xxyy"], (1920, 1200)), 512)
+            decode_s += t1 - t0
+            pack_s += time.perf_counter() - t1
+        host = {"decode_ms": 1e3 * decode_s / 16, "pack_ms": 1e3 * pack_s / 16}
+        log(f"  host per frame, one thread, 16 frames: decode {host['decode_ms']:.2f} ms "
+            f"({info['fmt']}), pack_crop {host['pack_ms']:.3f} ms")
+
+        # -- 18. the R1 CLI at full width ----------------------------------
+        zero_counts()
+        out = os.path.join(tmp, "r1")
+        flags = ["--backbone", "resnet50s8", "--enc_layers", "4", "--dec_layers", "4",
+                 "--num_queries", "20", "--input_size", "224", "--batch_size", "32",
+                 "--compute_dtype", "bfloat16", "--data_root", root, "--output_dir", out]
+        parse = r1_cli.get_args_parser().parse_args
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        calls.clear()
+        solver = r1_cli.main(parse(flags + ["--epochs", "1"]))
+        peak18 = torch.cuda.max_memory_allocated() / 2**30
+        require(solver.device.type == "cuda", "the R1 CLI did not run on the card")
+        train0, val0 = calls
+        log(f"  R1 CLI epoch 0 (dropout 0.1, bf16 autocast, B=32 @224): train {rate(train0)}; "
+            f"val {rate(val0)}; peak device memory {peak18:.2f} GiB on {card}")
+        log(f"  launches: train epoch {train0['counts']}, val pass {val0['counts']} "
+            f"(K1 inputs {val0['shapes']})")
+        require(train0["timing"]["images"] == 64 and val0["timing"]["images"] == 32,
+                "phase 18's epoch is not 2 train steps and 1 val step of 32")
+        require(train0["counts"] == expected(), "the dropout-0.1 train steps launched a kernel")
+        require(val0["counts"] == expected(k1=4) and val0["shapes"] == [("K1", (32, 8, 784, 32),
+                                                                          bf16)],
+                "the val step did not launch K1 four times on bf16 (32, 8, 784, 32)")
+        entries = read_log(out)
+        check_log_entry(entries[0], "R1 epoch 0")
+        with open(os.path.join(out, "eval_0000_log.json")) as f:
+            require(len(json.load(f)) == 32, "eval_0000_log.json does not hold 32 images")
+        require(os.path.isfile(os.path.join(out, "checkpoint", "state.pt")), "no checkpoint/")
+        log(f"  log.txt epoch 0: train_loss_total {entries[0]['train_loss_total']:.4f}, "
+            f"test_score {entries[0]['test_score']:.4f}, n_parameters "
+            f"{entries[0]['n_parameters']}")
+
+        calls.clear()
+        solver = r1_cli.main(parse(flags + ["--epochs", "2", "--resume",
+                                            os.path.join(out, "checkpoint")]))
+        require(solver.start_epoch == 1 and [c["kind"] for c in calls] == ["train", "val"],
+                "the resumed run did not start at epoch 1 and run it")
+        train1, val1 = calls
+        entries = read_log(out)
+        require([e["epoch"] for e in entries] == [0, 1], "log.txt lacks the resumed epoch")
+        check_log_entry(entries[1], "R1 epoch 1")
+        require(val1["counts"] == expected(k1=4), "the resumed val step's K1 launches")
+        log(f"  resumed at epoch {solver.start_epoch}: train {rate(train1)}; val {rate(val1)}; "
+            f"train_loss_total {entries[1]['train_loss_total']:.4f}")
+
+        calls.clear()
+        c0 = counts()
+        r1_cli.main(parse(flags + ["--eval", "--resume", os.path.join(out, "checkpoint")]))
+        eval_counts = delta(c0)
+        (val_only,) = calls
+        log(f"  --eval: val {rate(val_only)}; launches {eval_counts} (4 in the val step, 4 in "
+            "the GFLOPs count's forward at (2, 224, 224, 3))")
+        require(val_only["counts"] == expected(k1=4) and eval_counts == expected(k1=8),
+                "--eval's K1 launches")
+        diffs = {k: abs(val_only["stats"][k[len("test_"):]] - v) for k, v in entries[1].items()
+                 if k.startswith("test_") and k != "test_speed_eval_pose"}
+        log("  --eval stats vs the epoch-1 eval, largest difference "
+            f"{max(diffs.values()):.3e} (tolerance 1e-6) over {len(diffs)} stats")
+        require(max(diffs.values()) <= 1e-6, "--eval disagrees with the epoch-1 eval")
+
+        # surgery of a public-surface detr-r50-e632da11.pth, written here
+        pth = os.path.join(tmp, "detr-r50-e632da11.pth")
+        surface = public_detr_r50_surface(seed=18)
+        torch.save({"model": surface}, pth)
+        calls.clear()
+        solver = r1_cli.main(parse(flags + ["--eval", "--resume", pth]))
+        report = solver.surgery_report
+        state = solver.state.model.state_dict()
+        src = r1_state_dict_to_port({k: v for k, v in surface.items()
+                                     if not k.startswith(("class_embed", "bbox_embed"))})
+        src = {("backbone.body." + k[9:] if k.startswith("backbone.") else k): v
+               for k, v in src.items()}
+        exact = all(torch.equal(state[k].cpu(), src[k]) for k in report["copied"])
+        exact &= torch.equal(state["query_embed"].cpu(), surface["query_embed.weight"][:20])
+        exact &= torch.equal(state["input_proj.weight"].cpu(), surface["input_proj.weight"][:, :512])
+        exact &= torch.equal(
+            state["transformer.decoder_layer_0.cross_attn.mha_value.weight"].cpu(),
+            surface["transformer.decoder.layers.0.multihead_attn.in_proj_weight"][512:])
+
+        def groups(keys):
+            out = {}
+            for k in keys:
+                head = ".".join(k.split(".")[:2])
+                out[head] = out.get(head, 0) + 1
+            return ", ".join(f"{h} {n}" for h, n in sorted(out.items()))
+
+        log(f"  surgery: {len(report['copied'])} copied, sliced {report['sliced']}, "
+            f"kept at init [{groups(report['kept'])}], dropped [{groups(report['dropped'])}]")
+        log(f"  surgery: every copied and sliced tensor in its module bit for bit: {exact}")
+        require(exact and sorted(report["sliced"]) == ["input_proj.weight", "query_embed"],
+                "the public checkpoint did not land bit for bit")
+
+        # the single-model submission over the detector-box files
+        sub_flags = flags + ["--resume", os.path.join(out, "checkpoint"),
+                             "--real_ann_file", "wz_real_test.json", "--real_img_dir",
+                             "images/train", "--synt_ann_file", "wz_synt_test.json",
+                             "--synt_img_dir", "images/train",
+                             "--submission_dir", os.path.join(tmp, "sub")]
+        sub_args = gsub.get_submission_parser().parse_args(sub_flags)
+        path = gsub.main(sub_args)
+        with open(path) as f:
+            rows = list(csv.reader(f))
+        names = {r[0] for r in rows}
+        log(f"  submission (the trained checkpoint): {len(rows)} rows, {len(names)} images, "
+            f"{sum(any(float(x) for x in r[1:5]) for r in rows)} solved")
+        require(len(rows) == len(names) == 32 and all(len(r) == 8 for r in rows),
+                "the submission CSV does not hold one row per image")
+        # the same writer path with the landmarks themselves as the model's
+        # output: every pose solved, every quaternion a unit one
+        landmarks = {a["filename"]: a["landmarks"] for a in anns}
+        gt = {a["filename"]: (a["q_vbs2tango"], a["r_Vo2To_vbs_true"]) for a in anns}
+        solver = SpeedSolver(r1_cli.args_to_config(sub_args), data_root=root, seed=0,
+                             device=sub_args.device)
+        solver._build()
+        rows = []
+        for ann in ("wz_real_test.json", "wz_synt_test.json"):
+            ds = SpeedSubmissionDataset(root, ann, "images/train", resize=224)
+            solver.state.model = _LandmarkModel(torch, _landmark_outputs(torch, ds, 32, landmarks,
+                                                                         dev), dev)
+            gsub.gen_submission(solver, ds, lambda f, q, r: rows.append((f, q, r)), 32)
+        norms = [abs(sum(x * x for x in q) ** 0.5 - 1.0) for _, q, _ in rows]
+        terr = max(max(abs(a - b) for a, b in zip(r, gt[f][1])) for f, _, r in rows)
+        log(f"  submission with the landmarks as outputs: {len(rows)} rows, largest | |q| - 1 | "
+            f"{max(norms):.3e} (tolerance 1e-5), largest translation error {terr:.3e} m")
+        require(len(rows) == 32 and max(norms) <= 1e-5 and terr < 0.05,
+                "the submission path does not give unit quaternions of the right poses")
+        result["r1"] = {"launches": counts(), "peak_gib": peak18, "host": host,
+                        "epochs": [(train0["timing"], val0["timing"]),
+                                   (train1["timing"], val1["timing"])]}
+        del solver
+        torch.cuda.empty_cache()
+        log(f"phase 18 ok: launches over the phase {result['r1']['launches']}")
+
+        # -- 19. the R2 CLI on the paper's recipe ----------------------------
+        zero_counts()
+        out = os.path.join(tmp, "r2")
+        yml = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "configs/speed/rtdetr_r50vd_kl_1_512.yml")
+        config = yml if have["yaml"] else recipe_merged()
+        log("  R2 CLI config: " + ("configs/speed/rtdetr_r50vd_kl_1_512.yml" if have["yaml"]
+                                   else "its merged dict (no PyYAML)"))
+        # The recipe file sets no compute_dtype (float32, as in JAX): train it
+        # as bench and phase 16 do, float32 parameters under bf16 autocast.
+        args = r2_cli.get_args_parser().parse_args(
+            ["-c", yml, "--data_root", root, "-u", "epoches=1", f"output_dir={out}",
+             "compute_dtype=bfloat16"])
+        args.config = config
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        calls.clear()
+        solver = r2_cli.main(args)
+        peak19 = torch.cuda.max_memory_allocated() / 2**30
+        train, val = calls
+        B = RECIPE_BATCH
+        log(f"  R2 CLI epoch 0 (dropout 0, bf16 autocast, B={B} @512): train {rate(train)}; "
+            f"val {rate(val)}; peak device memory {peak19:.2f} GiB on {card}")
+        log(f"  launches: train epoch {train['counts']} (inputs {train['shapes']}), "
+            f"val pass {val['counts']}")
+        require(train["timing"]["images"] == 64 and val["timing"]["images"] == 32,
+                "phase 19's epoch is not 4 train steps and 2 val steps of 16")
+        require(train["counts"] == expected(k1=4, k2=4) and train["shapes"] == [
+            ("K1", (B, 8, 256, 32), bf16), ("K2", (B, 8, 256, 32), bf16)],
+            "the recipe's train steps did not launch K1 and K2 once a step at (16, 8, 256, 32)")
+        require(val["counts"] == expected(k1=2), "the recipe's eval steps did not launch K1 once")
+        R = RECIPE_OPTIMIZER_YML["optimizer"]
+        want = [(p.get("lr", R["lr"]), p.get("weight_decay", R["weight_decay"]))
+                for p in R["params"]] + [(R["lr"], R["weight_decay"])]
+        got = [(grp["lr"], grp["weight_decay"]) for grp in solver.state.optimizer.param_groups]
+        log(f"  registry AdamW groups (lr, weight decay): {got}; BatchNorm running means moved "
+            f"{train['bn_moved'][0]} of {train['bn_moved'][1]}")
+        require(got == want, "the recipe's groups are not at the YAML's rates")
+        require(train["bn_moved"][0] == train["bn_moved"][1] > 0,
+                "BatchNorm running statistics did not move")
+        (entry,) = read_log(out)
+        check_log_entry(entry, "R2 epoch 0")
+        log(f"  log.txt: train_loss_total {entry['train_loss_total']:.4f}, sigma solver "
+            f"test_score {entry['test_score']:.4f} (tvec {entry['test_score_tvec']:.4f}, quat "
+            f"{entry['test_score_quat']:.4f})")
+        for k in ("test_score", "test_score_tvec", "test_score_quat"):
+            require(entry[k] == entry[k], f"{k} is not a number")
+
+        args = r2_cli.get_args_parser().parse_args(
+            ["-c", yml, "--data_root", root, "-t", os.path.join(out, "checkpoint_best"),
+             "--test-only", "-u", f"output_dir={out}_tuned", "compute_dtype=bfloat16"])
+        args.config = config
+        solver = r2_cli.main(args)
+        matched, total = solver.tuning_counts
+        st = solver.state.model.state_dict()
+        reseeded = all(torch.equal(v, st[k].float()) for k, v in solver.state.ema.items())
+        log(f"  -t checkpoint_best: {matched} of {total} tensors shape-matched; EMA re-seeded "
+            f"from them: {reseeded}")
+        require(matched == total and reseeded, "tuning did not load every tensor")
+        result["r2"] = {"launches": counts(), "peak_gib": peak19,
+                        "epochs": [(train["timing"], val["timing"])]}
+        del solver
+        torch.cuda.empty_cache()
+        log(f"phase 19 ok: launches over the phase {result['r2']['launches']}")
+    return result
 
 if __name__ == "__main__":
     sys.exit(main())

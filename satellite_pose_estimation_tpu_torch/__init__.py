@@ -6,12 +6,12 @@ relative path as its JAX counterpart and is held against it by the
 ``tests/test_torch_*.py`` parity tests. This package imports ``torch`` and
 never ``jax``.
 
-Ported so far: the R1 DETR (resnet50s8) eval path — cubic crop warp ->
-DETR keypoint model -> softmax / pixel de-normalisation -> P3P-RANSAC +
-Gauss-Newton pose solver -> SPEED score (``train.steps.make_eval_step``).
-The encoder self-attention runs through a hand-written CUDA kernel
-(``csrc/fused_attention.cu``) on the GPU and through its plain PyTorch
-version on the CPU.
+Ported so far: the R1 DETR and R2 RT-DETR eval and train steps
+(``train.steps``), int8 static PTQ, and the host pipeline with the two
+CLIs (``tools.main`` for R1, ``tools.train`` for R2, both over
+``train.solver.SpeedSolver``). Each TPU kernel of the JAX package is a
+hand-written CUDA kernel (``csrc/``) on the GPU, beside a plain PyTorch
+version that the CPU takes. ROADMAP.md lists what is left.
 """
 
 __version__ = "0.1.0"

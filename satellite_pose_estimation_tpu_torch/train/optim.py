@@ -146,6 +146,14 @@ class GroupSchedule(torch.optim.lr_scheduler.LRScheduler):
     def get_lr(self):
         return [float(fn(self.last_epoch)) for fn in self.schedules]
 
+    def state_dict(self):
+        """The step count and rates, without the schedule functions (which
+        the config rebuilds), so that the state can be saved."""
+        return {k: v for k, v in super().state_dict().items() if k != "schedules"}
+
+    def load_state_dict(self, state_dict):
+        super().load_state_dict({k: v for k, v in state_dict.items() if k != "schedules"})
+
 
 # -- optimizers: (param groups, lr, settings) -> torch optimizer -------------
 

@@ -160,3 +160,94 @@ def quat_angle(qa, qb):
     """The rotation angle between unit quaternions (rad, float64)."""
     dot = np.abs(np.sum(qa.astype(np.float64) * qb, axis=-1))
     return 2.0 * np.arccos(np.minimum(dot, 1.0))
+
+
+# -- R1 checkpoint key surfaces -------------------------------------------------
+
+def public_detr_r50_surface(seed=0):
+    """The public ``detr-r50-e632da11.pth`` ``model`` key surface with seeded
+    values (tests/test_public_checkpoint_surface.py's fixture, which needs
+    the R1 reference tree). The generator lives in the port, so that
+    chip_smoke.py writes the same file on the card."""
+    from satellite_pose_estimation_tpu_torch.tools.synthetic_selfcheck import (
+        public_detr_r50_surface as surface,
+    )
+
+    return surface(seed)
+
+
+def r1_detr_state_dict(backbone, hidden, nheads, enc_layers, dec_layers, ffn, queries, rng,
+                       pre_norm=False):
+    """A seeded state dict with the key surface of an R1 DETR keypoint model
+    (R1/models/detr_speed.py:32-57): a torchvision trunk under
+    ``backbone.0.body`` up to the tapped layer3 (with the Backbone8s fusion
+    convs for ``resnet50s8``), ``input_proj``, ``query_embed``,
+    ``cls_embed``, the ``point_embed`` MLP and ``nn.MultiheadAttention``
+    transformer layers; float32 numpy, BatchNorm counters int64."""
+    import numpy as np
+
+    def t(*shape, scale=0.05):
+        return (rng.randn(*shape) * scale).astype(np.float32)
+
+    sd = {}
+
+    def bn(prefix, n):
+        sd[f"{prefix}.weight"] = (rng.rand(n) + 0.5).astype(np.float32)
+        sd[f"{prefix}.bias"] = t(n)
+        sd[f"{prefix}.running_mean"] = t(n)
+        sd[f"{prefix}.running_var"] = (rng.rand(n) + 0.5).astype(np.float32)
+        sd[f"{prefix}.num_batches_tracked"] = np.asarray(1000, np.int64)
+
+    arch = "resnet50" if backbone == "resnet50s8" else backbone
+    basic = arch in ("resnet18", "resnet34")
+    layout = {"resnet18": (2, 2, 2), "resnet34": (3, 4, 6), "resnet50": (3, 4, 6)}[arch]
+    body = "backbone.0.body"
+    sd[f"{body}.conv1.weight"] = t(64, 3, 7, 7)
+    bn(f"{body}.bn1", 64)
+    inplanes = 64
+    for stage, (planes, blocks) in enumerate(zip((64, 128, 256), layout), start=1):
+        out = planes if basic else planes * 4
+        for b in range(blocks):
+            p = f"{body}.layer{stage}.{b}"
+            convs = (((planes, inplanes, 3), (planes, planes, 3)) if basic else
+                     ((planes, inplanes, 1), (planes, planes, 3), (out, planes, 1)))
+            for i, (co, ci, k) in enumerate(convs, start=1):
+                sd[f"{p}.conv{i}.weight"] = t(co, ci, k, k)
+                bn(f"{p}.bn{i}", co)
+            if b == 0 and inplanes != out or b == 0 and stage > 1:
+                sd[f"{p}.downsample.0.weight"] = t(out, inplanes, 1, 1)
+                bn(f"{p}.downsample.1", out)
+            inplanes = out
+    if backbone == "resnet50s8":
+        sd["backbone.0.s8_latern.weight"] = t(256, 512, 1, 1)
+        sd["backbone.0.s16_latern.weight"] = t(256, 1024, 3, 3)
+        sd["backbone.0.output_conv.weight"] = t(512, 512, 3, 3)
+        sd["backbone.0.output_conv.bias"] = t(512)
+        inplanes = 512
+    d = hidden
+    sd["input_proj.weight"] = t(d, inplanes, 1, 1)
+    sd["input_proj.bias"] = t(d)
+    sd["query_embed.weight"] = t(queries, d, scale=1.0)
+    sd["cls_embed.weight"] = t(12, d)
+    sd["cls_embed.bias"] = t(12)
+    for i, (co, ci) in enumerate(((d, d), (d, d), (2, d))):
+        sd[f"point_embed.layers.{i}.weight"] = t(co, ci)
+        sd[f"point_embed.layers.{i}.bias"] = t(co)
+    for side, n, attns, norms in (("encoder", enc_layers, ("self_attn",), 2),
+                                  ("decoder", dec_layers, ("self_attn", "multihead_attn"), 3)):
+        for i in range(n):
+            p = f"transformer.{side}.layers.{i}"
+            for a in attns:
+                sd[f"{p}.{a}.in_proj_weight"] = t(3 * d, d)
+                sd[f"{p}.{a}.in_proj_bias"] = t(3 * d)
+                sd[f"{p}.{a}.out_proj.weight"] = t(d, d)
+                sd[f"{p}.{a}.out_proj.bias"] = t(d)
+            sd[f"{p}.linear1.weight"], sd[f"{p}.linear1.bias"] = t(ffn, d), t(ffn)
+            sd[f"{p}.linear2.weight"], sd[f"{p}.linear2.bias"] = t(d, ffn), t(d)
+            for k in range(1, norms + 1):
+                sd[f"{p}.norm{k}.weight"], sd[f"{p}.norm{k}.bias"] = t(d) + 1.0, t(d)
+    sd["transformer.decoder.norm.weight"], sd["transformer.decoder.norm.bias"] = t(d) + 1.0, t(d)
+    if pre_norm:
+        sd["transformer.encoder.norm.weight"], sd["transformer.encoder.norm.bias"] = (
+            t(d) + 1.0, t(d))
+    return sd

@@ -7,7 +7,8 @@ int8 DETR and its calibration against the CPU, K1 in the int8 eval step),
 the RT-DETR eval path (K1 on its AIFI layer at 512, the model, the
 deformable sampling, the query selection, the sigma solvers and the int8
 RT-DETR against the CPU), and the RT-DETR train step at 512 (K1 and K2 on
-its AIFI layer, with and without CDN).
+its AIFI layer, with and without CDN), the host-to-device prefetch and
+the solver's default device.
 These tests need a CUDA device and skip without one. The file imports no
 JAX, so on a machine without JAX it runs on its own:
 
@@ -856,3 +857,55 @@ def test_cuda_rtdetr_train_step_runs_k1_and_k2_on_the_aifi_layer(cuda_device, nu
     assert ("loss_points_dn_1" in losses) == (num_denoising > 0)
     assert all(torch.isfinite(v) for v in losses.values())
     assert all(not torch.equal(b, means[n]) for n, b in model.named_buffers() if n in means)
+
+
+@pytest.mark.cuda
+def test_cuda_prefetch_delivers_the_host_batches_ordered_after_the_copy(cuda_device):
+    """Batches of 64 MiB copied from pinned memory on the side stream: a
+    reduction launched on the compute stream the moment each batch is
+    handed over reads the whole copy (checksums equal to the host's), and
+    the host arrays pass through as names and pads."""
+    import numpy as np
+
+    from satellite_pose_estimation_tpu_torch.data.prefetch import prefetch_to_device
+
+    rng = np.random.RandomState(0)
+    host = [{"image": rng.randint(0, 256, (64, 1024, 1024), dtype=np.uint8),
+             "box": rng.rand(64, 4).astype(np.float32), "filename": [f"f{i}"], "pad": i}
+            for i in range(6)]
+    sums = []
+    for got, ref in zip(prefetch_to_device(iter(host), size=2, device=cuda_device), host):
+        assert got["image"].is_cuda and got["filename"] == ref["filename"]
+        assert got["pad"] == ref["pad"]
+        sums.append((got["image"].sum(dtype=torch.int64), got["box"].double().sum()))
+    assert len(sums) == len(host)
+    for (s_img, s_box), ref in zip(sums, host):
+        assert s_img.item() == int(ref["image"].sum(dtype=np.int64))
+        assert s_box.item() == pytest.approx(float(ref["box"].astype(np.float64).sum()),
+                                             rel=1e-12)
+
+
+@pytest.mark.cuda
+def test_cuda_speed_solver_builds_on_the_card_by_default(cuda_device, tmp_path):
+    """``SpeedSolver`` with no device asked for builds its model, optimizer
+    and EMA on the card and evaluates a rendered val split there."""
+    from satellite_pose_estimation_tpu_torch.core.yaml_config import YAMLConfig
+    from satellite_pose_estimation_tpu_torch.tools.synthetic_selfcheck import render_dataset
+    from satellite_pose_estimation_tpu_torch.train.solver import SpeedSolver
+
+    render_dataset(str(tmp_path / "speed"), 4, seed=1, n_train=2)
+    cfg = YAMLConfig(cfg={
+        "model": "RTDETR", "use_ema": True, "output_dir": str(tmp_path / "out"),
+        "PResNet": {"depth": 18, "freeze_norm": False},
+        "HybridEncoder": {"hidden_dim": 32, "nhead": 4, "dim_feedforward": 64},
+        "RTDETRTransformer": {"num_queries": 12, "num_decoder_layers": 2},
+        "SetCriterion": {"losses": ["labels", "points_uncert"]},
+        "train_dataloader": {"batch_size": 2, "dataset": {"resize": 64}},
+        "val_dataloader": {"batch_size": 2, "dataset": {"resize": 64}}})
+    solver = SpeedSolver(cfg, str(tmp_path / "speed"), seed=0)
+    solver._build()
+    assert solver.device.type == "cuda"
+    assert all(p.is_cuda for p in solver.state.model.parameters())
+    assert all(v.is_cuda for v in solver.state.ema.values())
+    stats, evaluator = solver.evaluate()
+    assert stats["num_images"] == 2 and len(evaluator.log) == 2

@@ -240,6 +240,56 @@ print("OK", losses["loss_total"].item())
 """
 
 
+_TINY_CLIS = r"""
+import sys
+for name in ("jax", "jaxlib", "flax", "optax", "satellite_pose_estimation_tpu",
+             "PIL", "yaml", "cv2", "tensorboardX"):
+    sys.modules[name] = None  # any import of these now raises ImportError
+
+import argparse, json, os, tempfile
+import torch
+torch.set_num_threads(1)  # tiny models; the tier-1 run's workers share the cores
+from satellite_pose_estimation_tpu_torch.tools import main as r1_cli
+from satellite_pose_estimation_tpu_torch.tools import train as r2_cli
+from satellite_pose_estimation_tpu_torch.tools.synthetic_selfcheck import render_dataset
+
+with tempfile.TemporaryDirectory() as tmp:
+    info = render_dataset(os.path.join(tmp, "speed"), 4, seed=0, n_train=2)
+    assert info["fmt"] == "ppm", info["fmt"]  # no PIL: binary PPM frames
+    args = r1_cli.get_args_parser().parse_args([
+        "--backbone", "resnet18", "--hidden_dim", "32", "--nheads", "4", "--enc_layers", "1",
+        "--dec_layers", "1", "--dim_feedforward", "64", "--num_queries", "12",
+        "--input_size", "64", "--batch_size", "2", "--epochs", "1",
+        "--data_root", os.path.join(tmp, "speed"), "--output_dir", os.path.join(tmp, "r1"),
+        "--device", "cpu"])
+    r1_cli.main(args)
+    entry = json.loads(open(os.path.join(tmp, "r1", "log.txt")).read())
+    assert entry["epoch"] == 0 and entry["train_loss_total"] == entry["train_loss_total"]
+    cfg = {"task": "landmarker", "model": "RTDETR", "epoches": 1, "log_step": 1,
+           "use_ema": True, "output_dir": os.path.join(tmp, "r2"),
+           "PResNet": {"depth": 18, "freeze_norm": False},
+           "HybridEncoder": {"hidden_dim": 32, "nhead": 4, "dim_feedforward": 64,
+                             "expansion": 0.5},
+           "RTDETRTransformer": {"num_queries": 12, "num_decoder_layers": 2},
+           "SetCriterion": {"losses": ["labels", "points_uncert"]},
+           "optimizer": {"type": "AdamW", "lr": 1e-4,
+                         "params": [{"params": "^(?=.*backbone)(?!.*norm).*$", "lr": 1e-5}]},
+           "train_dataloader": {"batch_size": 2, "dataset": {"resize": 64}},
+           "val_dataloader": {"batch_size": 2, "dataset": {"resize": 64}}}
+    solver = r2_cli.main(argparse.Namespace(
+        config=cfg, resume=None, tuning=None, test_only=False, update=["log_step=2"],
+        data_root=os.path.join(tmp, "speed"), seed=0, device="cpu"))
+    assert solver.cfg.log_step == 2 and len(solver.state.optimizer.param_groups) == 2
+    entry = json.loads(open(os.path.join(tmp, "r2", "log.txt")).read())
+    assert "test_score" in entry and entry["train_loss_total"] == entry["train_loss_total"]
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "PIL", "yaml",
+                                       "satellite_pose_estimation_tpu")
+                and sys.modules[m] is not None)
+assert not loaded, loaded
+print("OK")
+"""
+
 def test_port_runs_an_eval_step_with_jax_blocked():
     proc = subprocess.run([sys.executable, "-c", _TINY_EVAL], cwd=ROOT,
                           capture_output=True, text=True, timeout=300)
@@ -287,6 +337,15 @@ def test_port_runs_an_rtdetr_cdn_train_step_with_jax_blocked():
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.startswith("OK")
 
+
+def test_port_runs_both_clis_with_jax_pil_and_yaml_blocked():
+    """The R1 CLI's ``main`` (a tiny DETR, one epoch on rendered PPM frames)
+    and the R2 CLI's ``main`` on a merged config dict, with jax, flax, the
+    JAX package, PIL, PyYAML, cv2 and tensorboardX all blocked."""
+    proc = subprocess.run([sys.executable, "-c", _TINY_CLIS], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.splitlines()[-1] == "OK"
 
 def _imported_roots(path):
     roots = set()

@@ -183,11 +183,16 @@ def test_recipe_groups_select_what_jax_selects(extra):
 
 
 def test_chip_smoke_recipe_literals_equal_the_yaml():
-    """chip_smoke.py carries the recipe as literals (the card's machine has
-    no PyYAML): equal to include/optimizer.yml and include/rtdetr_r50vd.yml
+    """chip_smoke.py carries the recipe as literals (the card's machine may
+    lack PyYAML): equal to include/optimizer.yml and include/rtdetr_r50vd.yml
     as parsed, the leaf's loss, batch and input, and the model and
-    criterion settings it derives equal to what the JAX package's YAML
-    loader builds from configs/speed/rtdetr_r50vd_kl_1_512.yml."""
+    criterion settings the port's YAMLConfig reads from their merged dict
+    equal to what the JAX package's YAML loader builds from
+    configs/speed/rtdetr_r50vd_kl_1_512.yml."""
+    import dataclasses
+
+    from satellite_pose_estimation_tpu_torch.core.yaml_config import YAMLConfig as PortYAMLConfig
+
     sys.path.insert(0, str(ROOT))
     try:
         import chip_smoke
@@ -199,16 +204,15 @@ def test_chip_smoke_recipe_literals_equal_the_yaml():
     assert chip_smoke.RECIPE_LOSSES == leaf["SetCriterion"]["losses"]
     assert chip_smoke.RECIPE_BATCH == leaf["train_dataloader"]["batch_size"]
     assert chip_smoke.RECIPE_INPUT == leaf["train_dataloader"]["dataset"]["resize"]
-    model_kw, crit_kw = chip_smoke.recipe_configs()
+    recipe = PortYAMLConfig(cfg=chip_smoke.recipe_merged())
     jcfg = YAMLConfig(str(SPEED / "rtdetr_r50vd_kl_1_512.yml"))
-    jmodel_cfg = jcfg.build_model().config
-    for k, v in model_kw.items():
-        assert getattr(jmodel_cfg, k) == v, k
-    jcrit = jcfg.criterion_config()
-    for k, v in crit_kw.items():
-        assert getattr(jcrit, k) == v, k
-    assert set(crit_kw) >= {"point_loss", "use_focal", "eos_coef", "cost_class", "cost_pts",
-                            "weight_ce", "weight_points"}
+    model_cfg, jmodel_cfg = recipe.model_config(), jcfg.build_model().config
+    for f in dataclasses.fields(model_cfg):
+        assert getattr(model_cfg, f.name) == getattr(jmodel_cfg, f.name), f.name
+    assert model_cfg.freeze_norm is False and model_cfg.expansion == 0.5
+    crit, jcrit = recipe.criterion_config(), jcfg.criterion_config()
+    assert dataclasses.asdict(crit) == dataclasses.asdict(jcrit)
+    assert crit.point_loss == "uncert" and crit.use_focal
 
 
 # -- the train-mode decoder against jax.vjp --------------------------------------
