@@ -8,7 +8,7 @@ target). It builds the port's CUDA kernels from ``satellite_pose_estimation
 _tpu_torch/csrc`` with nvcc (K1, the fused attention forward; K2, its
 backward; K3, the rotation; K4, the fused photometric chain; K5, flash
 attention -- one nvcc per source, all started together), then runs
-nineteen phases and exits non-zero if any fails:
+twenty-four phases and exits non-zero if any fails:
 
 1. the card's name and power limit, the kernel build time, and each
    kernel's registers, shared memory and spills (ptxas's own lines);
@@ -146,7 +146,37 @@ nineteen phases and exits non-zero if any fails:
    registry AdamW's groups at the YAML's rates, the BatchNorm statistics
    moved, the sigma solver's scores in log.txt; ``-t checkpoint_best
    --test-only`` loading every tensor with the EMA re-seeded; img/s,
-   loader-wait share and peak memory.
+   loader-wait share and peak memory;
+20. the attention kernels at other head dims: K1 (output and log-sum-exp),
+   K2 (from K1's residuals) and K5 (forward and backward, T padded to a
+   multiple of 128) at D = 16, 40 (zero-padded to the 48 instance), 48, 64
+   and 128, bf16 and float32, at (4, 4, T, D) for T = 784 and 256, each
+   output under the gates below; both custom operators' autograd at each D
+   (float32 gradients within 1e-5); the times of K1 and K5 at
+   (256, H, 784, D) and of K2 and the K5 backward at (64, H, 784, D) for
+   (H, D) = (4, 64), (8, 48), (2, 128), and a quarter of those batches at
+   (16, 16), beside the plain versions, SDPA and the bounds; K1's pad against native instances at (256, 8, 784, D); each
+   instance on the DETR's eval and train paths (fused and flash routes);
+   the R1 eval step with 4 heads (D = 64) at full width, B = 256 @224: K1
+   4 times at (256, 4, 784, 64), the float32 model card vs CPU (2e-3);
+21. configs/speed/rtdetr_mobilenetv3_kl_1_512.yml at its published widths:
+   3 sigma eval steps at B = 64 @512 bf16 (K1 once a step at (64, 8, 256,
+   32)), the rate, spans and peak memory, the float32 model card vs CPU,
+   the sigma solver on 64 known poses; the recipe's train step at B = 16
+   under bf16 autocast (K1 and K2 once a step), rate, stage spans, peak
+   memory and a falling fixed-batch loss; the GhostNetV2 RT-DETR at 512,
+   B = 64 eval (K1 once a step), card vs CPU;
+22. the R2 .pth loader: a seeded MobileNetV3 RT-DETR and the r50vd recipe
+   through ``port_to_r2_state_dict``, ``torch.save`` and
+   ``r2_state_dict_to_port``, the reloaded model's outputs bit for bit;
+23. the checkpoint-ensemble submission (``tools/gen_submission_multi.py``'s
+   ``main``) over 3 seeded R1 checkpoints in ``SpeedSolver``'s format on 40
+   rendered frames: one CSV row per image; ``solve_pose_multi_mean_batch``
+   (mean SPEED <= 1e-2) and ``exhaustive_pnp`` (median <= 1e-2) on 64 known
+   poses;
+24. ``tools/export.py`` on the MobileNetV3 config at 512 in deploy mode
+   with ``--check``: the graph calls ``spe::fused_attention`` once, and the
+   reloaded program on the card launches K1 once.
 
 K1, K2 and K5 are held to their plain versions by two gates per output:
 the largest error within 1e-5 (float32) or 2e-2 (bf16) times 1 + the
@@ -534,10 +564,14 @@ def main() -> int:
     _, pr, pa, fl = _kernel_modules()
     loaders = [fa.load_library, fa.load_bwd_library, pr.load_library, pa.load_library,
                fl.load_library]
+    def build(load):
+        start = time.perf_counter()
+        load()
+        return time.perf_counter() - start
+
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(loaders)) as pool:  # one nvcc per source, started together
-        for f in [pool.submit(load) for load in loaders]:
-            f.result()
+        each_s = [f.result() for f in [pool.submit(build, load) for load in loaders]]
     build_s = time.perf_counter() - t0
     from satellite_pose_estimation_tpu_torch.utils.cuda_build import library_path
     for lib, sources in (("fused_attention", fa.SOURCES), ("fused_attention_bwd", fa.BWD_SOURCES),
@@ -547,6 +581,10 @@ def main() -> int:
         for line in report.splitlines():
             if "entry function" in line or "spill" in line or "Used" in line:
                 log(f"  {lib}: {line.strip()}")
+    log("  build and load of each library, in parallel: " + ", ".join(
+        f"{lib} {t:.2f} s" for lib, t in zip(("fused_attention", "fused_attention_bwd",
+                                               "rotate_shear3", "fused_photometric",
+                                               "flash_attention"), each_s)))
     log(f"phase 1 ok: K1, K2, K3, K4 and K5 built and loaded in {build_s:.2f} s")
 
     # -- 2. kernel against its plain version ---------------------------------
@@ -722,6 +760,22 @@ def main() -> int:
     rtdetr = rtdetr_phases(torch, card, dev, g, sm_scale)
     rt_train = rtdetr_train_phases(torch, card, dev, g, sm_scale)
     cli = cli_phases(torch, card, dev)
+    heads = head_dim_phase(torch, card, dev, g)
+    s9 = slice9_phases(torch, card, dev, g)
+
+    def head_dims(name):
+        """Each new head-dim instance's record for the kernels line: its
+        launches on the DETR's paths at that D, its largest bf16 error
+        against the plain version (over the small shapes, the timed shape
+        and, for K1 at D = 64, the nheads=4 eval step), and its times with
+        the error at the timed shape."""
+        timed_at = {t["head_dim"]: t for t in heads["times"][name]}
+        return [{"head_dim": D, "launches": heads["paths"][D][name],
+                 "max_abs_err": heads["worst"][D][name], **timed_at[D]}
+                for D in (16, 48, 64, 128)]
+
+    paths_k = {name: sum(p[name] for p in heads["paths"].values())
+               for name in ("k1", "k2", "k5", "k5_bwd")}
 
     log(json.dumps({"kernels": [{
         "name": "fused_attention",
@@ -731,7 +785,9 @@ def main() -> int:
         "launches": (main_path_launches + train["k1_launches"] + train["k1_eval_bf16_launches"]
                      + routes["b"]["k1"] + int8["k1"] + rtdetr["k1"]
                      + sum(rt_train[p]["k1"] for p in ("train", "eval", "cdn", "bench"))
-                     + cli["r1"]["launches"]["k1"] + cli["r2"]["launches"]["k1"]),
+                     + cli["r1"]["launches"]["k1"] + cli["r2"]["launches"]["k1"]
+                     + heads["r1_nheads4_k1"] + paths_k["k1"] + s9["eval_k1"] + s9["train"]["k1"]
+                     + s9["ghost_k1"] + s9["ensemble_k1"] + s9["export_k1"]),
         "launches_by_path": {"eval": main_path_launches, "train": train["k1_launches"],
                              "train_state_eval_bf16": train["k1_eval_bf16_launches"],
                              "train_pallas_augment": routes["b"]["k1"],
@@ -743,9 +799,20 @@ def main() -> int:
                              "rtdetr_train_cdn_512": rt_train["cdn"]["k1"],
                              "rtdetr_train_256": rt_train["bench"]["k1"],
                              "r1_cli": cli["r1"]["launches"]["k1"],
-                             "r2_cli": cli["r2"]["launches"]["k1"]},
+                             "r2_cli": cli["r2"]["launches"]["k1"],
+                             "r1_eval_nheads4": heads["r1_nheads4_k1"],
+                             "detr_head_dims_16_48_64_128": paths_k["k1"],
+                             "rtdetr_mobilenetv3_eval_512": s9["eval_k1"],
+                             "rtdetr_mobilenetv3_train_512": s9["train"]["k1"],
+                             "rtdetr_ghostnetv2_eval_512": s9["ghost_k1"],
+                             "ensemble_submission": s9["ensemble_k1"],
+                             "exported_program": s9["export_k1"]},
         "max_abs_err": k1_err,
         **k1_times,
+        "head_dims": head_dims("k1"),
+        "r1_eval_nheads4": {"shape": [256, 4, 784, 64], "dtype": "bfloat16",
+                            "max_abs_err": heads["r1_nheads4_k1_err"]},
+        "pad_vs_native_ms": heads["pad_ms"],
         "rtdetr_aifi": {"shape": [64, 8, 256, 32], "dtype": "bfloat16", **rtdetr["aifi"]},
     }, {
         "name": "fused_attention_bwd",
@@ -754,15 +821,18 @@ def main() -> int:
         "replaces": "satellite_pose_estimation_tpu/ops/fused_attention.py:141",
         "launches": (train["k2_launches"] + routes["b"]["k2"]
                      + sum(rt_train[p]["k2"] for p in ("train", "cdn", "bench"))
-                     + cli["r2"]["launches"]["k2"]),
+                     + cli["r2"]["launches"]["k2"] + paths_k["k2"] + s9["train"]["k2"]),
         "launches_by_path": {"train": train["k2_launches"],
                              "train_pallas_augment": routes["b"]["k2"],
                              "rtdetr_train_512": rt_train["train"]["k2"],
                              "rtdetr_train_cdn_512": rt_train["cdn"]["k2"],
                              "rtdetr_train_256": rt_train["bench"]["k2"],
-                             "r2_cli": cli["r2"]["launches"]["k2"]},
+                             "r2_cli": cli["r2"]["launches"]["k2"],
+                             "detr_head_dims_16_48_64_128": paths_k["k2"],
+                             "rtdetr_mobilenetv3_train_512": s9["train"]["k2"]},
         "max_abs_err": train["k2_err"],
         **train["k2_times"],
+        "head_dims": head_dims("k2"),
         "rtdetr_aifi": {"shape": [RECIPE_BATCH, 8, 256, 32], "dtype": "bfloat16",
                         **rt_train["k2_aifi"]},
     }, {
@@ -787,19 +857,23 @@ def main() -> int:
         "source": "satellite_pose_estimation_tpu_torch/csrc/flash_attention.cu",
         "replaces": "satellite_pose_estimation_tpu/ops/flash_attention.py:27",
         "stock_kernel": "jax/experimental/pallas/ops/tpu/flash_attention.py:331",
-        "launches": routes["a"]["k5"] + routes["eval_k5"],
+        "launches": routes["a"]["k5"] + routes["eval_k5"] + paths_k["k5"],
         "launches_by_path": {"train_rotate_pallas_flash": routes["a"]["k5"],
-                             "eval_flash": routes["eval_k5"]},
+                             "eval_flash": routes["eval_k5"],
+                             "detr_head_dims_16_48_64_128": paths_k["k5"]},
         **routes["times"]["k5"],
+        "head_dims": head_dims("k5"),
     }, {
         "name": "flash_attention_bwd",
         "route": "cuda",
         "source": "satellite_pose_estimation_tpu_torch/csrc/flash_attention.cu",
         "replaces": "satellite_pose_estimation_tpu/ops/flash_attention.py:27",
         "stock_kernel": "jax/experimental/pallas/ops/tpu/flash_attention.py:941",
-        "launches": routes["a"]["k5_bwd"],
-        "launches_by_path": {"train_rotate_pallas_flash": routes["a"]["k5_bwd"]},
+        "launches": routes["a"]["k5_bwd"] + paths_k["k5_bwd"],
+        "launches_by_path": {"train_rotate_pallas_flash": routes["a"]["k5_bwd"],
+                             "detr_head_dims_16_48_64_128": paths_k["k5_bwd"]},
         **routes["times"]["k5_bwd"],
+        "head_dims": head_dims("k5_bwd"),
     }]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",
@@ -1661,6 +1735,36 @@ def known_pose_keypoints(torch, n, Q, gen):
     return quat, tvec, points, probs, sigmas, extent[:, 0] * extent[:, 1]
 
 
+def exhaustive_known_poses(torch, n=64, seed=23):
+    """``n`` poses 5-10 m away and the 11 Tango points projected through
+    them (float64) with 1 px noise, drawn with numpy so that they are the
+    same on every machine and a CPU test can run JAX's exhaustive solver
+    on them: (quat (n, 4), tvec (n, 3), pixels (n, 11, 2)), float32 on
+    the CPU."""
+    import numpy as np
+
+    from satellite_pose_estimation_tpu_torch.geometry import rotations
+    from satellite_pose_estimation_tpu_torch.geometry.camera import WORLD_POINTS, Camera
+    from satellite_pose_estimation_tpu_torch.geometry.projection import project_points
+
+    rng = np.random.RandomState(seed)
+    quat = rng.randn(n, 4)
+    quat /= np.linalg.norm(quat, axis=-1, keepdims=True)
+    tvec = np.stack([rng.uniform(-1, 1, n), rng.uniform(-1, 1, n), rng.uniform(5, 10, n)], -1)
+    quat, tvec = torch.from_numpy(quat), torch.from_numpy(tvec)
+    pix, _ = project_points(torch.from_numpy(np.asarray(WORLD_POINTS, np.float64)),
+                            Camera.K_torch(torch.float64), rotations.quat_to_rotmat(quat), tvec)
+    pix = pix + torch.from_numpy(rng.randn(n, 11, 2))
+    return quat.float(), tvec.float(), pix.float()
+
+
+# JAX's exhaustive_pnp on the 64 poses of exhaustive_known_poses, on the
+# CPU: the images it takes to SPEED <= 1e-2 and its mean SPEED, printed
+# beside the port's (tests/test_torch_ensemble_solvers.py runs JAX's
+# solver on these poses and holds both numbers to its results).
+EXHAUSTIVE_JAX = {"hits": 51, "mean_speed": 0.3876}
+
+
 def rtdetr_phases(torch, card, dev, g, sm_scale):
     """Phases 14-15: the RT-DETR r50vd eval path at 512 and bench's int8
     RT-DETR eval default."""
@@ -1856,10 +1960,17 @@ def rtdetr_phases(torch, card, dev, g, sm_scale):
                        lambda: fa.attention_plain(*qkv, sm_scale),
                        lambda: sdpa(*qkv, scale=sm_scale), iters=50)
     aifi.update(attention_bound(qkv[0], products=2, tensors=4, row_stats=1))
-    log(f"  K1 ({B},8,256,32) bf16: kernel {aifi['ms']:.4f} ms, plain {aifi['plain_ms']:.4f} ms, "
-        f"SDPA {aifi['library_ms']:.4f} ms, bound {aifi['bound_ms']:.4f} ms ({aifi['bound_by']}; "
-        f"{100 * aifi['bound_ms'] / aifi['ms']:.1f}% of it) (runs plain, library, kernel, kernel, "
-        f"library, plain: {runs}) on {card}")
+    # A call of ~0.05 ms is as short as its host work (the operator's
+    # dispatch, the ctypes launch): replayed from a CUDA graph, the device
+    # time alone.
+    aifi["graph_ms"] = graph_ms(torch, lambda: fa.fused_self_attention(*qkv, sm_scale))
+    aifi["library_graph_ms"] = graph_ms(torch, lambda: sdpa(*qkv, scale=sm_scale))
+    log(f"  K1 ({B},8,256,32) bf16: kernel {aifi['ms']:.4f} ms ({aifi['graph_ms']:.4f} ms "
+        f"replayed from a CUDA graph), plain {aifi['plain_ms']:.4f} ms, SDPA "
+        f"{aifi['library_ms']:.4f} ms ({aifi['library_graph_ms']:.4f} ms from a graph), bound "
+        f"{aifi['bound_ms']:.4f} ms ({aifi['bound_by']}; {100 * aifi['bound_ms'] / aifi['ms']:.1f}%"
+        f" of it, {100 * aifi['bound_ms'] / aifi['graph_ms']:.1f}% of the graph time) (runs plain,"
+        f" library, kernel, kernel, library, plain: {runs}) on {card}")
     del qkv, model
     torch.cuda.empty_cache()
     log("phase 14 ok")
@@ -2196,11 +2307,12 @@ def rtdetr_train_phases(torch, card, dev, g, sm_scale):
     k2_times, runs = timed(torch, lambda: fa._launch_bwd(q, k, v, o, lse, go, sm_scale),
                            lambda: fa.attention_plain_bwd(*qkvg, sm_scale), sdpa_bwd, iters=50)
     k2_times.update(attention_bound(q, products=5, tensors=8, row_stats=1))
-    log(f"  K2 ({B},8,256,32) bf16: kernel {k2_times['ms']:.4f} ms, plain "
-        f"{k2_times['plain_ms']:.4f} ms, SDPA backward {k2_times['library_ms']:.4f} ms, bound "
-        f"{k2_times['bound_ms']:.4f} ms ({k2_times['bound_by']}; "
-        f"{100 * k2_times['bound_ms'] / k2_times['ms']:.1f}% of it) (runs plain, library, "
-        f"kernel, kernel, library, plain: {runs}) on {card}")
+    k2_times["graph_ms"] = graph_ms(torch, lambda: fa._launch_bwd(q, k, v, o, lse, go, sm_scale))
+    log(f"  K2 ({B},8,256,32) bf16: kernel {k2_times['ms']:.4f} ms ({k2_times['graph_ms']:.4f} ms "
+        f"replayed from a CUDA graph), plain {k2_times['plain_ms']:.4f} ms, SDPA backward "
+        f"{k2_times['library_ms']:.4f} ms, bound {k2_times['bound_ms']:.4f} ms "
+        f"({k2_times['bound_by']}; {100 * k2_times['bound_ms'] / k2_times['ms']:.1f}% of it) "
+        f"(runs plain, library, kernel, kernel, library, plain: {runs}) on {card}")
     del pool, leaves, lib_out, q, k, v, go, o, lse
 
     # One eval step of the train state: bf16 autocast on the EMA shadow.
@@ -2701,6 +2813,692 @@ def cli_phases(torch, card, dev):
         torch.cuda.empty_cache()
         log(f"phase 19 ok: launches over the phase {result['r2']['launches']}")
     return result
+
+
+# configs/speed/rtdetr_mobilenetv3_kl_1_512.yml: the recipe's includes with
+# the MobileNetV3-Large trunk (tests/test_torch_yaml_config.py holds
+# mobilenet_merged() equal to the file as load_config merges it).
+MOBILENET_LEAF_YML = {
+    "output_dir": "output/rtdetr_mobilenetv3_kl_1_512",
+    "RTDETR": {"backbone": "MobileNetV3_Large"},
+    "epoches": 192,
+    "lr_scheduler": {"milestones": [96]},
+}
+
+
+def mobilenet_merged() -> dict:
+    """configs/speed/rtdetr_mobilenetv3_kl_1_512.yml merged as load_config
+    merges it: the R2 recipe's includes, then its own leaf."""
+    from satellite_pose_estimation_tpu_torch.core.yaml_utils import merge_dict
+
+    merged = recipe_merged()
+    merge_dict(merged, json.loads(json.dumps(MOBILENET_LEAF_YML)))
+    return merged
+
+
+def head_dim_phase(torch, card, dev, g):
+    """Phase 20: K1, K2 and K5 at head dims other than 32 (the instances 16,
+    48, 64 and 128, and 40 zero-padded to 48) against their plain
+    versions, at small shapes and at the shapes where they are timed beside
+    SDPA and their bounds, the pad's cost against native instances, each
+    instance on the DETR's own paths, and the R1 eval step with 4 heads
+    (D = 64) at full width, its K1 launches held to the plain version on
+    their own inputs."""
+    from satellite_pose_estimation_tpu_torch.models import transformer
+    from satellite_pose_estimation_tpu_torch.models.detr import (
+        DETRConfig,
+        build_detr_model,
+        build_detr_train_model,
+    )
+    from satellite_pose_estimation_tpu_torch.data.augment import AugmentConfig
+    from satellite_pose_estimation_tpu_torch.losses.criterion import CriterionConfig
+    from satellite_pose_estimation_tpu_torch.ops.image_warp import crop_resize_cubic_mxu
+    from satellite_pose_estimation_tpu_torch.ops.precision import highest_precision
+    from satellite_pose_estimation_tpu_torch.train.state import TrainConfig, create_train_state
+    from satellite_pose_estimation_tpu_torch.train.steps import make_eval_step, make_train_step
+
+    fa, _, _, fl = _kernel_modules()
+    bf16 = torch.bfloat16
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gates = {torch.float32: (1e-5, 1e-5), bf16: (2e-2, 1e-2)}
+    head_dims = (16, 40, 48, 64, 128)
+    worst = {D: {"k1": 0.0, "k2": 0.0, "k5": 0.0, "k5_bwd": 0.0} for D in head_dims}
+
+    def gate(name, D, dtype, outs, refs, factor):
+        """The two gates on every output: max |kernel - plain| within
+        factor x (1 + max |plain|), and relative L2 within the dtype's
+        limit; the largest error kept for the kernels line."""
+        rel_limit = gates[dtype][1]
+        errs = [max_err(o, r) for o, r in zip(outs, refs)]
+        ratio = max(e / (factor * (1.0 + r.float().abs().max().item()))
+                    for e, r in zip(errs, refs))
+        rels = [rel_l2(o, r) for o, r in zip(outs, refs)]
+        if dtype == bf16:
+            worst[D][name] = max(worst[D][name], max(errs))
+        require(ratio <= 1.0 and max(rels) <= rel_limit,
+                f"{name} at D={D} {dtype} disagrees with its plain version "
+                f"(error / tolerance {ratio:.3f}, relative L2 {max(rels):.3e})")
+        return ratio, max(rels)
+
+    for D in head_dims:
+        s = D ** -0.5
+        for T in (784, 256):
+            line = []
+            for dtype, (tol, _) in gates.items():
+                q, k, v, go = (torch.randn(4, 4, T, D, generator=g, device=dev).to(dtype)
+                               for _ in range(4))
+                o, lse = fa._launch_fwd(q, k, v, s)
+                grads = fa._launch_bwd(q, k, v, o, lse, go, s)
+                torch.cuda.synchronize()
+                r1 = gate("k1", D, dtype, [o], [fa.attention_plain(q, k, v, s)], tol)
+                r2 = gate("k2", D, dtype, grads, fa.attention_plain_bwd(q, k, v, go, s),
+                          tol if dtype == bf16 else 1e-4)
+                seg = fl.segment_ids(4, T, dev)
+                Tp = T if seg is None else seg.shape[1]
+                q, k, v, go = (torch.randn(4, 4, Tp, D, generator=g, device=dev).to(dtype)
+                               for _ in range(4))
+                res = fl._launch_fwd(q, k, v, seg, s)
+                grads = fl._launch_bwd(q, k, v, seg, *res, go, s)
+                torch.cuda.synchronize()
+                ref = fl.attention_flash_plain(q, k, v, seg, s)
+                r5 = gate("k5", D, dtype, res, ref, tol)
+                r5b = gate("k5_bwd", D, dtype, grads,
+                           fl.attention_flash_plain_bwd(q, k, v, seg, *ref, go, s), tol)
+                line.append(f"{str(dtype)[6:]} K1 {r1[0]:.3f}/{r1[1]:.1e}, K2 {r2[0]:.3f}/"
+                            f"{r2[1]:.1e}, K5 {r5[0]:.3f}/{r5[1]:.1e}, K5 bwd {r5b[0]:.3f}/"
+                            f"{r5b[1]:.1e}")
+            log(f"  D={D} (4,4,{T},{D}) [error / tolerance, relative L2]: " + "; ".join(line))
+        # Through the custom operators' autograd, float32 (1e-5 of the
+        # largest gradient): one forward and one backward launch each.
+        for attend, mod in ((fa.fused_self_attention, fa), (fl.flash_self_attention, fl)):
+            x = [torch.randn(2, 300, 4, D, generator=g, device=dev).transpose(1, 2)
+                 .requires_grad_() for _ in range(3)]
+            y = [t.detach().clone().requires_grad_() for t in x]
+            go = torch.randn(2, 4, 300, D, generator=g, device=dev)
+            before = (mod.launch_count, mod.bwd_launch_count)
+            attend(*x, s).backward(go)
+            torch.cuda.synchronize()
+            require((mod.launch_count, mod.bwd_launch_count) == (before[0] + 1, before[1] + 1),
+                    "an operator's launches")
+            with highest_precision():
+                fa.attention_plain(*y, s).backward(go)
+            err = max(max_err(a.grad, b.grad) / (1.0 + b.grad.abs().max().item())
+                      for a, b in zip(x, y))
+            require(err <= 1e-5, f"the {attend.__name__} operator's gradients at D={D}")
+    log("  every head dim through both operators' autograd (float32): gradients within 1e-5")
+
+    # Times at the main-path token count, forwards at B = 256 and backwards
+    # at B = 64, as phases 5, 8 and 11 time D = 32; at 16 heads a quarter
+    # of that, since the plain versions hold several (B, H, T, T) float32
+    # tensors (13 GB each at B = 256 on the flash route's 896 tokens).
+    times = {name: [] for name in ("k1", "k2", "k5", "k5_bwd")}
+    for H, D in ((4, 64), (16, 16), (8, 48), (2, 128)):
+        s = D ** -0.5
+        cut = 4 if H == 16 else 1
+        for Bk, names in ((256 // cut, ("k1", "k5")), (64 // cut, ("k2", "k5_bwd"))):
+            qkvg = [torch.randn(Bk, 784, H, D, generator=g, device=dev, dtype=bf16)
+                    .transpose(1, 2) for _ in range(4)]
+            q, k, v, go = qkvg
+            leaves = [t.detach().requires_grad_("k2" in names) for t in (q, k, v)]
+            lib_out = sdpa(*leaves, scale=s)
+            seg = fl.segment_ids(Bk, 784, dev)
+            padded = [torch.nn.functional.pad(t, (0, 0, 0, 112)) for t in qkvg]
+            if "k1" in names:
+                runs = {"k1": (lambda: fa.fused_self_attention(q, k, v, s),
+                               lambda: fa.attention_plain(q, k, v, s),
+                               lambda: sdpa(*leaves, scale=s),
+                               attention_bound(q, products=2, tensors=4, row_stats=1)),
+                        "k5": (lambda: fl._launch_fwd(*padded[:3], seg, s),
+                               lambda: fl.attention_flash_plain(*padded[:3], seg, s),
+                               lambda: sdpa(*leaves, scale=s),
+                               attention_bound(q, products=2, tensors=4, row_stats=2))}
+            else:
+                o, lse = fa._launch_fwd(q, k, v, s)
+                res = fl.attention_flash_plain(*padded[:3], seg, s)
+
+                def sdpa_bwd():
+                    return torch.autograd.grad(lib_out, leaves, go, retain_graph=True)
+
+                runs = {"k2": (lambda: fa._launch_bwd(q, k, v, o, lse, go, s),
+                               lambda: fa.attention_plain_bwd(q, k, v, go, s), sdpa_bwd,
+                               attention_bound(q, products=5, tensors=8, row_stats=1)),
+                        "k5_bwd": (lambda: fl._launch_bwd(*padded[:3], seg, *res, padded[3], s),
+                                   lambda: fl.attention_flash_plain_bwd(*padded[:3], seg, *res,
+                                                                        padded[3], s),
+                                   sdpa_bwd,
+                                   attention_bound(q, products=5, tensors=8, row_stats=2))}
+            for name, (kernel, plain, library, b) in runs.items():
+                # The kernel against its plain version on the tensors it is
+                # timed on, under the bf16 gates.
+                outs, refs = kernel(), plain()
+                torch.cuda.synchronize()
+                outs, refs = ([x] if torch.is_tensor(x) else list(x) for x in (outs, refs))
+                ratio, rel = gate(name, D, bf16, outs, refs, gates[bf16][0])
+                err = max(max_err(o, r) for o, r in zip(outs, refs))
+                del outs, refs
+                t, order = timed(torch, kernel, plain, library, iters=5)
+                t.update(b)
+                times[name].append({"head_dim": D, "shape": [Bk, H, 784, D], "dtype": "bfloat16",
+                                    "max_abs_err_at_shape": err, **t})
+                log(f"  {name} ({Bk},{H},784,{D}) bf16: max|kernel-plain| {err:.3e} (error / "
+                    f"tolerance {ratio:.3f}, relative L2 {rel:.3e}); kernel {t['ms']:.3f} ms, "
+                    f"plain {t['plain_ms']:.3f} ms, SDPA {t['library_ms']:.3f} ms, bound "
+                    f"{t['bound_ms']:.4f} ms ({t['bound_by']}; "
+                    f"{100 * t['bound_ms'] / t['ms']:.1f}% of it) (runs plain, library, kernel, "
+                    f"kernel, library, plain: {order}) on {card}")
+            del qkvg, q, k, v, go, leaves, lib_out, padded
+    torch.cuda.empty_cache()
+
+    # The pad against native instances at (256, 8, 784, D): D = 32 and
+    # D = 48 on their own instances and zero-padded to 64 (through the
+    # wrapper's pad and slice copies, and the K1 launch alone on the padded
+    # inputs), and D = 64.
+    def padded_fwd(x, width):
+        D = x[0].shape[-1]
+        out, _ = fa._kernel_fwd(*(fa.pad_head_dim(t, width) for t in x), D ** -0.5)
+        return fa._head_major(out[..., :D])
+
+    pad_ms = {}
+    for D in (32, 48, 64):
+        x = [torch.randn(256, 784, 8, D, generator=g, device=dev, dtype=bf16).transpose(1, 2)
+             for _ in range(3)]
+        wide = [fa.pad_head_dim(t, 64) for t in x]
+        cases = {f"D={D} through the wrapper": lambda: fa.fused_self_attention(*x, D ** -0.5)}
+        if D != 64:
+            cases[f"D={D} padded to 64, wrapper work included"] = lambda: padded_fwd(x, 64)
+            cases[f"D={D} padded to 64, the launch alone"] = lambda: fa._kernel_fwd(
+                *wide, D ** -0.5)
+        for name, fn in cases.items():
+            fn()
+            pad_ms[name] = statistics.median(cuda_ms(fn, 5, torch) for _ in range(3))
+        del x, wide
+    log("  K1 pad vs native at (256,8,784,D) bf16: " + "; ".join(
+        f"{k} {v:.3f} ms" for k, v in pad_ms.items()) + f" on {card}")
+
+    # Each instance on the DETR's own paths (resnet50s8 at 224: 784
+    # tokens; one encoder and one decoder layer, hidden / heads = D): an
+    # eval step (K1), a train step with dropout 0 (K1 + K2), and the same
+    # with the flash route (K5, K5 backward).
+    path_launches = {}
+    for hidden, nheads in ((256, 16), (384, 8), (256, 4), (256, 2)):
+        D = hidden // nheads
+        cfg = DETRConfig(backbone="resnet50s8", hidden_dim=hidden, nheads=nheads, enc_layers=1,
+                         dec_layers=1, dim_feedforward=512, num_queries=20, dropout=0.0)
+        model = build_detr_train_model(cfg, seed=20, device=dev)
+        tcfg = TrainConfig()
+        state = create_train_state(model, tcfg)
+        train_step = make_train_step(CriterionConfig(), tcfg, AugmentConfig(out_size=224),
+                                     compute_dtype=bf16)
+        eval_step = make_eval_step(out_size=224, compute_dtype=bf16)
+        gen = torch.Generator(device=dev).manual_seed(D)
+        tb, eb = train_batch(torch, dev, 16, gen), eval_batch(torch, dev, 32, gen)
+        seen = {}
+        for impl in ("fused", "flash"):
+            for m in model.modules():  # the encoder's self-attention (the decoder's is plain)
+                if isinstance(m, transformer._Attention) and m.impl != "plain":
+                    m.impl = impl
+            zero_counts()
+            eval_step(state, eb)
+            train_step(state, tb, gen)
+            torch.cuda.synchronize()
+            seen[impl] = counts()
+        require(seen["fused"] == expected(k1=2, k2=1) and seen["flash"] == expected(k5=2, k5_bwd=1),
+                f"the D={D} instances' launches on the DETR's paths: {seen}")
+        path_launches[D] = {"k1": 2, "k2": 1, "k5": 2, "k5_bwd": 1}
+        del model, state
+    log("  each head-dim instance on the DETR's eval and train paths (fused and flash "
+        "routes, one encoder layer): K1 2, K2 1, K5 2, K5 backward 1 for D = 16, 48, 64, 128")
+
+    # The R1 eval step with 4 heads (D = 64) at full width, B = 256 @224.
+    cfg = DETRConfig(backbone="resnet50s8", hidden_dim=256, nheads=4, enc_layers=4,
+                     dec_layers=4, dim_feedforward=2048, num_queries=20, dropout=0.0)
+    model = build_detr_model(cfg, seed=0, device=dev, dtype=bf16)
+    eval_step = make_eval_step(out_size=224, solver="simple")
+    batch = eval_batch(torch, dev, 256, g)
+    eval_step(model, batch)  # warm-up
+    shapes, gaps, real_fwd = [], [], fa._launch_fwd
+
+    def spy(q, k, v, s):
+        """Each launch's inputs, and its output against the plain version
+        on them (bf16 gates)."""
+        shapes.append((tuple(q.shape), q.dtype))
+        out, lse = real_fwd(q, k, v, s)
+        with torch.autocast("cuda", enabled=False):
+            ref = fa.attention_plain(q, k, v, s)
+        gaps.append((max_err(out, ref), 1.0 + ref.float().abs().max().item(), rel_l2(out, ref)))
+        return out, lse
+
+    fa._launch_fwd = spy
+    try:
+        zero_counts()
+        res = eval_step(model, batch)
+        torch.cuda.synchronize()
+        seen = counts()
+    finally:
+        fa._launch_fwd = real_fwd
+    log(f"  R1 DETR nheads=4 eval step B=256 bf16 @224: launches {seen}, K1 inputs "
+        f"{sorted(set(shapes))} (expected K1 4 at (256, 4, 784, 64), no other)")
+    require(seen == expected(k1=4) and set(shapes) == {((256, 4, 784, 64), bf16)},
+            "the nheads=4 eval step's K1 launches")
+    ratio = max(e / (gates[bf16][0] * m) for e, m, _ in gaps)
+    rel = max(r for _, _, r in gaps)
+    nheads4_err = max(e for e, _, _ in gaps)
+    worst[64]["k1"] = max(worst[64]["k1"], nheads4_err)
+    log(f"  the eval step's 4 K1 launches against the plain version on their inputs: max "
+        f"|kernel-plain| {nheads4_err:.3e} (error / tolerance {ratio:.3f}), relative L2 "
+        f"{rel:.3e} (limit {gates[bf16][1]:.0e})")
+    require(ratio <= 1.0 and rel <= gates[bf16][1],
+            "K1 in the nheads=4 eval step disagrees with its plain version")
+    require(all(bool(torch.isfinite(v).all()) for v in res.values() if v.is_floating_point()),
+            "the nheads=4 eval step's outputs")
+    x = crop_resize_cubic_mxu(batch["image"][:2], batch["clip_bbox_buf"][:2], 224)
+    model32 = build_detr_model(cfg, seed=0, device=dev)
+    cpu = build_detr_model(cfg, seed=0, device="cpu")
+    with torch.inference_mode(), highest_precision():
+        out_gpu, out_cpu = model32(x), cpu(x.cpu())
+    err = max(max_err(out_gpu[k].cpu(), out_cpu[k]) for k in ("pred_logits", "pred_points"))
+    log(f"  R1 DETR nheads=4 float32 card vs CPU: max err {err:.3e} (tolerance 2e-3)")
+    require(err <= 2e-3, "the nheads=4 model on the card disagrees with the CPU")
+    del model, model32, cpu, batch, res
+    torch.cuda.empty_cache()
+    log("phase 20 ok: K1, K2 and K5 at D = 16, 40, 48, 64 and 128")
+    return {"worst": worst, "times": times, "pad_ms": pad_ms, "paths": path_launches,
+            "r1_nheads4_k1": seen["k1"], "r1_nheads4_k1_err": nheads4_err}
+
+
+def slice9_phases(torch, card, dev, g):
+    """Phases 21-24: the MobileNetV3 and GhostNetV2 RT-DETRs at 512, the R2
+    .pth loader on the card, the checkpoint-ensemble submission with its
+    two solvers, and tools/export.py."""
+    import csv
+    import dataclasses
+    import importlib.util
+    import tempfile
+
+    from satellite_pose_estimation_tpu_torch.core.yaml_config import YAMLConfig
+    from satellite_pose_estimation_tpu_torch.data.augment import AugmentConfig
+    from satellite_pose_estimation_tpu_torch.geometry import (
+        exhaustive_pnp,
+        scoring,
+        solve_pose_multi_mean_batch,
+        solvers,
+    )
+    from satellite_pose_estimation_tpu_torch.geometry.camera import WORLD_POINTS
+    from satellite_pose_estimation_tpu_torch.models import rtdetr_decoder
+    from satellite_pose_estimation_tpu_torch.models.rtdetr import (
+        RTDETR,
+        build_rtdetr_model,
+        build_rtdetr_train_model,
+    )
+    from satellite_pose_estimation_tpu_torch.ops.image_warp import crop_resize_cubic_mxu
+    from satellite_pose_estimation_tpu_torch.ops.precision import highest_precision
+    from satellite_pose_estimation_tpu_torch.tools import export as export_tool
+    from satellite_pose_estimation_tpu_torch.tools import gen_submission_multi as gmulti
+    from satellite_pose_estimation_tpu_torch.tools.synthetic_selfcheck import render_dataset
+    from satellite_pose_estimation_tpu_torch.train.solver import SpeedSolver
+    from satellite_pose_estimation_tpu_torch.train.state import create_train_state
+    from satellite_pose_estimation_tpu_torch.train.steps import make_eval_step, make_train_step
+    from satellite_pose_estimation_tpu_torch.utils.checkpoint_convert import (
+        port_to_r2_state_dict,
+        r2_state_dict_to_port,
+    )
+
+    fa, _, _, fl = _kernel_modules()
+    bf16 = torch.bfloat16
+    world = torch.tensor(WORLD_POINTS, dtype=torch.float32)
+    here = os.path.dirname(os.path.abspath(__file__))
+    yml = os.path.join(here, "configs/speed/rtdetr_mobilenetv3_kl_1_512.yml")
+    have_yaml = importlib.util.find_spec("yaml") is not None
+    mcfg = YAMLConfig(yml) if have_yaml else YAMLConfig(cfg=mobilenet_merged())
+    cfg = mcfg.model_config()
+    log("  MobileNetV3 config: " + ("configs/speed/rtdetr_mobilenetv3_kl_1_512.yml" if have_yaml
+                                    else "its merged dict (no PyYAML)")
+        + f": backbone {cfg.backbone}, hidden {cfg.hidden_dim}, {cfg.nhead} heads, FFN "
+        f"{cfg.dim_feedforward}, expansion {cfg.expansion}, {cfg.num_queries} queries, "
+        f"{cfg.num_decoder_layers} decoder layers")
+    require(cfg.backbone == "mobilenetv3_large" and cfg.hidden_dim // cfg.nhead == 32,
+            "the MobileNetV3 config's model")
+    size, pack, B = 512, 544, 64
+    result = {}
+
+    def eval_batch512(n, gen):
+        b = eval_batch(torch, dev, n, gen, pack)
+        b["clip_bbox_buf"] = torch.tensor([[16.0, 16.0, 528.0, 528.0]], device=dev).repeat(n, 1)
+        return b
+
+    shapes, real_fwd, real_bwd = [], fa._launch_fwd, fa._launch_bwd
+
+    def spy_fwd(q, k, v, s):
+        shapes.append(("K1", tuple(q.shape), q.dtype))
+        return real_fwd(q, k, v, s)
+
+    def spy_bwd(q, k, v, o, lse, go, s):
+        shapes.append(("K2", tuple(q.shape), q.dtype))
+        return real_bwd(q, k, v, o, lse, go, s)
+
+    def counted(fn):
+        shapes.clear()
+        fa._launch_fwd, fa._launch_bwd = spy_fwd, spy_bwd
+        try:
+            zero_counts()
+            out = fn()
+            torch.cuda.synchronize()
+            return out, counts(), sorted(set(shapes))
+        finally:
+            fa._launch_fwd, fa._launch_bwd = real_fwd, real_bwd
+
+    def card_vs_cpu(config, x, what):
+        """The float32 model on the card (TF32 off) against the CPU at the
+        batch of ``x``, the selected tokens first (phase 14's check)."""
+        picks, real_topk = [], rtdetr_decoder.topk
+
+        def spy_topk(scores, k):
+            vals, idx = real_topk(scores, k)
+            picks.append((torch.sort(scores.float(), -1, descending=True).values.cpu(), idx.cpu()))
+            return vals, idx
+
+        gpu, cpu = build_rtdetr_model(config, seed=0, device=dev), build_rtdetr_model(
+            config, seed=0, device="cpu")
+        rtdetr_decoder.topk = spy_topk
+        try:
+            with torch.inference_mode(), highest_precision():
+                out_gpu, out_cpu = gpu(x), cpu(x.cpu())
+        finally:
+            rtdetr_decoder.topk = real_topk
+        (sorted_gpu, idx_gpu), (_, idx_cpu) = picks
+        k = config.num_queries
+        if torch.equal(idx_gpu, idx_cpu):
+            err = max(max_err(out_gpu[key].cpu(), out_cpu[key])
+                      for key in ("pred_logits", "pred_points", "pred_sigmas"))
+            log(f"  {what} float32 card vs CPU, the same {k} tokens selected: max err "
+                f"{err:.3e} (tolerance 2e-3)")
+            require(err <= 2e-3, f"the float32 {what} on the card disagrees with the CPU")
+        else:
+            gap = (sorted_gpu[:, k - 1] - sorted_gpu[:, k]).abs().max().item()
+            a, b = out_gpu["pred_points"].cpu(), out_cpu["pred_points"]
+            chamfer = (a[:, :, None] - b[:, None]).norm(dim=-1).amin(-1).median().item()
+            log(f"  {what} float32 card vs CPU: the selected tokens differ; score gap {gap:.3e},"
+                f" points chamfer median {chamfer:.3e} (tolerances 1e-3)")
+            require(gap <= 1e-3 and chamfer <= 1e-3, f"the float32 {what} selects other tokens")
+
+    # -- 21. the MobileNetV3 RT-DETR at 512 ---------------------------------
+    model = build_rtdetr_model(cfg, seed=0, device=dev, dtype=bf16)
+    step = make_eval_step(out_size=size, solver="sigma")
+    pool = [eval_batch512(B, g) for _ in range(15)]
+    step(model, pool[0])  # warm-up
+    results, seen, kshapes = counted(lambda: [step(model, b) for b in pool[:3]])
+    result["eval_k1"] = seen["k1"]
+    log(f"  MobileNetV3 RT-DETR eval @512 B={B} bf16: launches in 3 sigma steps {seen}, K1 "
+        f"inputs {kshapes} (expected K1 once a step at ({B}, 8, 256, 32), no other)")
+    require(seen == expected(k1=3) and kshapes == [("K1", (B, 8, 256, 32), bf16)],
+            "the MobileNetV3 eval step's K1 launches")
+    for res in results:
+        require(all(bool(torch.isfinite(v).all()) for v in res.values()
+                    if torch.is_tensor(v) and v.is_floating_point()),
+                "a MobileNetV3 eval output is not finite")
+    torch.cuda.reset_peak_memory_stats()
+    rates = []
+    for w in range(3):
+        t0 = time.perf_counter()
+        for b in pool[w * 5:(w + 1) * 5]:
+            step(model, b)
+        torch.cuda.synchronize()
+        rates.append(B * 5 / (time.perf_counter() - t0))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    b = pool[0]
+    with torch.inference_mode():
+        imgs = crop_resize_cubic_mxu(b["image"], b["clip_bbox_buf"], size).to(bf16)
+        nchw = imgs.permute(0, 3, 1, 2)
+        feats = model.backbone(nchw)
+        enc = model.encoder(feats)
+        spans = {name: statistics.median(cuda_ms(fn, 1, torch) for _ in range(3)) for name, fn in (
+            ("model", lambda: model(imgs)), ("backbone", lambda: model.backbone(nchw)),
+            ("encoder", lambda: model.encoder(feats)), ("decoder", lambda: model.decoder(enc)))}
+    log(f"  MobileNetV3 RT-DETR eval step B={B} bf16 @512, sigma solver: median "
+        f"{statistics.median(rates):.2f} img/s (min {min(rates):.2f}, max {max(rates):.2f}; 3 "
+        f"windows of 5 steps), peak {peak:.2f} GiB; spans " + ", ".join(
+            f"{k} {v:.3f} ms" for k, v in spans.items()) + f" per B={B} step on {card}")
+    result["eval"] = {"img_s": statistics.median(rates), "peak_gib": peak, "spans": spans}
+    del pool, imgs, nchw, feats, enc, model
+    card_vs_cpu(cfg, crop_resize_cubic_mxu(b["image"][:2], b["clip_bbox_buf"][:2], size),
+                "MobileNetV3 RT-DETR")
+    gc = torch.Generator().manual_seed(21)
+    quat, tvec, points, probs, sigmas, _ = known_pose_keypoints(torch, 64, cfg.num_queries, gc)
+    q_, t_, v_ = solvers.solve_pose_sigma(world.to(dev), points.to(dev), probs.to(dev),
+                                         sigmas.to(dev))
+    score = scoring.speed_score_batch(q_, t_, quat.to(dev), tvec.to(dev))["score"]
+    log(f"  sigma solver on the config's 30-query outputs of 64 known poses: valid "
+        f"{int(v_.sum())}/64, mean SPEED {score.mean().item():.6f} (limit 1e-2)")
+    require(bool(v_.all()) and score.mean().item() <= 1e-2, "the sigma solver's known poses")
+
+    # The recipe's train step at B = 16 under bf16 autocast (dropout 0).
+    crit, tcfg = mcfg.criterion_config(), mcfg.train_config(1)
+    gen = torch.Generator(device=dev).manual_seed(21)
+    TB = RECIPE_BATCH
+    model = build_rtdetr_train_model(cfg, seed=0, device=dev)
+    state = create_train_state(model, tcfg, mcfg.build_tx(model, 1))
+    tstep = make_train_step(crit, tcfg, AugmentConfig(out_size=size), compute_dtype=bf16)
+    tpool = [train_batch(torch, dev, TB, gen, pack, side=size - 32) for _ in range(18)]
+    tstep(state, tpool[0], gen)  # warm-up
+    losses, seen, kshapes = counted(lambda: [tstep(state, b, gen) for b in tpool[:3]])
+    result["train"] = {"k1": seen["k1"], "k2": seen["k2"]}
+    log(f"  MobileNetV3 RT-DETR recipe train @512 B={TB}: launches in 3 steps {seen}, K1 / K2 "
+        f"inputs {kshapes}; losses " + ", ".join(f"{ls['loss_total'].item():.4f}" for ls in losses))
+    require(seen == expected(k1=3, k2=3) and kshapes == [("K1", (TB, 8, 256, 32), bf16),
+                                                         ("K2", (TB, 8, 256, 32), bf16)],
+            "the MobileNetV3 train step's K1 / K2 launches")
+    require(all(bool(torch.isfinite(v)) for ls in losses for v in ls.values()),
+            "a MobileNetV3 train loss is not finite")
+    torch.cuda.reset_peak_memory_stats()
+    rates = []
+    for w in range(3):
+        t0 = time.perf_counter()
+        for b in tpool[3 + w * 5:3 + (w + 1) * 5]:
+            tstep(state, b, gen)
+        torch.cuda.synchronize()
+        rates.append(TB * 5 / (time.perf_counter() - t0))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    spans = stage_spans(torch, tstep, state, tpool[:3], gen)
+    log(f"  MobileNetV3 RT-DETR train step B={TB} bf16 autocast @512: median "
+        f"{statistics.median(rates):.2f} img/s (min {min(rates):.2f}, max {max(rates):.2f}; 3 "
+        f"windows of 5 steps), peak {peak:.2f} GiB; stages {spans} on {card}")
+    result["train"].update(img_s=statistics.median(rates), peak_gib=peak, spans=spans)
+    no_aug = AugmentConfig(out_size=size, p_hflip=0.0, p_rotate=0.0, p_affine=0.0, p_blur=0.0,
+                           p_blur_family=0.0, p_noise=0.0, p_jpeg=0.0, p_iso=0.0, p_cutout=0.0,
+                           p_trunc=0.0)
+    fixed_model = build_rtdetr_train_model(cfg, seed=1, device=dev)
+    fixed_state = create_train_state(fixed_model, tcfg, mcfg.build_tx(fixed_model, 1))
+    fixed_step = make_train_step(crit, tcfg, no_aug, compute_dtype=bf16)
+    trace = [fixed_step(fixed_state, tpool[0], gen)["loss_total"].item() for _ in range(10)]
+    log("  MobileNetV3 fixed-batch loss over 10 steps: " + ", ".join(f"{v:.4f}" for v in trace))
+    require(trace[-1] < trace[0] - 0.05 * abs(trace[0]), "the MobileNetV3 loss does not fall")
+    del model, state, fixed_model, fixed_state, tpool
+
+    # The GhostNetV2 RT-DETR at 512, B = 64 eval.
+    gcfg = dataclasses.replace(cfg, backbone="ghostnetv2")
+    model = build_rtdetr_model(gcfg, seed=0, device=dev, dtype=bf16)
+    pool = [eval_batch512(B, g) for _ in range(3)]
+    step(model, pool[0])
+    results, seen, _ = counted(lambda: [step(model, b) for b in pool[1:]])
+    result["ghost_k1"] = seen["k1"]
+    log(f"  GhostNetV2 RT-DETR eval @512 B={B} bf16: launches in 2 sigma steps {seen}")
+    require(seen == expected(k1=2), "the GhostNetV2 eval step's K1 launches")
+    require(all(bool(torch.isfinite(v).all()) for res in results for v in res.values()
+                if torch.is_tensor(v) and v.is_floating_point()), "a GhostNetV2 output")
+    del model
+    card_vs_cpu(gcfg, crop_resize_cubic_mxu(pool[0]["image"][:2], pool[0]["clip_bbox_buf"][:2],
+                                            size), "GhostNetV2 RT-DETR")
+    del pool
+    torch.cuda.empty_cache()
+    log("phase 21 ok: the MobileNetV3 and GhostNetV2 RT-DETRs at 512 through K1 (and K2)")
+
+    # -- 22. the R2 .pth loader on the card -----------------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        x = crop_resize_cubic_mxu(*(eval_batch512(4, g)[k] for k in ("image", "clip_bbox_buf")),
+                                  size)
+        for name, config in (("mobilenetv3_large", cfg),
+                             ("presnet r50vd", YAMLConfig(cfg=recipe_merged()).model_config())):
+            model = build_rtdetr_model(config, seed=22, device=dev)
+            path = os.path.join(tmp, "r2.pth")
+            torch.save({"model": port_to_r2_state_dict(model.state_dict())}, path)
+            loaded = torch.load(path, map_location="cpu", weights_only=True)["model"]
+            port = r2_state_dict_to_port(loaded, nhead=config.nhead,
+                                         freeze_norm=config.freeze_norm)
+            with torch.device("meta"):
+                twin = RTDETR(config)
+            twin.load_state_dict(port, strict=True, assign=True)
+            twin = twin.to(dev).eval()
+            with torch.inference_mode():
+                a, b_ = model(x), twin(x)
+            same = all(torch.equal(a[k], b_[k]) for k in ("pred_logits", "pred_points",
+                                                          "pred_sigmas"))
+            log(f"  R2 .pth round trip, {name}: {len(loaded)} reference keys -> {len(port)} port "
+                f"keys; outputs of the reloaded model bit for bit: {same}")
+            require(same, f"the R2 loader's round trip of {name} changed the outputs")
+            del model, twin
+    torch.cuda.empty_cache()
+    log("phase 22 ok: the R2 .pth loader round-trips bit for bit on the card")
+
+    # -- 23. the checkpoint-ensemble submission --------------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "speed")
+        render_dataset(root, 40, seed=23, n_train=8)
+        parser = gmulti.get_submission_parser()
+        flags = ["--backbone", "resnet50s8", "--enc_layers", "4", "--dec_layers", "4",
+                 "--num_queries", "20", "--input_size", "224", "--batch_size", "32",
+                 "--compute_dtype", "bfloat16", "--data_root", root,
+                 "--real_img_dir", "images/train", "--synt_img_dir", "images/train"]
+        ckpts = []
+        for seed in range(3):
+            out = os.path.join(tmp, f"r1_{seed}")
+            args = parser.parse_args(flags + ["--checkpoints", "-", "--output_dir", out])
+            solver = SpeedSolver(gmulti.args_to_config(args), data_root=root, seed=seed)
+            solver._build()
+            solver.save_checkpoint(0, "checkpoint")
+            ckpts.append(os.path.join(out, "checkpoint"))
+            del solver
+        args = parser.parse_args(flags + ["--checkpoints", *ckpts, "--output_dir",
+                                          os.path.join(tmp, "unused"), "--submission_dir",
+                                          os.path.join(tmp, "sub")])
+        cwd = os.getcwd()
+        os.chdir(tmp)  # the raw points_logits_*.json go to the working directory
+        try:
+            zero_counts()
+            t0 = time.perf_counter()
+            path = gmulti.main(args)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            os.chdir(cwd)
+        dumps = sorted(os.path.basename(f) for f in os.listdir(tmp)
+                       if f.startswith("points_logits_"))
+        require([d.split("_")[2] for d in dumps] == ["real", "synt"],
+                f"the raw predictions in the working directory: {dumps}")
+        result["ensemble_k1"] = counts()["k1"]
+        with open(path) as f:
+            rows = list(csv.reader(f))
+        n = 0
+        for ann in (args.real_ann_file, args.synt_ann_file):
+            with open(os.path.join(root, "annos", ann)) as f:
+                n += len(json.load(f))
+        log(f"  ensemble submission over 3 checkpoints: {len(rows)} rows of {n} images, "
+            f"{sum(len(r) == 8 for r in rows)} with 8 columns, {wall:.2f} s, K1 launches "
+            f"{result['ensemble_k1']}")
+        require(len(rows) == n and all(len(r) == 8 for r in rows), "the ensemble CSV")
+    gc = torch.Generator().manual_seed(23)
+    quat, tvec, points, probs, _, _ = known_pose_keypoints(torch, 64, 20, gc)
+    pts = torch.stack([points + torch.randn(points.shape, generator=gc) for _ in range(3)], 1)
+    q_, t_, v_ = solve_pose_multi_mean_batch(world.to(dev), pts.to(dev),
+                                             probs[:, None].expand(-1, 3, -1, -1).to(dev))
+    multi = scoring.speed_score_batch(q_, t_, quat.to(dev), tvec.to(dev))["score"]
+    # exhaustive_pnp on the card and on the CPU on the same known poses:
+    # with JAX's 15 refine steps, and with 200, where the refine converges
+    # and the two devices must reach the same pose.
+    quat, tvec, pix = exhaustive_known_poses(torch)
+    mask = torch.ones(64, 11, dtype=torch.bool)
+    runs = {}
+    for where, steps in (("card", 15), ("cpu", 15), ("card", 200), ("cpu", 200)):
+        d = dev if where == "card" else "cpu"
+        qx, tx, vx = exhaustive_pnp(world.to(d), pix.to(d), mask.to(d), refine_iters=steps)
+        qx, tx = qx.cpu().double(), tx.cpu().double()
+        runs[where, steps] = (qx, tx, bool(vx.all()),
+                              scoring.speed_score_batch(qx, tx, quat.double(),
+                                                        tvec.double())["score"])
+
+    def pose_gap(steps):
+        """Rotation (rad, from the chord of the unit quaternions: acos of
+        their product reads float32 rounding as ~1e-3 rad) and relative
+        translation between the card's and the CPU's poses, and the images
+        where both reach SPEED <= 1e-2."""
+        (qa, ta, _, sa), (qb, tb, _, sb) = runs["card", steps], runs["cpu", steps]
+        qa, qb = (x / x.norm(dim=-1, keepdim=True) for x in (qa, qb))
+        qb = torch.where((qa * qb).sum(-1, keepdim=True) < 0, -qb, qb)
+        angle = 4 * torch.asin(((qa - qb).norm(dim=-1) / 2).clamp(max=1.0))
+        both = (sa <= 1e-2) & (sb <= 1e-2)
+        return angle[both].max().item(), ((ta - tb).norm(dim=-1) / tvec.double().norm(dim=-1))[
+            both].max().item(), int(both.sum())
+
+    exh, exh_cpu = runs["card", 15][3], runs["cpu", 15][3]
+    hit = exh <= 1e-2
+    gap15, gap200 = pose_gap(15), pose_gap(200)
+    log(f"  64 known poses on the card: multi-mean (3 models, 1 px each) mean SPEED "
+        f"{multi.mean().item():.6f} (limit 1e-2); exhaustive EPnP (15 refine steps, as JAX) "
+        f"mean SPEED {exh.mean().item():.6f}, median {exh.median().item():.6f}, "
+        f"{int(hit.sum())}/64 within 1e-2 (the port on the CPU: mean "
+        f"{exh_cpu.mean().item():.6f}, {int((exh_cpu <= 1e-2).sum())}/64; JAX on the CPU: mean "
+        f"{EXHAUSTIVE_JAX['mean_speed']}, {EXHAUSTIVE_JAX['hits']}/64). A mean within 1e-2 is out "
+        f"of this solver's reach: its four-point EPnP has a 4-dimensional null space, "
+        f"and the images it misses end in another minimum, in JAX too. Card vs CPU where both "
+        f"reach the truth: 15 steps {gap15[0]:.3e} rad, {gap15[1]:.3e} relative over "
+        f"{gap15[2]} images (not gated: the card's eigh returns other null-space vectors, so "
+        f"the refine may start from another sample and stop short of the minimum); 200 steps "
+        f"{gap200[0]:.3e} rad, {gap200[1]:.3e} relative over {gap200[2]} images (limits 2e-3, "
+        f"1e-4), {int((runs['card', 200][3] <= 1e-2).sum())}/64 on the card within 1e-2")
+    require(multi.mean().item() <= 1e-2, "the multi-mean solver's known poses")
+    require(all(r[2] for r in runs.values()) and exh.median().item() <= 1e-2,
+            "the exhaustive solver reaches the truth on half of the known poses or fewer")
+    require(gap200[0] <= 2e-3 and gap200[1] <= 1e-4,
+            "the exhaustive solver's converged poses on the card disagree with the CPU's")
+    hits = int(hit.sum())
+    result["solvers"] = {"multi_mean": multi.mean().item(), "exhaustive_mean": exh.mean().item(),
+                         "exhaustive_median": exh.median().item(), "exhaustive_hits": hits}
+    log("phase 23 ok: the ensemble submission and its two solvers")
+
+    # -- 24. tools/export.py --------------------------------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        args = export_tool.get_args_parser().parse_args(
+            ["-c", yml, "--out_dir", tmp, "--input_size", "512", "--check"])
+        if not have_yaml:
+            args.config = mobilenet_merged()
+        t0 = time.perf_counter()
+        program, live = export_tool.main(args)
+        export_s = time.perf_counter() - t0
+        size_mb = os.path.getsize(os.path.join(tmp, "model.pt2")) / 2**20
+        calls = [str(n.target) for n in program.graph.nodes if n.op == "call_function"]
+        loaded = torch.export.load(os.path.join(tmp, "model.pt2")).module()
+        x = crop_resize_cubic_mxu(*(eval_batch512(1, g)[k] for k in ("image", "clip_bbox_buf")),
+                                  size)
+        zero_counts()
+        with torch.inference_mode():
+            out = loaded(x)
+        torch.cuda.synchronize()
+        seen = counts()
+        result["export_k1"] = seen["k1"]
+        with torch.inference_mode():
+            ref = live(x)
+        err = max_err(out["pred_logits"], ref["pred_logits"])
+    log(f"  export of rtdetr_mobilenetv3_kl_1_512 (deploy) at 512: {export_s:.2f} s with "
+        f"--check, model.pt2 {size_mb:.2f} MiB, {calls.count('spe.fused_attention.default')} "
+        f"spe::fused_attention call(s) in the graph; the reloaded program on the card: launches "
+        f"{seen}, pred_logits vs the live model {err:.3e} (tolerance 1e-4)")
+    require(calls.count("spe.fused_attention.default") == 1, "the exported graph's operator")
+    require(seen == expected(k1=1) and err <= 1e-4, "the reloaded program on the card")
+    result["export"] = {"seconds": export_s, "mib": size_mb}
+    del program, live, loaded
+    torch.cuda.empty_cache()
+    log("phase 24 ok: the deploy export launches K1 through its custom operator")
+    return result
+
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -143,8 +143,7 @@ class YAMLConfig:
     def build_model(self, seed: int = 0, device="cuda") -> torch.nn.Module:
         """The model to train: weights drawn from ``seed``, float32
         parameters on ``device`` (the card unless ``"cpu"`` is asked for),
-        training mode. Backbones the port lacks (MobileNetV3, GhostNetV2)
-        raise ``NotImplementedError``."""
+        training mode."""
         cfg = self.model_config()
         if self.model_name == "DETR":
             from ..models.detr import build_detr_train_model

@@ -1,4 +1,5 @@
-// Flash self-attention with segment ids, head dim 32: the forward (output and
+// Flash self-attention with segment ids, head dims D = 16, 32, 48, 64 and 128
+// (the wrapper zero-pads any other D <= 128): the forward (output and
 // the float32 row statistics l, m) and the backward (dq, dk, dv), for
 // sequences the wrapper has padded to a multiple of 128.
 //
@@ -39,7 +40,7 @@
 //     route). A warp keeps its raw q rows as A fragments in registers and
 //     the segment ids of its rows in registers; 64-key K and V tiles and
 //     their segment ids are double buffered in shared memory by cp.async
-//     (rows padded to 80 B for ldmatrix). Per tile: S = q K^T, scaled, then
+//     (rows padded by 16 B for ldmatrix). Per tile: S = q K^T, scaled, then
 //     the mask added; an online softmax on the accumulators with
 //     p = exp2((s - m) log2(e)), the difference taken first: on the flash
 //     route a padded row (segment 0) sees only masked keys for its first 12
@@ -68,23 +69,25 @@
 //   route) was slower in the forward and no faster in the backward, and
 //   three backward blocks an SM without spills were slower than four.
 //
-// ptxas (sm_90a, nvcc -Xptxas -v, as chip_smoke.py phase 1 prints it),
-// masked / unmasked: forward 165 / 166 registers, 20992 / 20480 B of shared
+// ptxas (sm_90a, nvcc -Xptxas -v, as chip_smoke.py phase 1 prints it) at
+// D = 32, masked / unmasked: forward 165 / 166 registers, 20992 / 20480 B of shared
 // memory, no spills (three blocks an SM); row pass 128 registers (held by
 // __launch_bounds__ to four blocks an SM), 20992 / 20480 B, 12 / 28 B of
 // spill stores; column pass 128 registers, 22528 / 22016 B, 48 / 0 B of
 // spill stores. float32: forward 143, dk / dv 228, dq 166 registers, no
-// spills.
+// spills. Other head dims follow K1 and K2: one 16-row group a warp in the
+// forward and a two-block register bound in the backward passes from D = 64
+// on, and float32 rows that spill at large D (PERF.md has each instance).
 //
 // float32 design (CUDA cores, FMA): kept for the float32 parity checks, which
 // TF32 would miss. Every pass streams 64-row float32 tiles through shared
-// memory (rows padded to 36 floats) with four threads per row or key, each
+// memory (rows padded by 4 floats) with four threads per row or key, each
 // taking every fourth element of a tile, and merges the four partial results
 // with warp shuffles: forward, one block per (batch, head, 64 q rows), an
 // online softmax per thread; backward, di (one thread per row), then dk / dv
 // (one block per 64 keys) and dq (one block per 64 q rows).
 //
-// Layout: q, k, v, o, do, dq, dk, dv are (B, H, T, 32) with arbitrary batch,
+// Layout: q, k, v, o, do, dq, dk, dv are (B, H, T, D) with arbitrary batch,
 // head and token strides (in elements) and a unit stride on the head
 // dimension; l, m and the scratch rows are contiguous (B * H, T) float32;
 // segment ids are contiguous (B, T) int32, or null for no mask.
@@ -100,47 +103,55 @@ constexpr float kMaskValue = -0.7f * FLT_MAX;
 
 // The bf16 forward's 16-row groups a warp, and so the q rows a block owns:
 // group g of warp w holds rows g * kTile + 16 w + [0, 16) of the block's.
-constexpr int kFwdGroups = 2;
-constexpr int kFwdRows = kFwdGroups * kTile;
+template <int D>
+constexpr int kFwdGroups = D <= 32 ? 2 : 1;
+template <int D>
+constexpr int kFwdRows = kFwdGroups<D> * kTile;
+
+// Blocks an SM that the bf16 backward passes' register bound aims at.
+template <int D>
+constexpr int kBwdBlocks = D <= 32 ? 4 : 2;
 
 // The segment ids of keys c and c + 1 of a staged tile (c even).
 __device__ __forceinline__ int2 seg_pair(const int* segs, int c) {
   return *reinterpret_cast<const int2*>(&segs[c]);
 }
 
-template <bool kMask>
+template <int D, bool kMask>
 __global__ void __launch_bounds__(kMmaThreads)
 flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v, bf16* __restrict__ o,
                       float* __restrict__ l_out, float* __restrict__ m_out,
                       const int* __restrict__ seg, int H, int T_len, Strides sq, Strides sk,
                       Strides sv, Strides so, float sm_scale, bool vec) {
-  __shared__ __align__(16) bf16 ks[2][kTile][kLdh];
-  __shared__ __align__(16) bf16 vs[2][kTile][kLdh];
+  constexpr int G = kFwdGroups<D>;
+  BfTiles<D>& tiles = shared_as<BfTiles<D>>();
+  auto& ks = tiles.a;
+  auto& vs = tiles.b;
   __shared__ __align__(16) int segs[2][kTile];
 
   const int lane = threadIdx.x % 32;
   const int bh = blockIdx.y;
   const int b = bh / H;
   const int h = bh % H;
-  const int warp_row0 = blockIdx.x * kFwdRows + (threadIdx.x / 32) * 16;  // + g * kTile
+  const int warp_row0 = blockIdx.x * kFwdRows<D> + (threadIdx.x / 32) * 16;  // + g * kTile
   const int* segb = kMask ? seg + static_cast<long long>(b) * T_len : nullptr;
 
   const bf16* kb = k + b * sk.b + h * sk.h;
   const bf16* vb = v + b * sv.b + h * sv.h;
   const int n_tiles = (T_len + kTile - 1) / kTile;
-  stage_tile(ks[0], kb, sk.t, 0, T_len, vec);
-  stage_tile(vs[0], vb, sv.t, 0, T_len, vec);
+  stage_tile<D>(ks[0], kb, sk.t, 0, T_len, vec);
+  stage_tile<D>(vs[0], vb, sv.t, 0, T_len, vec);
   if (kMask) stage_stats(segs[0], segb, 0, T_len);
   cp_async_commit();
 
   // Per group, the raw q rows as A fragments and the segment ids of rows
   // lane / 4 and lane / 4 + 8.
-  uint32_t qf[kFwdGroups][2][4];
-  int seg_q[kFwdGroups][2];
+  uint32_t qf[G][D / 16][4];
+  int seg_q[G][2];
 #pragma unroll
-  for (int g = 0; g < kFwdGroups; ++g) {
-    load_a_frags(qf[g], q + b * sq.b + h * sq.h, sq.t, warp_row0 + g * kTile, T_len, 1.f);
+  for (int g = 0; g < G; ++g) {
+    load_a_frags<D>(qf[g], q + b * sq.b + h * sq.h, sq.t, warp_row0 + g * kTile, T_len, 1.f);
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = warp_row0 + g * kTile + lane / 4 + r * 8;
@@ -150,13 +161,13 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   // Per group, the running max of the two rows, this lane's part of their
   // running sums, and the output accumulators.
-  float m[kFwdGroups][2], l[kFwdGroups][2], acc[kFwdGroups][4][4];
+  float m[G][2], l[G][2], acc[G][D / 8][4];
 #pragma unroll
-  for (int g = 0; g < kFwdGroups; ++g) {
+  for (int g = 0; g < G; ++g) {
     m[g][0] = m[g][1] = -INFINITY;
     l[g][0] = l[g][1] = 0.f;
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < D / 8; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) acc[g][i][j] = 0.f;
   }
@@ -165,29 +176,29 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int buf = t & 1;
     if (t + 1 < n_tiles) {
       const int r0 = (t + 1) * kTile;
-      stage_tile(ks[buf ^ 1], kb, sk.t, r0, T_len, vec);
-      stage_tile(vs[buf ^ 1], vb, sv.t, r0, T_len, vec);
+      stage_tile<D>(ks[buf ^ 1], kb, sk.t, r0, T_len, vec);
+      stage_tile<D>(vs[buf ^ 1], vb, sv.t, r0, T_len, vec);
       if (kMask) stage_stats(segs[buf ^ 1], segb, r0, T_len);
     }
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
 
-    float s[kFwdGroups][8][4];
+    float s[G][8][4];
 #pragma unroll
-    for (int g = 0; g < kFwdGroups; ++g)
+    for (int g = 0; g < G; ++g)
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
         for (int j = 0; j < 4; ++j) s[g][nt][j] = 0.f;
-    mma_abt(s, qf, ks[buf]);
+    mma_abt<D>(s, qf, ks[buf]);
 
     // The stock score: scale, then add the mask.
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt) {
       const int2 sk2 = kMask ? seg_pair(segs[buf], nt * 8 + 2 * (lane % 4)) : make_int2(0, 0);
 #pragma unroll
-      for (int g = 0; g < kFwdGroups; ++g)
+      for (int g = 0; g < G; ++g)
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const float x = s[g][nt][j] * sm_scale;
@@ -198,7 +209,7 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int k0 = t * kTile;
     if (k0 + kTile > T_len) {  // the ragged last tile
 #pragma unroll
-      for (int g = 0; g < kFwdGroups; ++g)
+      for (int g = 0; g < G; ++g)
 #pragma unroll
         for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
@@ -206,9 +217,9 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
             if (k0 + nt * 8 + 2 * (lane % 4) + (j & 1) >= T_len) s[g][nt][j] = -INFINITY;
     }
 
-    uint32_t pf[kFwdGroups][4][4];
+    uint32_t pf[G][4][4];
 #pragma unroll
-    for (int g = 0; g < kFwdGroups; ++g) {
+    for (int g = 0; g < G; ++g) {
       float mx[2] = {m[g][0], m[g][1]};
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt)
@@ -224,7 +235,7 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         m[g][r] = mx[r];
         l[g][r] *= alpha;
 #pragma unroll
-        for (int dn = 0; dn < 4; ++dn) {
+        for (int dn = 0; dn < D / 8; ++dn) {
           acc[g][dn][2 * r] *= alpha;
           acc[g][dn][2 * r + 1] *= alpha;
         }
@@ -240,13 +251,13 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         set_a(pf[g], nt, p[0], p[1], p[2], p[3]);
       }
     }
-    mma_ab(acc, pf, vs[buf]);
+    mma_ab<D>(acc, pf, vs[buf]);
     __syncthreads();  // the next iteration refills this buffer
   }
 
   bf16* ob = o + b * so.b + h * so.h;
 #pragma unroll
-  for (int g = 0; g < kFwdGroups; ++g) {
+  for (int g = 0; g < G; ++g) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       float lr = l[g][r];
@@ -255,7 +266,7 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       const int row = warp_row0 + g * kTile + lane / 4 + r * 8;
       if (row < T_len) {
 #pragma unroll
-        for (int dn = 0; dn < 4; ++dn) {
+        for (int dn = 0; dn < D / 8; ++dn) {
           const __nv_bfloat162 val =
               __floats2bfloat162_rn(acc[g][dn][2 * r] / lr, acc[g][dn][2 * r + 1] / lr);
           *reinterpret_cast<__nv_bfloat162*>(&ob[row * so.t + dn * 8 + 2 * (lane % 4)]) = val;
@@ -272,8 +283,8 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 // Pass 1 (bf16): per (batch, head, 64 q rows), dq, and for pass 2 di,
 // m log2(e) and 1 / l.
-template <bool kMask>
-__global__ void __launch_bounds__(kMmaThreads, 4)
+template <int D, bool kMask>
+__global__ void __launch_bounds__(kMmaThreads, kBwdBlocks<D>)
 flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          const bf16* __restrict__ v, const bf16* __restrict__ o,
                          const bf16* __restrict__ g, const float* __restrict__ l_in,
@@ -282,8 +293,9 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          float* __restrict__ il_out, bf16* __restrict__ dq, int H, int T_len,
                          Strides sq, Strides sk, Strides sv, Strides so, Strides sg,
                          Strides sdq, float sm_scale, bool vec) {
-  __shared__ __align__(16) bf16 ks[2][kTile][kLdh];
-  __shared__ __align__(16) bf16 vs[2][kTile][kLdh];
+  BfTiles<D>& tiles = shared_as<BfTiles<D>>();
+  auto& ks = tiles.a;
+  auto& vs = tiles.b;
   __shared__ __align__(16) int segs[2][kTile];
 
   const int lane = threadIdx.x % 32;
@@ -297,22 +309,22 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* kb = k + b * sk.b + h * sk.h;
   const bf16* vb = v + b * sv.b + h * sv.h;
   const int n_tiles = (T_len + kTile - 1) / kTile;
-  stage_tile(ks[0], kb, sk.t, 0, T_len, vec);
-  stage_tile(vs[0], vb, sv.t, 0, T_len, vec);
+  stage_tile<D>(ks[0], kb, sk.t, 0, T_len, vec);
+  stage_tile<D>(vs[0], vb, sv.t, 0, T_len, vec);
   if (kMask) stage_stats(segs[0], segb, 0, T_len);
   cp_async_commit();
 
-  uint32_t qf[2][4], gf[2][4];
-  load_a_frags(qf, q + b * sq.b + h * sq.h, sq.t, row0, T_len, 1.f);
+  uint32_t qf[D / 16][4], gf[D / 16][4];
+  load_a_frags<D>(qf, q + b * sq.b + h * sq.h, sq.t, row0, T_len, 1.f);
   const bf16* gb = g + b * sg.b + h * sg.h;
-  load_a_frags(gf, gb, sg.t, row0, T_len, 1.f);
+  load_a_frags<D>(gf, gb, sg.t, row0, T_len, 1.f);
 
   // di = rowsum(o * do) over this lane's eight columns of rows lane / 4
   // (+8), summed over the four lanes of the row.
   const bf16* ob = o + b * so.b + h * so.h;
   float di[2] = {0.f, 0.f};
 #pragma unroll
-  for (int kk = 0; kk < 2; ++kk) {
+  for (int kk = 0; kk < D / 16; ++kk) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int r = row0 + lane / 4 + (i & 1) * 8;
@@ -345,9 +357,9 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
   const float sl2 = sm_scale * kLog2e;
 
-  float acc[4][4];
+  float acc[D / 8][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < D / 8; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
 
@@ -355,8 +367,8 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int buf = t & 1;
     if (t + 1 < n_tiles) {
       const int r0 = (t + 1) * kTile;
-      stage_tile(ks[buf ^ 1], kb, sk.t, r0, T_len, vec);
-      stage_tile(vs[buf ^ 1], vb, sv.t, r0, T_len, vec);
+      stage_tile<D>(ks[buf ^ 1], kb, sk.t, r0, T_len, vec);
+      stage_tile<D>(vs[buf ^ 1], vb, sv.t, r0, T_len, vec);
       if (kMask) stage_stats(segs[buf ^ 1], segb, r0, T_len);
     }
     cp_async_commit();
@@ -368,8 +380,8 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[nt][j] = dp[nt][j] = 0.f;
-    mma_abt(s, qf, ks[buf]);
-    mma_abt(dp, gf, vs[buf]);
+    mma_abt<D>(s, qf, ks[buf]);
+    mma_abt<D>(dp, gf, vs[buf]);
 
     const int k0 = t * kTile;
     if (k0 + kTile > T_len) {  // the ragged last tile: p = 0 past T
@@ -392,7 +404,7 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       }
       set_a(dsf, nt, ds[0], ds[1], ds[2], ds[3]);
     }
-    mma_ab(acc, dsf, ks[buf]);
+    mma_ab<D>(acc, dsf, ks[buf]);
     __syncthreads();  // the next iteration refills this buffer
   }
 
@@ -402,7 +414,7 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int row = row0 + lane / 4 + r * 8;
     if (row >= T_len) continue;
 #pragma unroll
-    for (int dn = 0; dn < 4; ++dn)
+    for (int dn = 0; dn < D / 8; ++dn)
       *reinterpret_cast<__nv_bfloat162*>(&out[row * sdq.t + dn * 8 + 2 * (lane % 4)]) =
           __floats2bfloat162_rn(acc[dn][2 * r], acc[dn][2 * r + 1]);
   }
@@ -410,8 +422,8 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 // Pass 2 (bf16): per (batch, head, 64 keys), dk and dv, from pass 1's di,
 // m log2(e) and 1 / l.
-template <bool kMask>
-__global__ void __launch_bounds__(kMmaThreads, 4)
+template <int D, bool kMask>
+__global__ void __launch_bounds__(kMmaThreads, kBwdBlocks<D>)
 flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                           const bf16* __restrict__ v, const bf16* __restrict__ g,
                           const float* __restrict__ di, const float* __restrict__ ml,
@@ -419,8 +431,9 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
                           bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int T_len,
                           Strides sq, Strides sk, Strides sv, Strides sg, Strides sdk,
                           Strides sdv, float sm_scale, bool vec) {
-  __shared__ __align__(16) bf16 qs[2][kTile][kLdh];
-  __shared__ __align__(16) bf16 gs[2][kTile][kLdh];
+  BfTiles<D>& tiles = shared_as<BfTiles<D>>();
+  auto& qs = tiles.a;
+  auto& gs = tiles.b;
   __shared__ __align__(16) float dis[2][kTile];
   __shared__ __align__(16) float mls[2][kTile];
   __shared__ __align__(16) float ils[2][kTile];
@@ -438,8 +451,8 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   const bf16* gb = g + b * sg.b + h * sg.h;
   const int n_tiles = (T_len + kTile - 1) / kTile;
   auto stage = [&](int buf, int r0) {
-    stage_tile(qs[buf], qb, sq.t, r0, T_len, vec);
-    stage_tile(gs[buf], gb, sg.t, r0, T_len, vec);
+    stage_tile<D>(qs[buf], qb, sq.t, r0, T_len, vec);
+    stage_tile<D>(gs[buf], gb, sg.t, r0, T_len, vec);
     stage_stats(dis[buf], di + stat0, r0, T_len);
     stage_stats(mls[buf], ml + stat0, r0, T_len);
     stage_stats(ils[buf], il + stat0, r0, T_len);
@@ -448,9 +461,9 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   stage(0, 0);
   cp_async_commit();
 
-  uint32_t kf[2][4], vf[2][4];
-  load_a_frags(kf, k + b * sk.b + h * sk.h, sk.t, key0, T_len, 1.f);
-  load_a_frags(vf, v + b * sv.b + h * sv.h, sv.t, key0, T_len, 1.f);
+  uint32_t kf[D / 16][4], vf[D / 16][4];
+  load_a_frags<D>(kf, k + b * sk.b + h * sk.h, sk.t, key0, T_len, 1.f);
+  load_a_frags<D>(vf, v + b * sv.b + h * sv.h, sv.t, key0, T_len, 1.f);
   int seg_k[2];  // the segment ids of keys lane / 4 and lane / 4 + 8
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -459,9 +472,9 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   }
   const float sl2 = sm_scale * kLog2e;
 
-  float dka[4][4], dva[4][4];
+  float dka[D / 8][4], dva[D / 8][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < D / 8; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) dka[i][j] = dva[i][j] = 0.f;
 
@@ -477,8 +490,8 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
     for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[nt][j] = dp[nt][j] = 0.f;
-    mma_abt(s, kf, qs[buf]);
-    mma_abt(dp, vf, gs[buf]);
+    mma_abt<D>(s, kf, qs[buf]);
+    mma_abt<D>(dp, vf, gs[buf]);
 
     uint32_t pf[4][4], dsf[4][4];
 #pragma unroll
@@ -500,8 +513,8 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
       set_a(pf, nt, p[0], p[1], p[2], p[3]);
       set_a(dsf, nt, ds[0], ds[1], ds[2], ds[3]);
     }
-    mma_ab(dva, pf, gs[buf]);
-    mma_ab(dka, dsf, qs[buf]);
+    mma_ab<D>(dva, pf, gs[buf]);
+    mma_ab<D>(dka, dsf, qs[buf]);
     __syncthreads();  // the next iteration refills this buffer
   }
 
@@ -512,7 +525,7 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
     const int key = key0 + lane / 4 + r * 8;
     if (key >= T_len) continue;
 #pragma unroll
-    for (int dn = 0; dn < 4; ++dn) {
+    for (int dn = 0; dn < D / 8; ++dn) {
       const int d = dn * 8 + 2 * (lane % 4);
       *reinterpret_cast<__nv_bfloat162*>(&dko[key * sdk.t + d]) =
           __floats2bfloat162_rn(dka[dn][2 * r], dka[dn][2 * r + 1]);
@@ -535,14 +548,16 @@ __device__ __forceinline__ float score(float dot, float sm_scale, int seg_a, int
 }
 
 // float32 forward, one block per (batch, head, 64 q rows).
+template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ o,
                      float* __restrict__ l_out, float* __restrict__ m_out,
                      const int* __restrict__ seg, int H, int T_len, Strides sq, Strides sk,
                      Strides sv, Strides so, float sm_scale) {
-  __shared__ __align__(16) float ks[kTile][kLd];
-  __shared__ __align__(16) float vs[kTile][kLd];
+  F32Tiles<D>& tiles = shared_as<F32Tiles<D>>();
+  auto& ks = tiles.a;
+  auto& vs = tiles.b;
   __shared__ int segs[kTile];
 
   const int tid = threadIdx.x;
@@ -559,17 +574,17 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* qb = q + b * sq.b + h * sq.h;
   const float* kb = k + b * sk.b + h * sk.h;
   const float* vb = v + b * sv.b + h * sv.h;
-  float qr[kD];
+  float qr[D];
 #pragma unroll
-  for (int d = 0; d < kD; ++d) qr[d] = row_ok ? qb[qi * sq.t + d] : 0.f;
+  for (int d = 0; d < D; ++d) qr[d] = row_ok ? qb[qi * sq.t + d] : 0.f;
 
-  float m = -INFINITY, l = 0.f, acc[kD];
+  float m = -INFINITY, l = 0.f, acc[D];
 #pragma unroll
-  for (int d = 0; d < kD; ++d) acc[d] = 0.f;
+  for (int d = 0; d < D; ++d) acc[d] = 0.f;
 
   for (int k0 = 0; k0 < T_len; k0 += kTile) {
     __syncthreads();
-    load_tile<float>(ks, vs, kb, vb, sk.t, sv.t, k0, T_len);
+    load_tile<D>(ks, vs, kb, vb, sk.t, sv.t, k0, T_len);
     if (tid < kTile) segs[tid] = (segb && k0 + tid < T_len) ? segb[k0 + tid] : 0;
     __syncthreads();
     float s[kPerThread];
@@ -577,7 +592,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < kPerThread; ++i) {
       const int j = sub + kSplit * i;
-      s[i] = (k0 + j < T_len) ? score(dot_row(qr, &ks[j][0]), sm_scale, seg_q, segs[j])
+      s[i] = (k0 + j < T_len) ? score(dot_row<D>(qr, &ks[j][0]), sm_scale, seg_q, segs[j])
                               : -INFINITY;
       tile_max = fmaxf(tile_max, s[i]);
     }
@@ -586,12 +601,12 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const float alpha = expf(m - m_new);
     l *= alpha;
 #pragma unroll
-    for (int d = 0; d < kD; ++d) acc[d] *= alpha;
+    for (int d = 0; d < D; ++d) acc[d] *= alpha;
 #pragma unroll
     for (int i = 0; i < kPerThread; ++i) {
       const float p = expf(s[i] - m_new);
       l += p;
-      axpy_row(acc, p, &vs[sub + kSplit * i][0]);
+      axpy_row<D>(acc, p, &vs[sub + kSplit * i][0]);
     }
     m = m_new;
   }
@@ -600,13 +615,13 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float f = (m == -INFINITY) ? 0.f : expf(m - m_row);
   const float l_row = split_sum(l * f);
 #pragma unroll
-  for (int d = 0; d < kD; ++d) acc[d] = split_sum(acc[d] * f);
+  for (int d = 0; d < D; ++d) acc[d] = split_sum(acc[d] * f);
 
   if (row_ok) {
     float* ob = o + b * so.b + h * so.h + qi * so.t;
 #pragma unroll
-    for (int d = 0; d < kD; ++d)
-      if (d / kCols == sub) ob[d] = acc[d] / l_row;
+    for (int d = 0; d < D; ++d)
+      if (d / cols_per_split<D> == sub) ob[d] = acc[d] / l_row;
     if (sub == 0) {
       const long long at = static_cast<long long>(bh) * T_len + qi;
       l_out[at] = l_row;
@@ -616,6 +631,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // di = rowsum(o * do) in float32, one thread per row.
+template <int D>
 __global__ void flash_di_f32_kernel(const float* __restrict__ o, const float* __restrict__ g,
                                     float* __restrict__ di, int B, int H, int T_len, Strides so,
                                     Strides sg) {
@@ -628,11 +644,12 @@ __global__ void flash_di_f32_kernel(const float* __restrict__ o, const float* __
   const float* grow = g + b * sg.b + h * sg.h + t * sg.t;
   float acc = 0.f;
 #pragma unroll
-  for (int d = 0; d < kD; ++d) acc = fmaf(orow[d], grow[d], acc);
+  for (int d = 0; d < D; ++d) acc = fmaf(orow[d], grow[d], acc);
   di[i] = acc;
 }
 
 // float32 dk and dv, one block per (batch, head, 64 keys).
+template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, const float* __restrict__ g,
@@ -641,8 +658,9 @@ flash_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ di_in, const int* __restrict__ seg, int H,
                      int T_len, Strides sq, Strides sk, Strides sv, Strides sg, Strides sdk,
                      Strides sdv, float sm_scale) {
-  __shared__ __align__(16) float qs[kTile][kLd];
-  __shared__ __align__(16) float gs[kTile][kLd];
+  F32Tiles<D>& tiles = shared_as<F32Tiles<D>>();
+  auto& qs = tiles.a;
+  auto& gs = tiles.b;
   __shared__ float ms[kTile], inv_ls[kTile], dis[kTile];
   __shared__ int segs[kTile];
 
@@ -663,9 +681,9 @@ flash_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* vb = v + b * sv.b + h * sv.h;
   const long long stat0 = static_cast<long long>(bh) * T_len;
 
-  float kr[kD], vr[kD], dk_acc[kD], dv_acc[kD];
+  float kr[D], vr[D], dk_acc[D], dv_acc[D];
 #pragma unroll
-  for (int d = 0; d < kD; ++d) {
+  for (int d = 0; d < D; ++d) {
     kr[d] = key_ok ? kb[kj * sk.t + d] : 0.f;
     vr[d] = key_ok ? vb[kj * sv.t + d] : 0.f;
     dk_acc[d] = 0.f;
@@ -674,7 +692,7 @@ flash_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   for (int q0 = 0; q0 < T_len; q0 += kTile) {
     __syncthreads();
-    load_tile<float>(qs, gs, qb, gb, sq.t, sg.t, q0, T_len);
+    load_tile<D>(qs, gs, qb, gb, sq.t, sg.t, q0, T_len);
     if (tid < kTile) {
       const int r = q0 + tid;
       const bool ok = r < T_len;
@@ -689,15 +707,15 @@ flash_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int i = 0; i < kPerThread; ++i) {
       const int r = sub + kSplit * i;
       if (q0 + r >= T_len) continue;
-      const float s = score(dot_row(kr, &qs[r][0]), sm_scale, segs[r], seg_k);
+      const float s = score(dot_row<D>(kr, &qs[r][0]), sm_scale, segs[r], seg_k);
       const float p = expf(s - ms[r]) * inv_ls[r];
-      axpy_row(dv_acc, p, &gs[r][0]);
-      const float ds = (dot_row(vr, &gs[r][0]) - dis[r]) * p * sm_scale;
-      axpy_row(dk_acc, ds, &qs[r][0]);
+      axpy_row<D>(dv_acc, p, &gs[r][0]);
+      const float ds = (dot_row<D>(vr, &gs[r][0]) - dis[r]) * p * sm_scale;
+      axpy_row<D>(dk_acc, ds, &qs[r][0]);
     }
   }
 #pragma unroll
-  for (int d = 0; d < kD; ++d) {
+  for (int d = 0; d < D; ++d) {
     dk_acc[d] = split_sum(dk_acc[d]);
     dv_acc[d] = split_sum(dv_acc[d]);
   }
@@ -705,8 +723,8 @@ flash_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     float* dko = dk + b * sdk.b + h * sdk.h + kj * sdk.t;
     float* dvo = dv + b * sdv.b + h * sdv.h + kj * sdv.t;
 #pragma unroll
-    for (int d = 0; d < kD; ++d) {
-      if (d / kCols == sub) {
+    for (int d = 0; d < D; ++d) {
+      if (d / cols_per_split<D> == sub) {
         dko[d] = dk_acc[d];
         dvo[d] = dv_acc[d];
       }
@@ -715,6 +733,7 @@ flash_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // float32 dq, one block per (batch, head, 64 q rows).
+template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, const float* __restrict__ g,
@@ -722,8 +741,9 @@ flash_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ m_in, const float* __restrict__ di_in,
                     const int* __restrict__ seg, int H, int T_len, Strides sq, Strides sk,
                     Strides sv, Strides sg, Strides sdq, float sm_scale) {
-  __shared__ __align__(16) float ks[kTile][kLd];
-  __shared__ __align__(16) float vs[kTile][kLd];
+  F32Tiles<D>& tiles = shared_as<F32Tiles<D>>();
+  auto& ks = tiles.a;
+  auto& vs = tiles.b;
   __shared__ int segs[kTile];
 
   const int tid = threadIdx.x;
@@ -745,9 +765,9 @@ flash_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* gb = g + b * sg.b + h * sg.h;
   const float* kb = k + b * sk.b + h * sk.h;
   const float* vb = v + b * sv.b + h * sv.h;
-  float qr[kD], gr[kD], acc[kD];
+  float qr[D], gr[D], acc[D];
 #pragma unroll
-  for (int d = 0; d < kD; ++d) {
+  for (int d = 0; d < D; ++d) {
     qr[d] = row_ok ? qb[qi * sq.t + d] : 0.f;
     gr[d] = row_ok ? gb[qi * sg.t + d] : 0.f;
     acc[d] = 0.f;
@@ -755,7 +775,7 @@ flash_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   for (int k0 = 0; k0 < T_len; k0 += kTile) {
     __syncthreads();
-    load_tile<float>(ks, vs, kb, vb, sk.t, sv.t, k0, T_len);
+    load_tile<D>(ks, vs, kb, vb, sk.t, sv.t, k0, T_len);
     if (tid < kTile) segs[tid] = (segb && k0 + tid < T_len) ? segb[k0 + tid] : 0;
     __syncthreads();
     if (!row_ok) continue;
@@ -763,19 +783,19 @@ flash_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int i = 0; i < kPerThread; ++i) {
       const int j = sub + kSplit * i;
       if (k0 + j >= T_len) continue;
-      const float s = score(dot_row(qr, &ks[j][0]), sm_scale, seg_q, segs[j]);
+      const float s = score(dot_row<D>(qr, &ks[j][0]), sm_scale, seg_q, segs[j]);
       const float p = expf(s - m_r) * inv_l;
-      const float ds = (dot_row(gr, &vs[j][0]) - di) * p * sm_scale;
-      axpy_row(acc, ds, &ks[j][0]);
+      const float ds = (dot_row<D>(gr, &vs[j][0]) - di) * p * sm_scale;
+      axpy_row<D>(acc, ds, &ks[j][0]);
     }
   }
 #pragma unroll
-  for (int d = 0; d < kD; ++d) acc[d] = split_sum(acc[d]);
+  for (int d = 0; d < D; ++d) acc[d] = split_sum(acc[d]);
   if (row_ok) {
     float* out = dq + b * sdq.b + h * sdq.h + qi * sdq.t;
 #pragma unroll
-    for (int d = 0; d < kD; ++d)
-      if (d / kCols == sub) out[d] = acc[d];
+    for (int d = 0; d < D; ++d)
+      if (d / cols_per_split<D> == sub) out[d] = acc[d];
   }
 }
 
@@ -796,69 +816,46 @@ bool pairs_aligned(const void* p, const Strides& st) {
 
 bool rows_16b(const void* p, const Strides& st) { return rows_16b(p, st.b, st.h, st.t); }
 
-}  // namespace
-
-extern "C" {
-
-// dtype: 0 = float32, 1 = bfloat16. `strides` points to 12 host values, the
-// (batch, head, token) strides in elements of q, k, v, o. l and m are float32
-// outputs of B * H * T values; seg is (B, T) int32 or null. Returns the
-// cudaError_t of the launch (0 on success); launches on `stream`, does not
-// synchronise and allocates nothing.
-int spe_flash_attention_fwd(const void* q, const void* k, const void* v, void* o, void* l,
-                            void* m, const void* seg, int dtype, int B, int H, int T_len,
-                            const long long* strides, float sm_scale, void* stream) {
-  if (bad_shape(B, H, T_len)) return static_cast<int>(cudaErrorInvalidValue);
-  Strides st[4];
-  read_strides(strides, 4, st);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* lf = static_cast<float*>(l);
-  float* mf = static_cast<float*>(m);
-  const int* sg = static_cast<const int*>(seg);
+template <int D>
+int launch_fwd(const void* q, const void* k, const void* v, void* o, float* lf, float* mf,
+               const int* sg, int dtype, int B, int H, int T_len, const Strides* st,
+               float sm_scale, cudaStream_t s) {
   if (dtype == 0) {
     const dim3 grid((T_len + kRows - 1) / kRows, B * H);
-    flash_fwd_f32_kernel<<<grid, kThreads, 0, s>>>(
+    const size_t smem = sizeof(F32Tiles<D>);
+    cudaError_t err = allow_shared(flash_fwd_f32_kernel<D>, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    flash_fwd_f32_kernel<D><<<grid, kThreads, smem, s>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<float*>(o), lf, mf, sg, H, T_len, st[0],
         st[1], st[2], st[3], sm_scale);
   } else if (dtype == 1) {
     if (!pairs_aligned(o, st[3])) return static_cast<int>(cudaErrorMisalignedAddress);
     const bool vec = rows_16b(k, st[1]) && rows_16b(v, st[2]);
-    const dim3 grid((T_len + kFwdRows - 1) / kFwdRows, B * H);
+    const dim3 grid((T_len + kFwdRows<D> - 1) / kFwdRows<D>, B * H);
     const bf16* qb = static_cast<const bf16*>(q);
     const bf16* kb = static_cast<const bf16*>(k);
     const bf16* vb = static_cast<const bf16*>(v);
     bf16* ob = static_cast<bf16*>(o);
-    if (sg)
-      flash_fwd_bf16_kernel<true><<<grid, kMmaThreads, 0, s>>>(
-          qb, kb, vb, ob, lf, mf, sg, H, T_len, st[0], st[1], st[2], st[3], sm_scale, vec);
-    else
-      flash_fwd_bf16_kernel<false><<<grid, kMmaThreads, 0, s>>>(
-          qb, kb, vb, ob, lf, mf, sg, H, T_len, st[0], st[1], st[2], st[3], sm_scale, vec);
+    const size_t smem = sizeof(BfTiles<D>);
+    auto kernel = sg ? flash_fwd_bf16_kernel<D, true> : flash_fwd_bf16_kernel<D, false>;
+    cudaError_t err = allow_shared(kernel, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<grid, kMmaThreads, smem, s>>>(qb, kb, vb, ob, lf, mf, sg, H, T_len, st[0], st[1],
+                                           st[2], st[3], sm_scale, vec);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// `strides` points to 24 host values: q, k, v, o, do, dq, dk, dv. `scratch`
-// is float32 of 3 * B * H * T values (float32 takes di in the first third;
-// bf16 di, m log2(e) and 1 / l). Same conventions as the forward.
-int spe_flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
-                            const void* g, void* dq, void* dk, void* dv, const void* l,
-                            const void* m, void* scratch, const void* seg, int dtype, int B,
-                            int H, int T_len, const long long* strides, float sm_scale,
-                            void* stream) {
-  if (bad_shape(B, H, T_len)) return static_cast<int>(cudaErrorInvalidValue);
-  Strides st[8];
-  read_strides(strides, 8, st);
+template <int D>
+int launch_bwd(const void* q, const void* k, const void* v, const void* o, const void* g,
+               void* dq, void* dk, void* dv, const float* lf, const float* mf, float* sc,
+               const int* sg, int dtype, int B, int H, int T_len, const Strides* st,
+               float sm_scale, cudaStream_t s) {
   const Strides &sq = st[0], &sk = st[1], &sv = st[2], &so = st[3], &sgr = st[4];
   const Strides &sdq = st[5], &sdk = st[6], &sdv = st[7];
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* lf = static_cast<const float*>(l);
-  const float* mf = static_cast<const float*>(m);
-  float* sc = static_cast<float*>(scratch);
-  const int* sg = static_cast<const int*>(seg);
   const long long n = static_cast<long long>(B) * H * T_len;
   const dim3 grid((T_len + kTile - 1) / kTile, B * H);
   if (dtype == 0) {
@@ -866,18 +863,22 @@ int spe_flash_attention_bwd(const void* q, const void* k, const void* v, const v
     const float* kf = static_cast<const float*>(k);
     const float* vf = static_cast<const float*>(v);
     const float* gf = static_cast<const float*>(g);
-    flash_di_f32_kernel<<<static_cast<unsigned>((n + 255) / 256), 256, 0, s>>>(
-        static_cast<const float*>(o), gf, sc, B, H, T_len, so, sgr);
-    cudaError_t err = cudaGetLastError();
+    const size_t smem = sizeof(F32Tiles<D>);
+    cudaError_t err = allow_shared(flash_dkv_f32_kernel<D>, smem);
+    if (err == cudaSuccess) err = allow_shared(flash_dq_f32_kernel<D>, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    flash_dkv_f32_kernel<<<grid, kThreads, 0, s>>>(
+    flash_di_f32_kernel<D><<<static_cast<unsigned>((n + 255) / 256), 256, 0, s>>>(
+        static_cast<const float*>(o), gf, sc, B, H, T_len, so, sgr);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    flash_dkv_f32_kernel<D><<<grid, kThreads, smem, s>>>(
         qf, kf, vf, gf, static_cast<float*>(dk), static_cast<float*>(dv), lf, mf, sc, sg, H,
         T_len, sq, sk, sv, sgr, sdk, sdv, sm_scale);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
-    flash_dq_f32_kernel<<<grid, kThreads, 0, s>>>(qf, kf, vf, gf, static_cast<float*>(dq), lf,
-                                                  mf, sc, sg, H, T_len, sq, sk, sv, sgr, sdq,
-                                                  sm_scale);
+    flash_dq_f32_kernel<D><<<grid, kThreads, smem, s>>>(qf, kf, vf, gf, static_cast<float*>(dq),
+                                                        lf, mf, sc, sg, H, T_len, sq, sk, sv,
+                                                        sgr, sdq, sm_scale);
     return static_cast<int>(cudaGetLastError());
   }
   if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
@@ -890,25 +891,77 @@ int spe_flash_attention_bwd(const void* q, const void* k, const void* v, const v
   const bf16* gb = static_cast<const bf16*>(g);
   const bf16* ob = static_cast<const bf16*>(o);
   float *di = sc, *ml = sc + n, *il = sc + 2 * n;
-  if (sg)
-    flash_bwd_dq_bf16_kernel<true><<<grid, kMmaThreads, 0, s>>>(
-        qb, kb, vb, ob, gb, lf, mf, sg, di, ml, il, static_cast<bf16*>(dq), H, T_len, sq, sk,
-        sv, so, sgr, sdq, sm_scale, vec);
-  else
-    flash_bwd_dq_bf16_kernel<false><<<grid, kMmaThreads, 0, s>>>(
-        qb, kb, vb, ob, gb, lf, mf, sg, di, ml, il, static_cast<bf16*>(dq), H, T_len, sq, sk,
-        sv, so, sgr, sdq, sm_scale, vec);
-  cudaError_t err = cudaGetLastError();
+  const size_t smem = sizeof(BfTiles<D>);
+  auto dq_kernel = sg ? flash_bwd_dq_bf16_kernel<D, true> : flash_bwd_dq_bf16_kernel<D, false>;
+  auto dkv_kernel = sg ? flash_bwd_dkv_bf16_kernel<D, true> : flash_bwd_dkv_bf16_kernel<D, false>;
+  cudaError_t err = allow_shared(dq_kernel, smem);
+  if (err == cudaSuccess) err = allow_shared(dkv_kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (sg)
-    flash_bwd_dkv_bf16_kernel<true><<<grid, kMmaThreads, 0, s>>>(
-        qb, kb, vb, gb, di, ml, il, sg, static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, T_len,
-        sq, sk, sv, sgr, sdk, sdv, sm_scale, vec);
-  else
-    flash_bwd_dkv_bf16_kernel<false><<<grid, kMmaThreads, 0, s>>>(
-        qb, kb, vb, gb, di, ml, il, sg, static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, T_len,
-        sq, sk, sv, sgr, sdk, sdv, sm_scale, vec);
+  dq_kernel<<<grid, kMmaThreads, smem, s>>>(qb, kb, vb, ob, gb, lf, mf, sg, di, ml, il,
+                                            static_cast<bf16*>(dq), H, T_len, sq, sk, sv, so,
+                                            sgr, sdq, sm_scale, vec);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dkv_kernel<<<grid, kMmaThreads, smem, s>>>(qb, kb, vb, gb, di, ml, il, sg,
+                                             static_cast<bf16*>(dk), static_cast<bf16*>(dv), H,
+                                             T_len, sq, sk, sv, sgr, sdk, sdv, sm_scale, vec);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// dtype: 0 = float32, 1 = bfloat16; D the head dim, one of 16, 32, 48, 64
+// and 128. `strides` points to 12 host values, the (batch, head, token) strides
+// in elements of q, k, v, o. l and m are float32 outputs of B * H * T
+// values; seg is (B, T) int32 or null. Returns the cudaError_t of the launch
+// (0 on success); launches on `stream`, does not synchronise and allocates
+// nothing.
+int spe_flash_attention_fwd(const void* q, const void* k, const void* v, void* o, void* l,
+                            void* m, const void* seg, int dtype, int B, int H, int T_len, int D,
+                            const long long* strides, float sm_scale, void* stream) {
+  if (bad_shape(B, H, T_len)) return static_cast<int>(cudaErrorInvalidValue);
+  Strides st[4];
+  read_strides(strides, 4, st);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* lf = static_cast<float*>(l);
+  float* mf = static_cast<float*>(m);
+  const int* sg = static_cast<const int*>(seg);
+  switch (D) {
+    case 16: return launch_fwd<16>(q, k, v, o, lf, mf, sg, dtype, B, H, T_len, st, sm_scale, s);
+    case 32: return launch_fwd<32>(q, k, v, o, lf, mf, sg, dtype, B, H, T_len, st, sm_scale, s);
+    case 48: return launch_fwd<48>(q, k, v, o, lf, mf, sg, dtype, B, H, T_len, st, sm_scale, s);
+    case 64: return launch_fwd<64>(q, k, v, o, lf, mf, sg, dtype, B, H, T_len, st, sm_scale, s);
+    case 128: return launch_fwd<128>(q, k, v, o, lf, mf, sg, dtype, B, H, T_len, st, sm_scale, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// `strides` points to 24 host values: q, k, v, o, do, dq, dk, dv. `scratch`
+// is float32 of 3 * B * H * T values (float32 takes di in the first third;
+// bf16 di, m log2(e) and 1 / l). Same conventions as the forward.
+int spe_flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
+                            const void* g, void* dq, void* dk, void* dv, const void* l,
+                            const void* m, void* scratch, const void* seg, int dtype, int B,
+                            int H, int T_len, int D, const long long* strides, float sm_scale,
+                            void* stream) {
+  if (bad_shape(B, H, T_len)) return static_cast<int>(cudaErrorInvalidValue);
+  Strides st[8];
+  read_strides(strides, 8, st);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* lf = static_cast<const float*>(l);
+  const float* mf = static_cast<const float*>(m);
+  float* sc = static_cast<float*>(scratch);
+  const int* sg = static_cast<const int*>(seg);
+  switch (D) {
+    case 16: return launch_bwd<16>(q, k, v, o, g, dq, dk, dv, lf, mf, sc, sg, dtype, B, H, T_len, st, sm_scale, s);
+    case 32: return launch_bwd<32>(q, k, v, o, g, dq, dk, dv, lf, mf, sc, sg, dtype, B, H, T_len, st, sm_scale, s);
+    case 48: return launch_bwd<48>(q, k, v, o, g, dq, dk, dv, lf, mf, sc, sg, dtype, B, H, T_len, st, sm_scale, s);
+    case 64: return launch_bwd<64>(q, k, v, o, g, dq, dk, dv, lf, mf, sc, sg, dtype, B, H, T_len, st, sm_scale, s);
+    case 128: return launch_bwd<128>(q, k, v, o, g, dq, dk, dv, lf, mf, sc, sg, dtype, B, H, T_len, st, sm_scale, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 const char* spe_flash_error_string(int err) {

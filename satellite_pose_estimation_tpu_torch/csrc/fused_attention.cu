@@ -1,5 +1,7 @@
-// Forward self-attention, softmax(q k^T * sm_scale) v, for head dim 32, and
-// the float32 row log-sum-exp of the scores that the backward (K2) reuses.
+// Forward self-attention, softmax(q k^T * sm_scale) v, for head dims
+// D = 16, 32, 48, 64 and 128 (the wrapper zero-pads any other D <= 128 to the
+// next of them), and the float32 row log-sum-exp of the scores that the
+// backward (K2) reuses.
 //
 // Replaces: satellite_pose_estimation_tpu/ops/fused_attention.py::_attn_kernel
 // (the Pallas TPU kernel behind fused_self_attention), with its numerics:
@@ -18,12 +20,12 @@
 // costs little.
 //
 // bf16 design (tensor cores): one block of four warps owns 128 q rows of one
-// (batch, head), two groups of 16 rows a warp. A warp keeps its pre-scaled,
-// rounded q rows as mma A fragments in registers and streams 64-key K and V
-// tiles, double buffered in shared memory through 16-byte cp.async (rows
-// padded to 80 B so ldmatrix is free of bank conflicts); each K or V fragment
-// it reads by ldmatrix serves both of its groups, which halves the shared
-// memory reads of one group a warp. Per tile: S = qs K^T with
+// (batch, head), two groups of 16 rows a warp (at D <= 32). A warp keeps its
+// pre-scaled, rounded q rows as mma A fragments in registers and streams
+// 64-key K and V tiles, double buffered in shared memory through 16-byte
+// cp.async (rows padded by 16 B, so ldmatrix is free of bank conflicts);
+// each K or V fragment it reads by ldmatrix serves both of its groups, which
+// halves the shared memory reads of one group a warp. Per tile: S = qs K^T with
 // mma.sync.m16n8k16 (bf16 in, float32 out), an online softmax on the S
 // accumulators (running max and sum per row, quad shuffles), exp taken as
 // ex2.approx of s log2(e) - m log2(e) (one FMA and one SFU op), the
@@ -38,13 +40,21 @@
 // float32 tiles (load_tile); an online softmax per thread, merged with warp
 // shuffles at the end.
 //
-// ptxas (sm_90a, nvcc -Xptxas -v, as chip_smoke.py phase 1 prints it): the
-// bf16 kernel 164 registers, 20480 B of shared memory, no spills (three
-// blocks, 12 warps an SM; one group a warp took 83 registers and ran five
-// blocks an SM, and was slower: PERF.md has both times); the float32 kernel
-// 147 registers, 18432 B, no spills.
+// ptxas (sm_90a, nvcc -Xptxas -v, as chip_smoke.py phase 1 prints it) at
+// D = 32: the bf16 kernel 164 registers, 20480 B of shared memory, no spills
+// (three blocks, 12 warps an SM; one group a warp took 83 registers and ran
+// five blocks an SM, and was slower: PERF.md has both times); the float32
+// kernel 147 registers, 18432 B, no spills.
 //
-// Layout: q, k, v and o are (B, H, T, 32) with arbitrary batch, head and
+// Other head dims: the q fragments and output accumulators of a group grow
+// with D (D / 4 and D / 2 registers a lane), so the instances at D >= 64
+// keep one group of 16 rows a warp (64 q rows a block), which holds them
+// under the 255-register limit; D = 16 and 32 keep two. The float32 kernels
+// keep a whole q row and output row a thread, which spill to local memory at
+// large D: they serve the parity checks, not the main path. PERF.md has each
+// instance's registers, spills and times.
+//
+// Layout: q, k, v and o are (B, H, T, D) with arbitrary batch, head and
 // token strides (in elements) and a unit stride on the head dimension, so
 // the (B, T, H, 32) views that the projections produce need no copy; lse is a
 // contiguous (B * H, T) float32 buffer.
@@ -57,44 +67,49 @@ namespace {
 
 // The bf16 kernel's 16-row groups a warp owns, and so the q rows a block owns:
 // group g of warp w holds rows g * kTile + 16 w + [0, 16) of the block's.
-constexpr int kFwdGroups = 2;
-constexpr int kFwdRows = kFwdGroups * kTile;
+template <int D>
+constexpr int kFwdGroups = D <= 32 ? 2 : 1;
+template <int D>
+constexpr int kFwdRows = kFwdGroups<D> * kTile;
 
+template <int D>
 __global__ void __launch_bounds__(kMmaThreads)
 attn_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
                      int H, int T_len, Strides sq, Strides sk, Strides sv, Strides so,
                      float sm_scale, bool vec) {
-  __shared__ __align__(16) bf16 ks[2][kTile][kLdh];
-  __shared__ __align__(16) bf16 vs[2][kTile][kLdh];
+  constexpr int G = kFwdGroups<D>;
+  BfTiles<D>& tiles = shared_as<BfTiles<D>>();
+  auto& ks = tiles.a;
+  auto& vs = tiles.b;
 
   const int lane = threadIdx.x % 32;
   const int bh = blockIdx.y;
   const int b = bh / H;
   const int h = bh % H;
-  const int warp_row0 = blockIdx.x * kFwdRows + (threadIdx.x / 32) * 16;  // + g * kTile
+  const int warp_row0 = blockIdx.x * kFwdRows<D> + (threadIdx.x / 32) * 16;  // + g * kTile
 
   const bf16* kb = k + b * sk.b + h * sk.h;
   const bf16* vb = v + b * sv.b + h * sv.h;
   const int n_tiles = (T_len + kTile - 1) / kTile;
-  stage_tile(ks[0], kb, sk.t, 0, T_len, vec);
-  stage_tile(vs[0], vb, sv.t, 0, T_len, vec);
+  stage_tile<D>(ks[0], kb, sk.t, 0, T_len, vec);
+  stage_tile<D>(vs[0], vb, sv.t, 0, T_len, vec);
   cp_async_commit();
 
-  uint32_t qf[kFwdGroups][2][4];
+  uint32_t qf[G][D / 16][4];
 #pragma unroll
-  for (int g = 0; g < kFwdGroups; ++g)
-    load_a_frags(qf[g], q + b * sq.b + h * sq.h, sq.t, warp_row0 + g * kTile, T_len, sm_scale);
+  for (int g = 0; g < G; ++g)
+    load_a_frags<D>(qf[g], q + b * sq.b + h * sq.h, sq.t, warp_row0 + g * kTile, T_len, sm_scale);
 
   // Per group, the running max of rows lane / 4 and lane / 4 + 8, this lane's
   // part of their running sums, and the output accumulators.
-  float m[kFwdGroups][2], l[kFwdGroups][2], acc[kFwdGroups][4][4];
+  float m[G][2], l[G][2], acc[G][D / 8][4];
 #pragma unroll
-  for (int g = 0; g < kFwdGroups; ++g) {
+  for (int g = 0; g < G; ++g) {
     m[g][0] = m[g][1] = -INFINITY;
     l[g][0] = l[g][1] = 0.f;
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < D / 8; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) acc[g][i][j] = 0.f;
   }
@@ -102,26 +117,26 @@ attn_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int t = 0; t < n_tiles; ++t) {
     const int buf = t & 1;
     if (t + 1 < n_tiles) {
-      stage_tile(ks[buf ^ 1], kb, sk.t, (t + 1) * kTile, T_len, vec);
-      stage_tile(vs[buf ^ 1], vb, sv.t, (t + 1) * kTile, T_len, vec);
+      stage_tile<D>(ks[buf ^ 1], kb, sk.t, (t + 1) * kTile, T_len, vec);
+      stage_tile<D>(vs[buf ^ 1], vb, sv.t, (t + 1) * kTile, T_len, vec);
     }
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
 
-    float s[kFwdGroups][8][4];
+    float s[G][8][4];
 #pragma unroll
-    for (int g = 0; g < kFwdGroups; ++g)
+    for (int g = 0; g < G; ++g)
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
         for (int j = 0; j < 4; ++j) s[g][nt][j] = 0.f;
-    mma_abt(s, qf, ks[buf]);
+    mma_abt<D>(s, qf, ks[buf]);
 
     const int k0 = t * kTile;
     if (k0 + kTile > T_len) {  // the ragged last tile
 #pragma unroll
-      for (int g = 0; g < kFwdGroups; ++g)
+      for (int g = 0; g < G; ++g)
 #pragma unroll
         for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
@@ -129,9 +144,9 @@ attn_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
             if (k0 + nt * 8 + 2 * (lane % 4) + (j & 1) >= T_len) s[g][nt][j] = -INFINITY;
     }
 
-    uint32_t pf[kFwdGroups][4][4];
+    uint32_t pf[G][4][4];
 #pragma unroll
-    for (int g = 0; g < kFwdGroups; ++g) {
+    for (int g = 0; g < G; ++g) {
       float mx[2] = {m[g][0], m[g][1]};
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt)
@@ -148,7 +163,7 @@ attn_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         ml[r] = mx[r] * kLog2e;
         l[g][r] *= alpha;
 #pragma unroll
-        for (int dn = 0; dn < 4; ++dn) {
+        for (int dn = 0; dn < D / 8; ++dn) {
           acc[g][dn][2 * r] *= alpha;
           acc[g][dn][2 * r + 1] *= alpha;
         }
@@ -163,13 +178,13 @@ attn_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         set_a(pf[g], nt, p[0], p[1], p[2], p[3]);
       }
     }
-    mma_ab(acc, pf, vs[buf]);
+    mma_ab<D>(acc, pf, vs[buf]);
     __syncthreads();  // the next iteration refills this buffer
   }
 
   bf16* ob = o + b * so.b + h * so.h;
 #pragma unroll
-  for (int g = 0; g < kFwdGroups; ++g) {
+  for (int g = 0; g < G; ++g) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       float lr = l[g][r];
@@ -178,7 +193,7 @@ attn_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       const int row = warp_row0 + g * kTile + lane / 4 + r * 8;
       if (row < T_len) {
 #pragma unroll
-        for (int dn = 0; dn < 4; ++dn) {
+        for (int dn = 0; dn < D / 8; ++dn) {
           const __nv_bfloat162 val =
               __floats2bfloat162_rn(acc[g][dn][2 * r] / lr, acc[g][dn][2 * r + 1] / lr);
           *reinterpret_cast<__nv_bfloat162*>(&ob[row * so.t + dn * 8 + 2 * (lane % 4)]) = val;
@@ -189,13 +204,15 @@ attn_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+template <int D>
 __global__ void __launch_bounds__(kThreads)
 attn_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
                     int H, int T_len, Strides sq, Strides sk, Strides sv, Strides so,
                     float sm_scale) {
-  __shared__ __align__(16) float ks[kTile][kLd];
-  __shared__ __align__(16) float vs[kTile][kLd];
+  F32Tiles<D>& tiles = shared_as<F32Tiles<D>>();
+  auto& ks = tiles.a;
+  auto& vs = tiles.b;
 
   const int tid = threadIdx.x;
   const int row = tid / kSplit;
@@ -210,19 +227,19 @@ attn_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* kb = k + b * sk.b + h * sk.h;
   const float* vb = v + b * sv.b + h * sv.h;
 
-  float qr[kD];
+  float qr[D];
 #pragma unroll
-  for (int d = 0; d < kD; ++d) qr[d] = row_ok ? qb[qi * sq.t + d] * sm_scale : 0.f;
+  for (int d = 0; d < D; ++d) qr[d] = row_ok ? qb[qi * sq.t + d] * sm_scale : 0.f;
 
   float m = -INFINITY;  // running max of this thread's keys
   float l = 0.f;        // running sum of exp(s - m)
-  float acc[kD];
+  float acc[D];
 #pragma unroll
-  for (int d = 0; d < kD; ++d) acc[d] = 0.f;
+  for (int d = 0; d < D; ++d) acc[d] = 0.f;
 
   for (int k0 = 0; k0 < T_len; k0 += kTile) {
     __syncthreads();  // the previous tile is consumed
-    load_tile<float>(ks, vs, kb, vb, sk.t, sv.t, k0, T_len);
+    load_tile<D>(ks, vs, kb, vb, sk.t, sv.t, k0, T_len);
     __syncthreads();
 
     float s[kPerThread];
@@ -230,7 +247,7 @@ attn_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < kPerThread; ++i) {
       const int j = sub + kSplit * i;
-      s[i] = (k0 + j < T_len) ? dot_row(qr, &ks[j][0]) : -INFINITY;
+      s[i] = (k0 + j < T_len) ? dot_row<D>(qr, &ks[j][0]) : -INFINITY;
       tile_max = fmaxf(tile_max, s[i]);
     }
     const float m_new = fmaxf(m, tile_max);
@@ -238,12 +255,12 @@ attn_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const float alpha = expf(m - m_new);  // 0 when m is still -inf
     l *= alpha;
 #pragma unroll
-    for (int d = 0; d < kD; ++d) acc[d] *= alpha;
+    for (int d = 0; d < D; ++d) acc[d] *= alpha;
 #pragma unroll
     for (int i = 0; i < kPerThread; ++i) {
       const float p = expf(s[i] - m_new);  // 0 for masked keys
       l += p;
-      axpy_row(acc, p, &vs[sub + kSplit * i][0]);
+      axpy_row<D>(acc, p, &vs[sub + kSplit * i][0]);
     }
     m = m_new;
   }
@@ -257,27 +274,58 @@ attn_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float f = (m == -INFINITY) ? 0.f : expf(m - m_row);
   const float l_row = split_sum(l * f);
 #pragma unroll
-  for (int d = 0; d < kD; ++d) acc[d] = split_sum(acc[d] * f);
+  for (int d = 0; d < D; ++d) acc[d] = split_sum(acc[d] * f);
 
   if (row_ok) {
     float* ob = o + b * so.b + h * so.h + qi * so.t;
 #pragma unroll
-    for (int d = 0; d < kD; ++d)
-      if (d / kCols == sub) ob[d] = acc[d] / l_row;
+    for (int d = 0; d < D; ++d)
+      if (d / cols_per_split<D> == sub) ob[d] = acc[d] / l_row;
     if (sub == 0) lse[static_cast<long long>(bh) * T_len + qi] = m_row + logf(l_row);
   }
+}
+
+template <int D>
+int launch_fwd(const void* q, const void* k, const void* v, void* o, float* lse, int dtype,
+               int B, int H, int T_len, const Strides& sq, const Strides& sk,
+               const Strides& sv, const Strides& so, float sm_scale, cudaStream_t s) {
+  if (dtype == 0) {
+    const dim3 grid((T_len + kRows - 1) / kRows, B * H);
+    const size_t smem = sizeof(F32Tiles<D>);
+    cudaError_t err = allow_shared(attn_fwd_f32_kernel<D>, smem);
+    if (err != cudaSuccess) return (int)err;
+    attn_fwd_f32_kernel<D><<<grid, kThreads, smem, s>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<float*>(o), lse, H, T_len, sq, sk, sv, so,
+        sm_scale);
+  } else if (dtype == 1) {
+    // The output's rows are written as 4-byte pairs.
+    if (reinterpret_cast<uintptr_t>(o) % 4 != 0 || so.b % 2 || so.h % 2 || so.t % 2)
+      return (int)cudaErrorMisalignedAddress;
+    const bool vec = rows_16b(k, sk.b, sk.h, sk.t) && rows_16b(v, sv.b, sv.h, sv.t);
+    const dim3 grid((T_len + kFwdRows<D> - 1) / kFwdRows<D>, B * H);
+    const size_t smem = sizeof(BfTiles<D>);
+    cudaError_t err = allow_shared(attn_fwd_bf16_kernel<D>, smem);
+    if (err != cudaSuccess) return (int)err;
+    attn_fwd_bf16_kernel<D><<<grid, kMmaThreads, smem, s>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        static_cast<bf16*>(o), lse, H, T_len, sq, sk, sv, so, sm_scale, vec);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. Strides are in elements; lse is a
-// contiguous (B * H, T) float32 output. Returns the cudaError_t of the launch
-// (0 on success). Launches on `stream`, does not synchronise and allocates
-// nothing.
+// dtype: 0 = float32, 1 = bfloat16; D the head dim, one of 16, 32, 48, 64
+// and 128. Strides are in elements; lse is a contiguous (B * H, T) float32
+// output. Returns the cudaError_t of the launch (0 on success). Launches on
+// `stream`, does not synchronise and allocates nothing.
 int spe_fused_attention_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
-                            int dtype, int B, int H, int T_len,
+                            int dtype, int B, int H, int T_len, int D,
                             long long q_sb, long long q_sh, long long q_st,
                             long long k_sb, long long k_sh, long long k_st,
                             long long v_sb, long long v_sh, long long v_st,
@@ -288,25 +336,14 @@ int spe_fused_attention_fwd(const void* q, const void* k, const void* v, void* o
   const Strides sv{v_sb, v_sh, v_st}, so{o_sb, o_sh, o_st};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* lsef = static_cast<float*>(lse);
-  if (dtype == 0) {
-    const dim3 grid((T_len + kRows - 1) / kRows, B * H);
-    attn_fwd_f32_kernel<<<grid, kThreads, 0, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o), lsef, H, T_len, sq, sk, sv, so,
-        sm_scale);
-  } else if (dtype == 1) {
-    // The output's rows are written as 4-byte pairs.
-    if (reinterpret_cast<uintptr_t>(o) % 4 != 0 || o_sb % 2 || o_sh % 2 || o_st % 2)
-      return (int)cudaErrorMisalignedAddress;
-    const bool vec = rows_16b(k, k_sb, k_sh, k_st) && rows_16b(v, v_sb, v_sh, v_st);
-    const dim3 grid((T_len + kFwdRows - 1) / kFwdRows, B * H);
-    attn_fwd_bf16_kernel<<<grid, kMmaThreads, 0, s>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<bf16*>(o), lsef, H, T_len, sq, sk, sv, so, sm_scale, vec);
-  } else {
-    return (int)cudaErrorInvalidValue;
+  switch (D) {
+    case 16: return launch_fwd<16>(q, k, v, o, lsef, dtype, B, H, T_len, sq, sk, sv, so, sm_scale, s);
+    case 32: return launch_fwd<32>(q, k, v, o, lsef, dtype, B, H, T_len, sq, sk, sv, so, sm_scale, s);
+    case 48: return launch_fwd<48>(q, k, v, o, lsef, dtype, B, H, T_len, sq, sk, sv, so, sm_scale, s);
+    case 64: return launch_fwd<64>(q, k, v, o, lsef, dtype, B, H, T_len, sq, sk, sv, so, sm_scale, s);
+    case 128: return launch_fwd<128>(q, k, v, o, lsef, dtype, B, H, T_len, sq, sk, sv, so, sm_scale, s);
+    default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }
 
 const char* spe_cuda_error_string(int err) {

@@ -19,3 +19,5 @@ from .solvers import (
     solve_pose_sigma,
     solve_pose_simple,
 )
+from .multi_mean import solve_pose_multi_mean, solve_pose_multi_mean_batch
+from .exhaustive import exhaustive_pnp

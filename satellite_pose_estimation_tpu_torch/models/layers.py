@@ -32,11 +32,14 @@ def lecun_normal_(weight: torch.Tensor, fan_in: int,
                                      generator=generator)
 
 
-def conv2d(cin, cout, kernel, stride=1, padding=0, bias=True, generator=None, quant=False):
-    """``nn.Conv2d`` (``QConv`` with ``quant``) with flax's initialisation."""
+def conv2d(cin, cout, kernel, stride=1, padding=0, bias=True, generator=None, quant=False,
+           groups=1):
+    """``nn.Conv2d`` (``QConv`` with ``quant``) with flax's initialisation
+    (LeCun normal over the fan-in, cin / groups x kh x kw). ``kernel`` and
+    ``padding`` may be pairs."""
     conv = (QConv if quant else nn.Conv2d)(cin, cout, kernel, stride=stride, padding=padding,
-                                          bias=bias)
-    lecun_normal_(conv.weight, cin * kernel * kernel, generator)
+                                          bias=bias, groups=groups)
+    lecun_normal_(conv.weight, conv.weight[0].numel(), generator)
     if bias:
         nn.init.zeros_(conv.bias)
     return conv

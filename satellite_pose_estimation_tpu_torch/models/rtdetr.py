@@ -1,5 +1,5 @@
-"""RT-DETR, the R2 landmarker: PResNet -> HybridEncoder -> RTDETRTransformer
-(counterpart of models/rtdetr.py).
+"""RT-DETR, the R2 landmarker: a PResNet, MobileNetV3 or GhostNetV2 backbone
+-> HybridEncoder -> RTDETRTransformer (counterpart of models/rtdetr.py).
 
 ``build_rtdetr_model`` builds one from a seed for evaluation and
 ``build_rtdetr_train_model`` one to train (float32 parameters, training
@@ -22,7 +22,9 @@ import torch
 from torch import nn
 
 from ..ops.quantize import quantization_active
+from .ghostnetv2 import GhostNetV2
 from .hybrid_encoder import HybridEncoder, fuse_repvgg_params
+from .mobilenetv3 import MobileNetV3
 from .presnet import PResNet
 from .rtdetr_decoder import RTDETRTransformer
 
@@ -30,8 +32,8 @@ from .rtdetr_decoder import RTDETRTransformer
 @dataclasses.dataclass(frozen=True)
 class RTDETRConfig:
     """The JAX ``RTDETRConfig`` (the rtdetr_r50vd speed config surface) less
-    its ``dtype``, which ``build_rtdetr_model`` takes. Only the ``presnet``
-    backbone and point queries (``box_dim = 2``) are ported."""
+    its ``dtype``, which ``build_rtdetr_model`` takes. Point queries
+    (``box_dim = 2``) only: the detection task's boxes are not ported."""
 
     backbone: str = "presnet"  # presnet | mobilenetv3_large | mobilenetv3_small | ghostnetv2
     depth: int = 50
@@ -59,11 +61,14 @@ class RTDETR(nn.Module):
                  generator: torch.Generator | None = None):
         super().__init__()
         self.config = cfg = config
-        if cfg.backbone != "presnet":
-            raise NotImplementedError(f"backbone {cfg.backbone!r} is not ported; only 'presnet' is")
         g = generator
-        self.backbone = PResNet(cfg.depth, cfg.variant, return_idx=cfg.return_idx,
-                                freeze_norm=cfg.freeze_norm, generator=g)
+        if cfg.backbone.startswith("mobilenetv3"):
+            self.backbone = MobileNetV3(cfg.backbone.split("_")[-1], generator=g)
+        elif cfg.backbone == "ghostnetv2":
+            self.backbone = GhostNetV2(generator=g)
+        else:
+            self.backbone = PResNet(cfg.depth, cfg.variant, return_idx=cfg.return_idx,
+                                    freeze_norm=cfg.freeze_norm, generator=g)
         self.encoder = HybridEncoder(
             in_channels=tuple(self.backbone.out_channels), hidden_dim=cfg.hidden_dim,
             nhead=cfg.nhead, dim_feedforward=cfg.dim_feedforward, dropout=cfg.dropout,

@@ -38,6 +38,14 @@ R1 DETR state dict onto the port's modules (the counterpart of JAX's
 ``convert_r1_detr`` followed by ``flax_detr_to_state_dict``), and
 ``surgery_detr_pretrained`` takes the public DETR-R50 checkpoint with the
 reference's surgery semantics through ``map_static_dicts``.
+
+R2 ``.pth`` files load the same way: ``r2_state_dict_to_port`` renames a
+reference RT-DETR state dict (PResNet, MobileNetV3 or GhostNetV2 backbone)
+onto the port's modules (the counterpart of JAX's ``convert_r2_rtdetr``
+followed by ``flax_rtdetr_to_state_dict``), ``presnet_pretrained_to_port``
+and ``torchvision_resnet_to_port`` take ImageNet-pretrained trunks, and
+``port_to_r2_state_dict`` / ``port_to_torchvision_resnet`` go back (JAX's
+``convert_rtdetr_to_torch`` / ``convert_resnet_to_torchvision``).
 """
 from __future__ import annotations
 
@@ -100,10 +108,24 @@ def flax_rtdetr_to_state_dict(params: dict, batch_stats: dict | None = None,
                               freeze_norm: bool = True) -> dict:
     """JAX RT-DETR ``params`` / ``batch_stats`` (nested dicts of numpy
     arrays) -> the port's ``state_dict`` (CPU tensors of the arrays'
-    dtypes). ``freeze_norm`` is the model's ``RTDETRConfig.freeze_norm``."""
+    dtypes). ``freeze_norm`` is the model's ``RTDETRConfig.freeze_norm``,
+    which only a PResNet backbone reads: the MobileNetV3 and GhostNetV2
+    trunks (depthwise kernels (kh, kw, 1, C) -> (C, 1, kh, kw), as any
+    HWIO kernel) always train their BatchNorms."""
     state = flax_detr_to_state_dict(params, batch_stats)
+    return _count_batchnorms(state, freeze_norm and _presnet_backbone(state))
+
+
+def _presnet_backbone(state: dict) -> bool:
+    return not any(k.startswith(("backbone.bneck_", "backbone.conv_stem.")) for k in state)
+
+
+def _count_batchnorms(state: dict, frozen_backbone: bool) -> dict:
+    """``state`` with a ``num_batches_tracked`` of 0 beside every running
+    mean of an ``nn.BatchNorm2d`` (JAX counts no batches): every norm but a
+    frozen backbone's."""
     for key in list(state):
-        if key.endswith(".running_mean") and not (freeze_norm and key.startswith("backbone.")):
+        if key.endswith(".running_mean") and not (frozen_backbone and key.startswith("backbone.")):
             state[key[:-len("running_mean")] + "num_batches_tracked"] = torch.tensor(0)
     return state
 
@@ -295,3 +317,255 @@ def surgery_detr_pretrained(state_dict: dict, dst_state: dict):
     merged, report = map_static_dicts(src, dst_state)
     report["dropped"] = sorted(report["dropped"] + heads)
     return merged, report
+
+
+# -- R2 .pth files -----------------------------------------------------------
+
+# Keys of the reference composite that no port module holds: an unused
+# parameter (R2/src/zoo/rtdetr/rtdetr.py:34), a module never called
+# (hybrid_encoder.py), and the decoder's eval-size buffers, which the port
+# makes anew.
+_R2_RTDETR_SKIP = ("temper_param", "encoder.encoder_fusion_input", "decoder.anchors",
+                   "decoder.valid_mask")
+
+# Module-path rewrites, reference -> port, per section (JAX
+# utils/checkpoint_convert.py's rules: the port's modules carry the JAX
+# names).
+_R2_MOBILENET_RULES = (
+    (r"^bneck\.(\d+)\.", r"bneck_\1."),
+    (r"\bse\.se\.(\d)\.", r"se.se_\1."),
+    (r"\bskip\.(\d)\.", r"skip_\1."),
+)
+_R2_MOBILENET_DEAD = ("backbone.linear3.", "backbone.bn3.")  # the classifier tail
+_R2_GHOSTNET_RULES = (
+    (r"^blocks\.9\.0\.conv\.", "blocks_9_0_conv."),
+    (r"^blocks\.9\.0\.bn1\.", "blocks_9_0_bn1."),
+    (r"^blocks\.(\d+)\.(\d+)\.", r"blocks_\1_\2."),
+    (r"\b(ghost\d)\.primary_conv\.0\.", r"\1.primary_conv."),
+    (r"\b(ghost\d)\.primary_conv\.1\.", r"\1.primary_bn."),
+    (r"\b(ghost\d)\.cheap_operation\.0\.", r"\1.cheap_conv."),
+    (r"\b(ghost\d)\.cheap_operation\.1\.", r"\1.cheap_bn."),
+    (r"\bghost1\.short_conv\.0\.", "ghost1.short_conv."),
+    (r"\bghost1\.short_conv\.1\.", "ghost1.short_bn."),
+    (r"\bghost1\.short_conv\.2\.", "ghost1.dfc_h."),
+    (r"\bghost1\.short_conv\.3\.", "ghost1.dfc_h_bn."),
+    (r"\bghost1\.short_conv\.4\.", "ghost1.dfc_v."),
+    (r"\bghost1\.short_conv\.5\.", "ghost1.dfc_v_bn."),
+    (r"\bconv_dw\.", "dw_conv."),
+    (r"\bbn_dw\.", "dw_bn."),
+    (r"\bse\.conv_reduce\.", "se_reduce."),
+    (r"\bse\.conv_expand\.", "se_expand."),
+    (r"\bshortcut\.0\.", "short_dw."),
+    (r"\bshortcut\.1\.", "short_dw_bn."),
+    (r"\bshortcut\.2\.", "short_pw."),
+    (r"\bshortcut\.3\.", "short_pw_bn."),
+)
+_R2_GHOSTNET_DEAD = ("backbone.conv_head.", "backbone.classifier.")
+_R2_PRESNET_RULES = (
+    (r"^conv1\.", ""),
+    (r"^res_layers\.(\d+)\.blocks\.(\d+)\.", lambda m: f"res{int(m.group(1)) + 2}_{m.group(2)}."),
+    (r"\bshort\.conv\.(conv|norm)\.", r"short_conv.\1."),
+    (r"\bshort\.(conv|norm)\.", r"short_conv.\1."),
+)
+_R2_ENCODER_RULES = (
+    (r"^input_proj\.(\d+)\.0\.", r"input_proj_\1_conv."),
+    (r"^input_proj\.(\d+)\.1\.", r"input_proj_\1_norm."),
+    (r"^encoder\.(\d+)\.layers\.(\d+)\.", r"encoder_\1_layer_\2."),
+    (r"^(lateral_convs|fpn_blocks|pan_blocks|downsample_convs)\.(\d+)\.", r"\1_\2."),
+    (r"\bbottlenecks\.(\d+)\.", r"bottlenecks_\1."),
+)
+_R2_DECODER_RULES = (
+    (r"^input_proj\.(\d+)\.(conv|norm)\.", r"input_proj_\1_\2."),
+    (r"^decoder\.layers\.(\d+)\.", r"decoder_layer_\1."),
+    (r"^decoder\.sigma_embed\.(\d+)\.", r"sigma_embed_\1."),
+    (r"^(dec_bbox_head|dec_score_head)\.(\d+)\.", r"\1_\2."),
+    (r"^enc_output\.(\d+)\.", r"enc_output_\1."),
+    (r"\blayers\.(\d+)\.", r"layers_\1."),
+)
+
+
+def _rewrite(rules, dotted: str) -> str:
+    for pat, rep in rules:
+        dotted = re.sub(pat, rep, dotted)
+    return dotted
+
+
+def r2_state_dict_to_port(state_dict: dict, nhead: int = 8, freeze_norm: bool = True) -> dict:
+    """A reference R2 RT-DETR state dict (R2/src/zoo/rtdetr/rtdetr.py:28-32:
+    ``backbone.`` a PResNet, MobileNetV3 or GhostNetV2, told apart by its
+    keys; ``encoder.`` the HybridEncoder; ``decoder.`` the
+    RTDETRTransformer) -> the port's ``RTDETR`` state dict (CPU tensors).
+    Both sides are torch, so this renames keys by JAX ``convert_r2_rtdetr``'s
+    rules, drops its skip list and the dead classifier tails, and splits
+    each of torch's packed multi-head attention modules' ``in_proj_weight`` /
+    ``in_proj_bias`` (3h, h) into ``mha_query`` / ``mha_key`` /
+    ``mha_value`` (torch packs the heads head-major, so the thirds are the
+    port's projections as they are; ``nhead`` must divide h).
+    ``num_batches_tracked`` counters are dropped, as JAX drops them, and
+    every ``nn.BatchNorm2d`` gets one of 0 (all but a PResNet's norms under
+    ``freeze_norm``, the model's ``RTDETRConfig.freeze_norm``)."""
+    sd = {k: torch.as_tensor(v) for k, v in state_dict.items()}
+    mobilenet = any(k.startswith("backbone.bneck.") for k in sd)
+    ghostnet = any(k.startswith("backbone.conv_stem.") for k in sd)
+    rules = {"backbone": (_R2_MOBILENET_RULES if mobilenet else
+                          _R2_GHOSTNET_RULES if ghostnet else _R2_PRESNET_RULES),
+             "encoder": _R2_ENCODER_RULES, "decoder": _R2_DECODER_RULES}
+    dead = _R2_MOBILENET_DEAD if mobilenet else _R2_GHOSTNET_DEAD if ghostnet else ()
+    out = {}
+    for key, val in sd.items():
+        if key.endswith("num_batches_tracked") or (dead and key.startswith(dead)):
+            continue
+        if any(key == s or key.startswith(s + ".") for s in _R2_RTDETR_SKIP):
+            continue
+        section, rest = key.split(".", 1)
+        attn = re.match(r"(.+)\.self_attn\.(.+)$", rest)
+        mod, leaf = (attn.group(1), attn.group(2)) if attn else rest.rsplit(".", 1)
+        port_mod = f"{section}.{_rewrite(rules[section], mod + '.').rstrip('.')}"
+        if not attn:
+            out[f"{port_mod}.{leaf}"] = val.clone()
+        elif leaf.startswith("in_proj_"):
+            if val.shape[0] % 3 or (val.shape[0] // 3) % nhead:
+                raise ValueError(f"{key}: {tuple(val.shape)} does not split into 3 x {nhead} heads")
+            for name, part in zip(("mha_query", "mha_key", "mha_value"), val.chunk(3)):
+                out[f"{port_mod}.self_attn.{name}.{leaf[len('in_proj_'):]}"] = part.clone()
+        elif leaf.startswith("out_proj."):
+            out[f"{port_mod}.self_attn.mha_out.{leaf[len('out_proj.'):]}"] = val.clone()
+        else:
+            raise ValueError(f"unhandled R2 RT-DETR key {key!r}")
+    return _count_batchnorms(out, freeze_norm and not (mobilenet or ghostnet))
+
+
+def presnet_pretrained_to_port(state_dict: dict, freeze_norm: bool = True) -> dict:
+    """A paddle-converted PResNet-vd pretrained file
+    (ResNet{18,34,50,101}_vd_*_pretrained_from_paddle.pth, the PResNet
+    module's own state dict, R2/nn/backbone/presnet.py:26-31) -> the port's
+    ``PResNet`` state dict (the counterpart of JAX's
+    ``convert_presnet_pretrained``): ``r2_state_dict_to_port``'s backbone
+    section without its ``backbone.`` prefix."""
+    port = r2_state_dict_to_port({f"backbone.{k}": v for k, v in state_dict.items()},
+                                 freeze_norm=freeze_norm)
+    return {k[len("backbone."):]: v for k, v in port.items()}
+
+
+def torchvision_resnet_to_port(state_dict: dict, bn: str = "frozen_bn") -> dict:
+    """A torchvision ResNet state dict -> the port's ``models.resnet.ResNet``
+    state dict (the counterpart of JAX's ``convert_torchvision_resnet``):
+    ``layer{n}.{m}`` -> ``layer{n}_{m}``, the downsample pair ->
+    ``downsample_conv`` / ``downsample_bn``, ``fc`` dropped. As in JAX, the
+    file's ``num_batches_tracked`` counters are dropped and a ``bn`` /
+    ``sync_bn`` trunk counts 0 batches; resnet18/34's ``layer1_0`` keeps no
+    downsample (``r1_state_dict_to_port`` fills the identity there)."""
+    out = {}
+    for key, val in state_dict.items():
+        if key.startswith("fc.") or key.endswith("num_batches_tracked"):
+            continue
+        out[_rewrite(_TRUNK_RULES, key)] = torch.as_tensor(val).clone()
+    if bn in ("bn", "sync_bn"):
+        out = _count_batchnorms(out, frozen_backbone=False)
+    return out
+
+
+def port_to_torchvision_resnet(state_dict: dict) -> dict:
+    """The inverse of ``torchvision_resnet_to_port`` (JAX's
+    ``convert_resnet_to_torchvision``): a port ``ResNet`` state dict -> a
+    torchvision-naming one, every norm with a ``num_batches_tracked`` of 0
+    (int64)."""
+    out = {}
+    for key, val in state_dict.items():
+        if key.endswith("num_batches_tracked"):
+            continue
+        name = re.sub(r"^layer(\d+)_(\d+)\.downsample_conv\.", r"layer\1.\2.downsample.0.", key)
+        name = re.sub(r"^layer(\d+)_(\d+)\.downsample_bn\.", r"layer\1.\2.downsample.1.", name)
+        name = re.sub(r"^layer(\d+)_(\d+)\.", r"layer\1.\2.", name)
+        out[name] = val.clone()
+        if name.endswith(".running_mean"):
+            out[name[:-len("running_mean")] + "num_batches_tracked"] = torch.tensor(0)
+    return out
+
+
+_R2_GHOSTNET_INVERSE = (
+    (r"^blocks_9_0_conv\.", "blocks.9.0.conv."),
+    (r"^blocks_9_0_bn1\.", "blocks.9.0.bn1."),
+    (r"^blocks_(\d+)_(\d+)\.", r"blocks.\1.\2."),
+    (r"\.(ghost\d)\.primary_conv\.", r".\1.primary_conv.0."),
+    (r"\.(ghost\d)\.primary_bn\.", r".\1.primary_conv.1."),
+    (r"\.(ghost\d)\.cheap_conv\.", r".\1.cheap_operation.0."),
+    (r"\.(ghost\d)\.cheap_bn\.", r".\1.cheap_operation.1."),
+    (r"\.ghost1\.short_conv\.", ".ghost1.short_conv.0."),
+    (r"\.ghost1\.short_bn\.", ".ghost1.short_conv.1."),
+    (r"\.ghost1\.dfc_h\.", ".ghost1.short_conv.2."),
+    (r"\.ghost1\.dfc_h_bn\.", ".ghost1.short_conv.3."),
+    (r"\.ghost1\.dfc_v\.", ".ghost1.short_conv.4."),
+    (r"\.ghost1\.dfc_v_bn\.", ".ghost1.short_conv.5."),
+    (r"\.dw_conv\.", ".conv_dw."),
+    (r"\.dw_bn\.", ".bn_dw."),
+    (r"\.se_reduce\.", ".se.conv_reduce."),
+    (r"\.se_expand\.", ".se.conv_expand."),
+    (r"\.short_dw\.", ".shortcut.0."),
+    (r"\.short_dw_bn\.", ".shortcut.1."),
+    (r"\.short_pw\.", ".shortcut.2."),
+    (r"\.short_pw_bn\.", ".shortcut.3."),
+)
+
+
+def _r2_module_path(section: str, mod: str) -> str:
+    """The reference's module path of the port module ``mod`` (relative to
+    ``section``): JAX ``convert_rtdetr_to_torch``'s inverse rules."""
+    dotted = mod + "."
+    if section == "backbone" and mod.startswith(("blocks_", "conv_stem")):
+        dotted = _rewrite(_R2_GHOSTNET_INVERSE, dotted)
+    elif section == "backbone" and mod.startswith("bneck_"):
+        dotted = re.sub(r"^bneck_(\d+)\.", r"bneck.\1.", dotted)
+        dotted = re.sub(r"\.se\.se_(\d)\.", r".se.se.\1.", dotted)
+        dotted = re.sub(r"\.skip_(\d)\.", r".skip.\1.", dotted)
+    elif section == "backbone":
+        dotted = re.sub(r"^res(\d+)_(\d+)\.",
+                        lambda m: f"res_layers.{int(m.group(1)) - 2}.blocks.{m.group(2)}.", dotted)
+        # the vd variant: only res2's stride-1 shortcut is a plain ConvNormLayer
+        if ".short_conv." in dotted:
+            plain = dotted.startswith("res_layers.0.")
+            dotted = dotted.replace(".short_conv.", ".short." if plain else ".short.conv.")
+        dotted = re.sub(r"^(conv1_\d)\.", r"conv1.\1.", dotted)
+    elif section == "encoder":
+        dotted = re.sub(r"^input_proj_(\d+)_conv\.", r"input_proj.\1.0.", dotted)
+        dotted = re.sub(r"^input_proj_(\d+)_norm\.", r"input_proj.\1.1.", dotted)
+        dotted = re.sub(r"^encoder_(\d+)_layer_(\d+)\.", r"encoder.\1.layers.\2.", dotted)
+        dotted = re.sub(r"^(lateral_convs|fpn_blocks|pan_blocks|downsample_convs)_(\d+)\.",
+                        r"\1.\2.", dotted)
+        dotted = re.sub(r"\.bottlenecks_(\d+)\.", r".bottlenecks.\1.", dotted)
+    else:
+        dotted = re.sub(r"^input_proj_(\d+)_(conv|norm)\.", r"input_proj.\1.\2.", dotted)
+        dotted = re.sub(r"^decoder_layer_(\d+)\.", r"decoder.layers.\1.", dotted)
+        dotted = re.sub(r"^sigma_embed_(\d+)\.", r"decoder.sigma_embed.\1.", dotted)
+        dotted = re.sub(r"^(dec_bbox_head|dec_score_head)_(\d+)\.", r"\1.\2.", dotted)
+        dotted = re.sub(r"^enc_output_(\d+)\.", r"enc_output.\1.", dotted)
+        dotted = re.sub(r"\.layers_(\d+)\.", r".layers.\1.", dotted)
+    return f"{section}.{dotted.rstrip('.')}"
+
+
+def port_to_r2_state_dict(state_dict: dict) -> dict:
+    """The inverse of ``r2_state_dict_to_port`` (JAX's
+    ``convert_rtdetr_to_torch``): a port ``RTDETR`` state dict -> a
+    reference-naming one that the reference composite loads with
+    ``strict=False`` (its unused ``temper_param`` / ``encoder_fusion_input``
+    and the ``num_batches_tracked`` counters are not emitted); each
+    attention's ``mha_query/key/value`` are packed into ``in_proj_weight`` /
+    ``in_proj_bias``."""
+    out, mha = {}, {}
+    for key, val in state_dict.items():
+        if key.endswith("num_batches_tracked"):
+            continue
+        section, rest = key.split(".", 1)
+        m = re.match(r"(.+)\.self_attn\.(mha_\w+)\.(weight|bias)$", rest)
+        if m:
+            mod = _r2_module_path(section, m.group(1)) + ".self_attn"
+            mha.setdefault(mod, {})[(m.group(2), m.group(3))] = val
+            continue
+        mod, leaf = rest.rsplit(".", 1)
+        out[f"{_r2_module_path(section, mod)}.{leaf}"] = val.clone()
+    for mod, group in mha.items():
+        for leaf in ("weight", "bias"):
+            out[f"{mod}.in_proj_{leaf}"] = torch.cat(
+                [group[(n, leaf)] for n in ("mha_query", "mha_key", "mha_value")])
+            out[f"{mod}.out_proj.{leaf}"] = group[("mha_out", leaf)].clone()
+    return out

@@ -3,6 +3,7 @@ module's variables and hand them to the PyTorch port as numpy trees."""
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 
 def numpy_tree(tree):
@@ -251,3 +252,16 @@ def r1_detr_state_dict(backbone, hidden, nheads, enc_layers, dec_layers, ffn, qu
         sd["transformer.encoder.norm.weight"], sd["transformer.encoder.norm.bias"] = (
             t(d) + 1.0, t(d))
     return sd
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for the port's side of a test module (imported
+    into the modules that use it): the models here are small, and the
+    tier-1 run's workers share the machine's cores."""
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)

@@ -16,6 +16,7 @@ from satellite_pose_estimation_tpu.ops import image_warp as jax_warp
 from satellite_pose_estimation_tpu.ops import photometric as jax_photo
 from satellite_pose_estimation_tpu_torch.data import augment
 from satellite_pose_estimation_tpu_torch.ops import image_warp, photometric
+from _torch_parity import one_thread  # noqa: F401,E402 (autouse: one torch thread)
 
 S = 40  # crop side of the op tests
 

@@ -118,12 +118,76 @@ def test_cuda_kernel_takes_strided_head_views(cuda_device, dtype, tol, pad):
 
 @pytest.mark.cuda
 def test_cuda_kernel_raises_on_unsupported_input(cuda_device):
-    q = torch.randn(1, 1, 16, 64, device=cuda_device)
-    with pytest.raises(ValueError):
+    """Head dims past 128 (no instance) and float16 raise."""
+    q = torch.randn(1, 1, 16, 129, device=cuda_device)
+    with pytest.raises(ValueError, match="up to 128"):
         fa.fused_self_attention(q, q, q, 0.1)
     q = torch.randn(1, 1, 16, 32, device=cuda_device, dtype=torch.float16)
     with pytest.raises(TypeError):
         fa.fused_self_attention(q, q, q, 0.1)
+
+
+# -- K1, K2 and K5 at other head dims ------------------------------------------
+
+# The instances (16, 48, 64, 128) and head dims that run zero-padded to the
+# next one (20 -> 32, 40 -> 48, 96 -> 128).
+OTHER_HEAD_DIMS = [16, 20, 40, 48, 64, 96, 128]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("T", [784, 256, 100])
+@pytest.mark.parametrize("D", OTHER_HEAD_DIMS)
+def test_cuda_attention_kernels_at_head_dim_match_plain(cuda_device, dtype, T, D):
+    """K1 (output and log-sum-exp), K2 (from K1's residuals) and K5 (forward
+    and backward, T padded to a multiple of 128 with segment ids) at head
+    dim D, each once, against their plain versions under the D = 32 gates."""
+    g = torch.Generator(device=cuda_device).manual_seed(T + D)
+    q, k, v, go = (torch.randn(2, 4, T, D, generator=g, device=cuda_device).to(dtype)
+                   for _ in range(4))
+    scale = D ** -0.5
+    before = (fa.launch_count, fa.bwd_launch_count)
+    out, lse = fa._launch_fwd(q, k, v, scale)
+    grads = fa._launch_bwd(q, k, v, out, lse, go, scale)
+    torch.cuda.synchronize()
+    assert (fa.launch_count, fa.bwd_launch_count) == (before[0] + 1, before[1] + 1)
+    assert out.shape == q.shape and all(x.shape == q.shape for x in grads)
+    ref = fa.attention_plain(q, k, v, scale)
+    tol = BWD_TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    _assert_rel_l2(out, ref)
+    torch.testing.assert_close(lse, fa.attention_plain_lse(q, k, scale), rtol=1e-5, atol=1e-5)
+    _assert_grads_close(grads, fa.attention_plain_bwd(q, k, v, go, scale), tol)
+
+    seg = fl.segment_ids(2, T, cuda_device)
+    Tp = T if seg is None else seg.shape[1]
+    q, k, v, go = (torch.randn(2, 4, Tp, D, generator=g, device=cuda_device).to(dtype)
+                   for _ in range(4))
+    before = (fl.launch_count, fl.bwd_launch_count)
+    _flash_check(q, k, v, seg, go, scale)
+    assert (fl.launch_count, fl.bwd_launch_count) == (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [40, 64])
+def test_cuda_attention_ops_at_head_dim_carry_gradients(cuda_device, D):
+    """The custom operators at a padded (40) and a native (64) head dim, on
+    (B, T, H, D) projection views: one K1 and one K2 launch (one K5 forward
+    and backward), float32 gradients against autograd through the plain
+    versions (1e-5)."""
+    for attend, plain, mod in ((fa.fused_self_attention, fa.attention_plain, fa),
+                               (fl.flash_self_attention, fa.attention_plain, fl)):
+        x = [torch.randn(2, 300, 4, D, device=cuda_device).transpose(1, 2).requires_grad_()
+             for _ in range(3)]
+        y = [t.detach().clone().requires_grad_() for t in x]
+        g = torch.randn(2, 4, 300, D, device=cuda_device)
+        before = (mod.launch_count, mod.bwd_launch_count)
+        attend(*x, D ** -0.5).backward(g)
+        torch.cuda.synchronize()
+        assert (mod.launch_count, mod.bwd_launch_count) == (before[0] + 1, before[1] + 1)
+        plain(*y, D ** -0.5).backward(g)
+        for a, b in zip(x, y):
+            torch.testing.assert_close(a.grad, b.grad, rtol=1e-5, atol=1e-5)
 
 
 # -- K2, the backward ------------------------------------------------------------
@@ -227,9 +291,9 @@ def test_cuda_function_under_autocast_runs_bf16(cuda_device, monkeypatch):
 
 @pytest.mark.cuda
 def test_cuda_bwd_kernel_raises_on_unsupported_input(cuda_device):
-    q = torch.randn(1, 1, 16, 64, device=cuda_device)
+    q = torch.randn(1, 1, 16, 129, device=cuda_device)
     lse = torch.zeros(1, 1, 16, device=cuda_device)
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="up to 128"):
         fa._launch_bwd(q, q, q, q, lse, q, 0.1)
     q = torch.randn(1, 1, 16, 32, device=cuda_device, dtype=torch.float16)
     with pytest.raises(TypeError):
@@ -472,7 +536,7 @@ def test_cuda_flash_function_takes_a_ragged_length(cuda_device, dtype):
     seg[:, :60] = 1
     seg[1, 80:] = 2
     before = (fl.launch_count, fl.bwd_launch_count)
-    out = fl.FlashSelfAttention.apply(*x, seg, 0.2)
+    out = fl.flash_attention_op(*x, seg, 0.2)[0]
     out.backward(go)
     torch.cuda.synchronize()
     assert (fl.launch_count, fl.bwd_launch_count) == (before[0] + 1, before[1] + 1)
@@ -514,8 +578,8 @@ def test_cuda_flash_kernels_raise_on_unsupported_input(cuda_device):
     q = torch.randn(1, 1, 128, 32, device=cuda_device, dtype=torch.float16)
     with pytest.raises(TypeError):
         fl._launch_fwd(q, q, q, None, 0.1)
-    q = torch.randn(1, 1, 128, 64, device=cuda_device)
-    with pytest.raises(ValueError):
+    q = torch.randn(1, 1, 128, 129, device=cuda_device)  # past the largest instance, 128
+    with pytest.raises(ValueError, match="up to 128"):
         fl._launch_fwd(q, q, q, None, 0.1)
 
 

@@ -215,4 +215,4 @@ def test_segment_ids_pad_to_the_lane_multiple():
 def test_function_rejects_other_devices():
     q = torch.zeros(1, 1, 128, 32, device="meta")
     with pytest.raises(ValueError):
-        fl.FlashSelfAttention.apply(q, q, q, None, SCALE)
+        fl.flash_self_attention(q, q, q, SCALE)

@@ -347,6 +347,75 @@ def test_port_runs_both_clis_with_jax_pil_and_yaml_blocked():
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.splitlines()[-1] == "OK"
 
+_TINY_SLICE9 = r"""
+import sys
+for name in ("jax", "jaxlib", "flax", "optax", "satellite_pose_estimation_tpu"):
+    sys.modules[name] = None  # any import of these now raises ImportError
+
+import tempfile
+import torch
+torch.set_num_threads(1)
+from satellite_pose_estimation_tpu_torch.geometry import (
+    WORLD_POINTS, exhaustive_pnp, solve_pose_multi_mean_batch)
+from satellite_pose_estimation_tpu_torch.models.rtdetr import RTDETRConfig, build_rtdetr_model
+from satellite_pose_estimation_tpu_torch.tools import export as export_tool
+from satellite_pose_estimation_tpu_torch.tools import gen_submission_multi
+from satellite_pose_estimation_tpu_torch.train.steps import make_eval_step
+from satellite_pose_estimation_tpu_torch.utils.checkpoint_convert import (
+    port_to_r2_state_dict, r2_state_dict_to_port)
+
+# the custom operators are registered by the port's own modules
+for op in ("fused_attention", "fused_attention_bwd", "flash_attention", "flash_attention_bwd"):
+    assert hasattr(torch.ops.spe, op), op
+sizes = dict(hidden_dim=32, nhead=2, dim_feedforward=64, num_queries=12, num_decoder_layers=2,
+             expansion=0.5)
+model = build_rtdetr_model(RTDETRConfig(backbone="mobilenetv3_large", **sizes), seed=0,
+                           device="cpu")
+g = torch.Generator().manual_seed(0)
+batch = {
+    "image": torch.randint(0, 256, (2, 80, 80, 3), generator=g, dtype=torch.uint8),
+    "clip_bbox_buf": torch.tensor([[4.0, 4.0, 76.0, 76.0]] * 2),
+    "clip_bbox": torch.tensor([[700.0, 400.0, 1100.0, 800.0]] * 2),
+    "quat_gt": torch.tensor([[1.0, 0.0, 0.0, 0.0]] * 2),
+    "tvec_gt": torch.tensor([[0.0, 0.0, 12.0]] * 2),
+}
+res = make_eval_step(out_size=64, solver="sigma")(model, batch)
+assert torch.isfinite(res["score"]).all() and torch.isfinite(res["probs"]).all()
+sd = model.state_dict()
+back = r2_state_dict_to_port(port_to_r2_state_dict(sd), nhead=2)
+assert set(back) == set(sd) and all(torch.equal(back[k], sd[k]) for k in sd)
+world = torch.as_tensor(WORLD_POINTS, dtype=torch.float32)
+q, t, v = exhaustive_pnp(world, torch.rand(2, 11, 2) * 100, torch.zeros(2, 11, dtype=torch.bool))
+assert not v.any()
+q, t, v = solve_pose_multi_mean_batch(world, torch.rand(2, 3, 12, 2), torch.rand(2, 3, 12, 12))
+assert q.shape == (2, 4) and gen_submission_multi.ensemble_solve({}, None) is None
+cfg = {"task": "landmarker", "model": "RTDETR", "RTDETR": {"backbone": "MobileNetV3_Large"},
+       "HybridEncoder": {"hidden_dim": 32, "nhead": 2, "dim_feedforward": 64, "expansion": 0.5},
+       "RTDETRTransformer": {"num_queries": 8, "num_decoder_layers": 1}}
+with tempfile.TemporaryDirectory() as tmp:
+    program, _ = export_tool.export(cfg, None, tmp, 1, 512, True, device="cpu")
+assert any(str(n.target) == "spe.fused_attention.default" for n in program.graph.nodes)
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
+                                       "satellite_pose_estimation_tpu")
+                and sys.modules[m] is not None)
+assert not loaded, loaded
+print("OK")
+"""
+
+
+def test_port_runs_the_new_backbones_solvers_loader_and_export_with_jax_blocked():
+    """The MobileNetV3 RT-DETR through a sigma eval step,
+    the R2 loader's round trip, both ensemble solvers, the ensemble
+    submission's solve and tools/export.py at 512 (the AIFI attention
+    exported as the port's custom operator, registered by the port's own
+    modules), with jax, flax and the JAX package blocked."""
+    proc = subprocess.run([sys.executable, "-c", _TINY_SLICE9], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.splitlines()[-1] == "OK"
+
+
 def _imported_roots(path):
     roots = set()
     for node in ast.walk(ast.parse(path.read_text(), str(path))):

@@ -46,6 +46,7 @@ from _torch_parity import (
     port_to_flax,
     randomize_norms,
 )
+from _torch_parity import one_thread  # noqa: F401,E402 (autouse: one torch thread)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 SPEED = ROOT / "configs/speed"

@@ -43,6 +43,7 @@ from satellite_pose_estimation_tpu_torch.utils.checkpoint_convert import (
 )
 
 from _torch_parity import numpy_tree, port_to_flax
+from _torch_parity import one_thread  # noqa: F401,E402 (autouse: one torch thread)
 
 WIDEST = "conv,ffn,attn_proj,dec"
 SIZES = dict(hidden_dim=32, nheads=4, enc_layers=1, dec_layers=2, dim_feedforward=64,

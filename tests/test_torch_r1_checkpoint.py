@@ -28,6 +28,7 @@ from satellite_pose_estimation_tpu_torch.utils.checkpoint_convert import (
 )
 
 from _torch_parity import numpy_tree, port_to_flax, public_detr_r50_surface, r1_detr_state_dict
+from _torch_parity import one_thread  # noqa: F401,E402 (autouse: one torch thread)
 
 FILL = ("downsample_conv.weight", "downsample_bn.weight", "downsample_bn.bias",
         "downsample_bn.running_mean", "downsample_bn.running_var")

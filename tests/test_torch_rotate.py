@@ -18,6 +18,7 @@ from satellite_pose_estimation_tpu.ops.pallas_rotate import (
 )
 from satellite_pose_estimation_tpu_torch.data import augment
 from satellite_pose_estimation_tpu_torch.ops import image_warp, pallas_rotate
+from _torch_parity import one_thread  # noqa: F401,E402 (autouse: one torch thread)
 
 # 1.57 lies just inside pi/2; float32(pi/2) lies just outside the domain.
 THETAS = np.float32([0.0, 0.52, -0.52, 1.3, -1.3, 1.57, -1.57])

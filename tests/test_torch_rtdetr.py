@@ -65,6 +65,7 @@ from satellite_pose_estimation_tpu_torch.utils.checkpoint_convert import (
 )
 
 from _torch_parity import port_to_flax, randomize_norms
+from _torch_parity import one_thread  # noqa: F401,E402 (autouse: one torch thread)
 
 SIZES = dict(hidden_dim=64, nhead=2, dim_feedforward=128, num_queries=12,
              num_decoder_layers=2, expansion=0.5)
@@ -361,13 +362,12 @@ def test_builder_defaults_to_the_card_and_the_unported_surface_raises():
     if not torch.cuda.is_available():
         with pytest.raises((AssertionError, RuntimeError)):
             build_rtdetr_model(cfg)
-    for backbone in ("mobilenetv3_large", "ghostnetv2"):
-        with pytest.raises(NotImplementedError):
-            RTDETR(dataclasses.replace(cfg, backbone=backbone))
     with pytest.raises(NotImplementedError):
         RTDETR(dataclasses.replace(cfg, box_dim=4))
-    # CDN, the learnt query table and training, once unported, now build and run.
-    for ported in (dict(num_denoising=10), dict(learnt_init_query=True)):
+    # CDN, the learnt query table, the MobileNetV3 and GhostNetV2 trunks and
+    # training, once unported, now build and run.
+    for ported in (dict(num_denoising=10), dict(learnt_init_query=True),
+                   dict(backbone="mobilenetv3_large"), dict(backbone="ghostnetv2")):
         RTDETR(dataclasses.replace(cfg, **ported))
     model = build_rtdetr_model(cfg, device="cpu").train()
     out = model(torch.zeros(1, INPUT, INPUT, 3))

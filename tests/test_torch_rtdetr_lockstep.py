@@ -60,6 +60,7 @@ from _torch_parity import (
     port_to_flax,
     randomize_norms,
 )
+from _torch_parity import one_thread  # noqa: F401,E402 (autouse: one torch thread)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 RECIPE = yaml.safe_load((ROOT / "configs/speed/include/optimizer.yml").read_text())

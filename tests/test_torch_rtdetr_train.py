@@ -34,6 +34,7 @@ from test_torch_rtdetr_lockstep import (
     check_losses_every_step,
     run_lockstep,
 )
+from _torch_parity import one_thread  # noqa: F401,E402 (autouse: one torch thread)
 
 T, C = 11, 11  # landmarks per image, classes
 
@@ -140,9 +141,12 @@ def test_train_builder_and_the_unported_surface():
     model = build_rtdetr_train_model(_small_cfg(learnt_init_query=True), device="cpu")
     assert model.training and all(p.dtype == torch.float32 for p in model.parameters())
     assert model.decoder.tgt_embed.weight.shape == (12, 32)
-    for unported in (dict(box_dim=4), dict(backbone="mobilenetv3_large")):
-        with pytest.raises(NotImplementedError):
-            RTDETR(dataclasses.replace(_small_cfg(), **unported))
+    with pytest.raises(NotImplementedError):
+        RTDETR(dataclasses.replace(_small_cfg(), box_dim=4))
+    # The MobileNetV3 trunk, once unported, now builds to train (its norms
+    # are trainable BatchNorms whatever freeze_norm says).
+    mobile = RTDETR(dataclasses.replace(_small_cfg(), backbone="mobilenetv3_large")).train()
+    assert any(isinstance(m, torch.nn.BatchNorm2d) for m in mobile.backbone.modules())
 
 
 # -- the gather and the sampler backwards ------------------------------------

@@ -44,6 +44,7 @@ from satellite_pose_estimation_tpu_torch.train.steps import make_eval_step, make
 from satellite_pose_estimation_tpu_torch.utils.checkpoint_convert import flax_detr_to_state_dict
 
 from _torch_parity import numpy_tree, randomize_frozen_bn
+from _torch_parity import one_thread  # noqa: F401,E402 (autouse: one torch thread)
 
 SIZES = dict(hidden_dim=32, nheads=4, enc_layers=1, dec_layers=2,
              dim_feedforward=64, num_queries=20, dropout=0.0)
