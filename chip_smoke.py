@@ -8,7 +8,7 @@ target). It builds the port's CUDA kernels from ``satellite_pose_estimation
 _tpu_torch/csrc`` with nvcc (K1, the fused attention forward; K2, its
 backward; K3, the rotation; K4, the fused photometric chain; K5, flash
 attention -- one nvcc per source, all started together), then runs
-twenty-four phases and exits non-zero if any fails:
+twenty-eight phases and exits non-zero if any fails:
 
 1. the card's name and power limit, the kernel build time, and each
    kernel's registers, shared memory and spills (ptxas's own lines);
@@ -176,7 +176,37 @@ twenty-four phases and exits non-zero if any fails:
    poses;
 24. ``tools/export.py`` on the MobileNetV3 config at 512 in deploy mode
    with ``--check``: the graph calls ``spe::fused_attention`` once, and the
-   reloaded program on the card launches K1 once.
+   reloaded program on the card launches K1 once;
+25. the detection task's eval step (configs/det/rtdetr_r50vd_6x_coco.yml at
+   its published widths: PResNet-50vd, hidden 256, 8 heads, FFN 1024, 300
+   queries, 6 decoder layers, 80 classes; seeded weights) at 640, B = 8,
+   float32 as published and under bf16 autocast: K1 7 times a step, at
+   (8, 8, 400, 32) (AIFI) and 6 times at (8, 8, 300, 32) (the decoder's
+   self-attention), each launch held to its plain version on its own
+   inputs; the float32 model card vs CPU at B = 2 (2e-3, after a token
+   check); rates, model / backbone / encoder / decoder spans, peak memory;
+   K1's time at both shapes beside its plain version, SDPA and its bound;
+26. the det train step (FrozenBN, the registry AdamW's groups at the YAML's
+   rates, clip 0.1, EMA, the varifocal + boxes criterion with targets
+   padded to 100) at B = 4: K1 and K2 7 times a step at 640 and 6 at 480
+   (AIFI's 225 tokens on the plain core), float32 and bf16, each launch
+   held to its plain version; finite losses, the FrozenBN buffers
+   untouched, the loss falling over 10 steps on one fixed batch, float32
+   gradients at B = 2 (ill-conditioned at random init: the card within 3x
+   the CPU float32's distance to the CPU's float64, the encoder's top-k
+   heads card vs CPU within 1e-3 relative L2); rates with forward /
+   match / loss / backward / optimizer spans and peak memory, the stacked
+   Hungarian's device kernels a call; K2's time at both shapes beside its
+   plain version, SDPA's backward and its bound;
+27. ``tools/train.py``'s ``main`` on the det YAML over a rendered synthetic
+   COCO set (16 train, 8 val images): one epoch of 4 multi-scale steps and
+   a val pass (launches as the sizes say), log.txt, then ``-r checkpoint
+   --test-only``; configs/det/rtdetr_r101vd_6x_coco.yml's eval at B = 8
+   (hidden 384: K1 7 times a step at D = 48), card vs CPU, and K1's time
+   at D = 48;
+28. ``augment_batch`` with ``rotate_impl`` "shear" and "gather" and past 90
+   degrees, and ``augment_sample``, on the card against the CPU on the same
+   draws at B = 64.
 
 K1, K2 and K5 are held to their plain versions by two gates per output:
 the largest error within 1e-5 (float32) or 2e-2 (bf16) times 1 + the
@@ -371,12 +401,14 @@ def bound(flops, nbytes, flop_s):
 
 def attention_bound(q, products, tensors, row_stats):
     """Bound of an attention function over (B, H, T, D) ``q``: ``products``
-    T x T x D matrix products (2 B H T^2 D FLOP each) on bf16 tensor cores;
-    ``tensors`` (B, H, T, D) tensors of q's dtype and ``row_stats`` float32
-    (B, H, T) rows read or written once."""
+    T x T x D matrix products (2 B H T^2 D FLOP each) on bf16 tensor cores
+    (float32 ``q``: on the CUDA cores); ``tensors`` (B, H, T, D) tensors of
+    q's dtype and ``row_stats`` float32 (B, H, T) rows read or written
+    once."""
     B, H, T, D = q.shape
     return bound(products * 2.0 * B * H * T * T * D,
-                 B * H * T * (tensors * D * q.element_size() + row_stats * 4), BF16_FLOP_S)
+                 B * H * T * (tensors * D * q.element_size() + row_stats * 4),
+                 F32_FLOP_S if q.element_size() == 4 else BF16_FLOP_S)
 
 
 def sdpa_kernels(torch, fn):
@@ -402,9 +434,11 @@ def device_launches(torch, fn):
 def k3_device_launches():
     """The device kernels one K3 call runs, bilinear and cubic, at the
     train subset (26, 224, 224, 3): counted by the profiler in a child
-    process, whose profiler no earlier phase has used (in this process, by
-    phase 11, a profiled K3 call reports no device kernel at all).
-    Returns {"bilinear": (count, names), "cubic": (count, names)}."""
+    process for each, whose profiler nothing else has used (a profiler's
+    second session in one process may report no device kernel at all: by
+    phase 11 in this one, and once for the cubic call after the bilinear
+    one in a shared child). Returns {"bilinear": (count, names), "cubic":
+    (count, names)}."""
     code = textwrap.dedent("""
         import json, sys, torch
         sys.path.insert(0, sys.argv[1])
@@ -412,21 +446,22 @@ def k3_device_launches():
         from satellite_pose_estimation_tpu_torch.ops import pallas_rotate as pr
         x = torch.rand(26, 224, 224, 3, device="cuda") * 255
         th = torch.linspace(-1.5, 1.5, 26, device="cuda")
-        found = {}
-        for cubic in (False, True):
+        cubic = sys.argv[2] == "cubic"
+        pr.rotate_shear3_pallas(x, th, cubic)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             pr.rotate_shear3_pallas(x, th, cubic)
             torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                pr.rotate_shear3_pallas(x, th, cubic)
-                torch.cuda.synchronize()
-            events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
-            found["cubic" if cubic else "bilinear"] = (
-                sum(e.count for e in events), sorted(e.key[:70] for e in events))
-        print(json.dumps(found))
+        events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+        print(json.dumps((sum(e.count for e in events), sorted(e.key[:70] for e in events))))
     """)
-    out = subprocess.run([sys.executable, "-c", code, os.path.dirname(os.path.abspath(__file__))],
-                         capture_output=True, text=True, check=True, timeout=600)
-    return json.loads(out.stdout.strip().splitlines()[-1])
+    found = {}
+    for interp in ("bilinear", "cubic"):
+        out = subprocess.run([sys.executable, "-c", code,
+                              os.path.dirname(os.path.abspath(__file__)), interp],
+                             capture_output=True, text=True, check=True, timeout=600)
+        found[interp] = tuple(json.loads(out.stdout.strip().splitlines()[-1]))
+    return found
 
 
 def grad_gap(got, ref):
@@ -762,6 +797,7 @@ def main() -> int:
     cli = cli_phases(torch, card, dev)
     heads = head_dim_phase(torch, card, dev, g)
     s9 = slice9_phases(torch, card, dev, g)
+    det = det_phases(torch, card, dev, g)
 
     def head_dims(name):
         """Each new head-dim instance's record for the kernels line: its
@@ -787,7 +823,8 @@ def main() -> int:
                      + sum(rt_train[p]["k1"] for p in ("train", "eval", "cdn", "bench"))
                      + cli["r1"]["launches"]["k1"] + cli["r2"]["launches"]["k1"]
                      + heads["r1_nheads4_k1"] + paths_k["k1"] + s9["eval_k1"] + s9["train"]["k1"]
-                     + s9["ghost_k1"] + s9["ensemble_k1"] + s9["export_k1"]),
+                     + s9["ghost_k1"] + s9["ensemble_k1"] + s9["export_k1"]
+                     + sum(det["k1"].values())),
         "launches_by_path": {"eval": main_path_launches, "train": train["k1_launches"],
                              "train_state_eval_bf16": train["k1_eval_bf16_launches"],
                              "train_pallas_augment": routes["b"]["k1"],
@@ -806,7 +843,8 @@ def main() -> int:
                              "rtdetr_mobilenetv3_train_512": s9["train"]["k1"],
                              "rtdetr_ghostnetv2_eval_512": s9["ghost_k1"],
                              "ensemble_submission": s9["ensemble_k1"],
-                             "exported_program": s9["export_k1"]},
+                             "exported_program": s9["export_k1"],
+                             **det["k1"]},
         "max_abs_err": k1_err,
         **k1_times,
         "head_dims": head_dims("k1"),
@@ -814,6 +852,7 @@ def main() -> int:
                             "max_abs_err": heads["r1_nheads4_k1_err"]},
         "pad_vs_native_ms": heads["pad_ms"],
         "rtdetr_aifi": {"shape": [64, 8, 256, 32], "dtype": "bfloat16", **rtdetr["aifi"]},
+        "det": {"max_abs_err": det["k1_err"], "shapes": det["k1_times"]},
     }, {
         "name": "fused_attention_bwd",
         "route": "cuda",
@@ -821,7 +860,8 @@ def main() -> int:
         "replaces": "satellite_pose_estimation_tpu/ops/fused_attention.py:141",
         "launches": (train["k2_launches"] + routes["b"]["k2"]
                      + sum(rt_train[p]["k2"] for p in ("train", "cdn", "bench"))
-                     + cli["r2"]["launches"]["k2"] + paths_k["k2"] + s9["train"]["k2"]),
+                     + cli["r2"]["launches"]["k2"] + paths_k["k2"] + s9["train"]["k2"]
+                     + sum(det["k2"].values())),
         "launches_by_path": {"train": train["k2_launches"],
                              "train_pallas_augment": routes["b"]["k2"],
                              "rtdetr_train_512": rt_train["train"]["k2"],
@@ -829,12 +869,14 @@ def main() -> int:
                              "rtdetr_train_256": rt_train["bench"]["k2"],
                              "r2_cli": cli["r2"]["launches"]["k2"],
                              "detr_head_dims_16_48_64_128": paths_k["k2"],
-                             "rtdetr_mobilenetv3_train_512": s9["train"]["k2"]},
+                             "rtdetr_mobilenetv3_train_512": s9["train"]["k2"],
+                             **det["k2"]},
         "max_abs_err": train["k2_err"],
         **train["k2_times"],
         "head_dims": head_dims("k2"),
         "rtdetr_aifi": {"shape": [RECIPE_BATCH, 8, 256, 32], "dtype": "bfloat16",
                         **rt_train["k2_aifi"]},
+        "det": {"max_abs_err": det["k2_err"], "shapes": det["k2_times"]},
     }, {
         "name": "rotate_shear3",
         "route": "cuda",
@@ -3499,6 +3541,609 @@ def slice9_phases(torch, card, dev, g):
     log("phase 24 ok: the deploy export launches K1 through its custom operator")
     return result
 
+
+
+DET_R50_YML = "configs/det/rtdetr_r50vd_6x_coco.yml"
+DET_R101_YML = "configs/det/rtdetr_r101vd_6x_coco.yml"
+# The gates of every K1 / K2 launch against its plain version: max-abs
+# factor (times 1 + the largest reference value) and relative L2 limit.
+ATTN_GATES = {"K1": {"torch.float32": (1e-5, 1e-5), "torch.bfloat16": (2e-2, 1e-2)},
+              "K2": {"torch.float32": (1e-4, 1e-5), "torch.bfloat16": (2e-2, 1e-2)}}
+
+
+def det_phases(torch, card, dev, g):
+    """Phases 25-28: the detection task's eval and train steps at
+    configs/det/rtdetr_r50vd_6x_coco.yml's published widths, the det CLI and
+    the r101vd config, and the rotation routes shear / gather."""
+    import contextlib
+    import importlib.util
+    import io
+    import tempfile
+    import types
+
+    from satellite_pose_estimation_tpu_torch.core.yaml_config import YAMLConfig
+    from satellite_pose_estimation_tpu_torch.data.augment import (
+        AugmentConfig,
+        augment_batch,
+        augment_sample,
+        geometry_draw,
+        sample_draw,
+    )
+    from satellite_pose_estimation_tpu_torch.losses import det_criterion
+    from satellite_pose_estimation_tpu_torch.losses.det_criterion import (
+        DetCriterionConfig,
+        set_criterion_boxes,
+    )
+    from satellite_pose_estimation_tpu_torch.models import rtdetr_decoder
+    from satellite_pose_estimation_tpu_torch.models.rtdetr import (
+        build_rtdetr_model,
+        build_rtdetr_train_model,
+    )
+    from satellite_pose_estimation_tpu_torch.ops import fused_attention as fa
+    from satellite_pose_estimation_tpu_torch.ops.precision import highest_precision
+    from satellite_pose_estimation_tpu_torch.tools import train as det_cli
+    from satellite_pose_estimation_tpu_torch.tools.synthetic_det_selfcheck import render_dataset
+    from satellite_pose_estimation_tpu_torch.train.det_solver import (
+        DetSolver,
+        make_det_eval_step,
+        make_det_train_step,
+    )
+    from satellite_pose_estimation_tpu_torch.train.state import create_train_state
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    bf16, f32 = torch.bfloat16, torch.float32
+    missing = [m for m in ("yaml", "PIL", "cv2") if importlib.util.find_spec(m) is None]
+    require(not missing, f"the det phases read the YAMLs and run the host transforms: "
+                         f"{missing} missing")
+    cfg = YAMLConfig(os.path.join(here, DET_R50_YML))
+    mcfg = cfg.model_config()
+    require((mcfg.box_dim, mcfg.num_classes, mcfg.hidden_dim, mcfg.nhead, mcfg.dim_feedforward,
+             mcfg.num_queries, mcfg.num_decoder_layers, mcfg.depth, mcfg.freeze_norm)
+            == (4, 80, 256, 8, 1024, 300, 6, 50, True), f"r50vd det config {mcfg}")
+    size = int(cfg.yaml_cfg["val_dataloader"]["dataset"]["resize"])
+    EB = int(cfg.yaml_cfg["val_dataloader"]["batch_size"])
+    TB = int(cfg.yaml_cfg["train_dataloader"]["batch_size"])
+    T_MAX, steps, windows = 100, 5, 3
+
+    # Every K1 / K2 launch is held to its plain version on its own inputs.
+    launches, real_fwd, real_bwd = [], fa._launch_fwd, fa._launch_bwd
+
+    def check(name, shape, dtype, outs, refs):
+        tol, rel_tol = ATTN_GATES[name][str(dtype)]
+        raw = [max_err(o, r) for o, r in zip(outs, refs)]
+        err = max(e / (1.0 + r.float().abs().max().item()) for e, r in zip(raw, refs))
+        rel = max(rel_l2(o, r) for o, r in zip(outs, refs))
+        launches.append((name, shape, dtype, err, rel, max(raw)))
+        require(err <= tol and rel <= rel_tol,
+                f"{name} at {shape} {dtype} disagrees with its plain version: {err:.3e} of "
+                f"1 + max|plain| (limit {tol:g}), relative L2 {rel:.3e} (limit {rel_tol:g})")
+
+    def spy_fwd(q, k, v, s):
+        o, lse = real_fwd(q, k, v, s)
+        with torch.no_grad():
+            check("K1", tuple(q.shape), q.dtype, [o], [fa.attention_plain(q, k, v, s)])
+        return o, lse
+
+    def spy_bwd(q, k, v, o, lse, go, s):
+        grads = real_bwd(q, k, v, o, lse, go, s)
+        with torch.no_grad():
+            check("K2", tuple(q.shape), q.dtype, grads, fa.attention_plain_bwd(q, k, v, go, s))
+        return grads
+
+    @contextlib.contextmanager
+    def held():
+        """Counts set to 0 and every launch checked: yields the list of
+        (kernel, shape, dtype, error of 1 + max|plain|, relative L2, max
+        error) the block's launches add."""
+        launches.clear()
+        fa._launch_fwd, fa._launch_bwd = spy_fwd, spy_bwd
+        zero_counts()
+        try:
+            yield launches
+            torch.cuda.synchronize()
+        finally:
+            fa._launch_fwd, fa._launch_bwd = real_fwd, real_bwd
+
+    def by_shape(recs):
+        out = {}
+        for name, shape, dtype, *_ in recs:
+            key = (name, shape, str(dtype)[6:])
+            out[key] = out.get(key, 0) + 1
+        return sorted(out.items())
+
+    def worst(recs):
+        return max((r[3] for r in recs), default=0.0), max((r[4] for r in recs), default=0.0)
+
+    def rate_line(r):
+        return (f"median {statistics.median(r):.2f} img/s (min {min(r):.2f}, max {max(r):.2f}; "
+                f"{windows} windows of {steps} steps)")
+
+    def autocast(dtype):
+        return torch.autocast(dev.type, dtype=bf16, enabled=dtype == bf16)
+
+    def topk_spy(card_pick, on_cpu, gaps):
+        """A top-k that records the card's tokens and hands them to the CPU
+        run after a score check (a random-init model's top-k may swap tokens
+        whose scores tie within rounding)."""
+        real_topk = rtdetr_decoder.topk
+
+        def spy(scores, k):
+            vals, idx = real_topk(scores, k)
+            if on_cpu[0]:
+                own, idx = idx, card_pick[0].to(idx)
+                vals = scores.gather(1, idx)
+                gap = (vals.double().amin(-1) - scores.double().gather(1, own).amin(-1)).abs()
+                gaps.append((int(sum(len(set(a.tolist()) - set(b.tolist()))
+                                     for a, b in zip(own, idx))), gap.max().item()))
+            else:
+                card_pick[0] = idx.cpu()
+            return vals, idx
+        return spy
+
+    def card_vs_cpu_eval(model_cfg, seed, x, what):
+        """The float32 model on the card (TF32 off) against the CPU on ``x``:
+        the CPU takes the card's tokens; outputs within 2e-3."""
+        card_pick, on_cpu, gaps = [None], [False], []
+        real_topk = rtdetr_decoder.topk
+        rtdetr_decoder.topk = topk_spy(card_pick, on_cpu, gaps)
+        try:
+            with torch.inference_mode(), highest_precision():
+                out_gpu = build_rtdetr_model(model_cfg, seed=seed, device=dev)(x)
+                on_cpu[0] = True
+                out_cpu = build_rtdetr_model(model_cfg, seed=seed, device="cpu")(x.cpu())
+        finally:
+            rtdetr_decoder.topk = real_topk
+        errs = {k: max_err(out_gpu[k].cpu(), out_cpu[k]) for k in ("pred_logits", "pred_points")}
+        (swapped, gap), = gaps
+        log(f"  {what}: float32 card vs CPU at B={x.shape[0]}: the CPU's own top-"
+            f"{model_cfg.num_queries} differs from the card's in {swapped} tokens, the card's "
+            f"lowest CPU score {gap:.3e} from the CPU's k-th (tolerance 1e-3); on the card's "
+            f"tokens max err logits {errs['pred_logits']:.3e}, boxes {errs['pred_points']:.3e} "
+            f"(tolerance 2e-3)")
+        require(gap <= 1e-3 and max(errs.values()) <= 2e-3,
+                f"{what}: float32 card and CPU disagree")
+        return errs
+
+    def attn_times(name, B, T, D, dtype):
+        """The kernel's time at (B, 8, T, D) on (B, T, 8, D) projection views
+        beside the plain version, SDPA (its backward for K2) and the bound."""
+        sm = D ** -0.5
+        q, k, v, go = (torch.randn(B, T, 8, D, generator=g, device=dev, dtype=dtype)
+                       .transpose(1, 2) for _ in range(4))
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        if name == "K1":
+            kernel = lambda: fa.fused_self_attention(q, k, v, sm)  # noqa: E731
+            rec, runs = timed(torch, kernel, lambda: fa.attention_plain(q, k, v, sm),
+                              lambda: sdpa(q, k, v, scale=sm), iters=20)
+            rec.update(attention_bound(q, products=2, tensors=4, row_stats=1))
+        else:
+            o, lse = fa._launch_fwd(q, k, v, sm)
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            lib_out = sdpa(*leaves, scale=sm)
+            kernel = lambda: fa._launch_bwd(q, k, v, o, lse, go, sm)  # noqa: E731
+            rec, runs = timed(torch, kernel, lambda: fa.attention_plain_bwd(q, k, v, go, sm),
+                              lambda: torch.autograd.grad(lib_out, leaves, go, retain_graph=True),
+                              iters=20)
+            rec.update(attention_bound(q, products=5, tensors=8, row_stats=1))
+        # Calls of ~0.1 ms are as short as their host work: replayed from a
+        # CUDA graph, the device time alone.
+        rec.update(shape=[B, 8, T, D], dtype=str(dtype)[6:], graph_ms=graph_ms(torch, kernel))
+        log(f"  {name} ({B},8,{T},{D}) {rec['dtype']}: kernel {rec['ms']:.4f} ms "
+            f"({rec['graph_ms']:.4f} ms replayed from a CUDA graph), plain "
+            f"{rec['plain_ms']:.4f} ms, SDPA{' backward' if name == 'K2' else ''} "
+            f"{rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}; "
+            f"{100 * rec['bound_ms'] / rec['ms']:.1f}% of it) (runs plain, library, kernel, kernel,"
+            f" library, plain: {runs}) on {card}")
+        return rec
+
+    result = {"k1": {}, "k2": {}, "k1_times": [], "k2_times": [], "k1_err": 0.0, "k2_err": 0.0}
+
+    def note(path, recs):
+        for name in ("k1", "k2"):
+            mine = [r for r in recs if r[0] == name.upper()]
+            result[name][path] = len(mine)
+            result[f"{name}_err"] = max([result[f"{name}_err"]] + [r[5] for r in mine])
+
+    # -- 25. det eval at 640, B = 8, float32 (as published) and bf16 --------
+    model = build_rtdetr_model(mcfg, seed=0, device=dev)  # float32 weights
+    holder = types.SimpleNamespace(model=model, ema=None)
+    eval_steps = {f32: make_det_eval_step(None), bf16: make_det_eval_step(bf16)}
+    pool = [torch.randn(EB, size, size, 3, generator=g, device=dev)
+            for _ in range(steps * windows)]
+    for step in eval_steps.values():
+        step(holder, pool[0])  # warm-up (cuDNN / cuBLAS plans)
+    with held() as recs:
+        outs = [step(holder, pool[1]) for step in eval_steps.values()]
+    want = [(("K1", (EB, 8, 300, 32), d), 6) for d in ("bfloat16", "float32")] + [
+        (("K1", (EB, 8, (size // 32) ** 2, 32), d), 1) for d in ("bfloat16", "float32")]
+    got = by_shape(recs)
+    log(f"  det eval r50vd @{size} B={EB}, one float32 and one bf16 step: launches {counts()}, "
+        f"by shape {got}; each launch against its plain version: worst "
+        f"{worst(recs)[0]:.3e} of 1 + max|plain|, relative L2 {worst(recs)[1]:.3e}")
+    require(counts() == expected(k1=14) and got == sorted(want),
+            "det eval: K1 is not launched 7 times a step at (8, 8, 400, 32) and (8, 8, 300, 32)")
+    note("det_eval_640", recs)
+    for out in outs:
+        require(tuple(out["scores"].shape) == (EB, 300, 81) and tuple(out["boxes"].shape)
+                == (EB, 300, 4), "det eval output shapes")
+        require(bool(torch.isfinite(out["scores"]).all() & torch.isfinite(out["boxes"]).all()),
+                "det eval outputs not finite")
+    agree = max_err(outs[0]["scores"], outs[1]["scores"])
+    log(f"  det eval scores bf16 vs float32: max {agree:.3e}")
+    card_vs_cpu_eval(mcfg, 0, pool[2][:2], "det r50vd @640")
+    for dtype, step in eval_steps.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        r = []
+        for w in range(windows):
+            t0 = time.perf_counter()
+            for x in pool[w * steps:(w + 1) * steps]:
+                step(holder, x)
+            torch.cuda.synchronize()
+            r.append(EB * steps / (time.perf_counter() - t0))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        x = pool[0]
+        with torch.inference_mode(), autocast(dtype):
+            nchw = x.permute(0, 3, 1, 2)
+            feats = model.backbone(nchw)
+            enc = model.encoder(feats)
+            spans = {name: statistics.median(cuda_ms(fn, 1, torch) for _ in range(3))
+                     for name, fn in (("model", lambda: model(x)),
+                                      ("backbone", lambda: model.backbone(nchw)),
+                                      ("encoder", lambda: model.encoder(feats)),
+                                      ("decoder", lambda: model.decoder(enc)))}
+        result[f"eval_{str(dtype)[6:]}"] = {"img_s": r, "spans_ms": spans, "peak_gib": peak}
+        log(f"  det eval step B={EB} @{size} {str(dtype)[6:]}: {rate_line(r)}; spans "
+            + ", ".join(f"{k} {v:.3f} ms" for k, v in spans.items())
+            + f"; peak device memory {peak:.2f} GiB on {card}")
+        del feats, enc
+    for dtype in (bf16, f32):
+        for T in ((size // 32) ** 2, 300):
+            result["k1_times"].append(attn_times("K1", EB, T, 32, dtype))
+    del pool, outs, model, holder
+    torch.cuda.empty_cache()
+    log("phase 25 ok: the det eval step at the published widths ran K1 7 times a step")
+
+    # -- 26. det train at 640 (and 480), B = 4, FrozenBN, the registry AdamW,
+    # clip 0.1, EMA; float32 as published ---------------------------------
+    def det_batch(n, side, gen):
+        """n normalised images with 1-30 boxes each, padded to 100 (label -1)."""
+        labels = torch.full((n, T_MAX), -1, dtype=torch.int32)
+        boxes = torch.zeros(n, T_MAX, 4)
+        cg = torch.Generator().manual_seed(int(torch.randint(0, 2**31, (), generator=gen,
+                                                             device=dev)))
+        for i in range(n):
+            m = int(torch.randint(1, 31, (), generator=cg))
+            labels[i, :m] = torch.randint(0, 80, (m,), generator=cg, dtype=torch.int32)
+            c = torch.rand(m, 2, generator=cg) * 0.6 + 0.2
+            boxes[i, :m] = torch.cat([c, torch.rand(m, 2, generator=cg) * 0.3 + 0.05], 1)
+        return (torch.randn(n, side, side, 3, generator=gen, device=dev), labels.to(dev),
+                boxes.to(dev))
+
+    tcfg = cfg.train_config()
+    crit = DetCriterionConfig(num_classes=cfg.num_classes)
+    R = cfg.yaml_cfg["optimizer"]
+    want_groups = [(p.get("lr", R["lr"]), p.get("weight_decay", R["weight_decay"]))
+                   for p in R["params"]] + [(R["lr"], R["weight_decay"])]
+    gen = torch.Generator(device=dev).manual_seed(26)
+    model = build_rtdetr_train_model(mcfg, seed=0, device=dev)
+    state = create_train_state(model, tcfg, cfg.build_tx(model))
+    groups = [(grp["lr"], grp["weight_decay"]) for grp in state.optimizer.param_groups]
+    log(f"  det registry AdamW groups (lr, weight decay): {groups}; clip "
+        f"{state.clip_max_norm}; EMA {state.ema is not None} (decay {tcfg.ema_decay}, warmups "
+        f"{tcfg.ema_warmups})")
+    require(groups == want_groups and state.clip_max_norm == 0.1 and state.ema is not None,
+            "the det train state is not the YAML's")
+    frozen = {n: b.clone() for n, b in model.named_buffers()
+              if n.startswith("backbone.") and n.endswith(("running_mean", "running_var"))}
+    train_steps = {f32: make_det_train_step(crit, tcfg), bf16: make_det_train_step(
+        crit, tcfg, compute_dtype=bf16)}
+    step = train_steps[f32]
+    b640 = [det_batch(TB, size, gen) for _ in range(2)]
+    b480 = det_batch(TB, 480, gen)
+    step(state, *b640[0], gen)  # warm-up
+    step(state, *b480, gen)
+    with held() as recs:
+        losses = [step(state, *b, gen) for b in b640]
+    got = by_shape(recs)
+    log(f"  det train r50vd @{size} B={TB} float32, 2 steps: launches {counts()}, by shape {got};"
+        f" each launch against its plain version: worst {worst(recs)[0]:.3e}, relative L2 "
+        f"{worst(recs)[1]:.3e}")
+    aifi = (size // 32) ** 2
+    want = sorted([(("K1", (TB, 8, 300, 32), "float32"), 12), (("K2", (TB, 8, 300, 32), "float32"),
+                   12), (("K1", (TB, 8, aifi, 32), "float32"), 2),
+                   (("K2", (TB, 8, aifi, 32), "float32"), 2)])
+    require(counts() == expected(k1=14, k2=14) and got == want,
+            "det train at 640: K1 and K2 are not launched 7 times a step")
+    note("det_train_640", recs)
+    with held() as recs:
+        losses.append(step(state, *b480, gen))
+    got = by_shape(recs)
+    log(f"  det train @480 (AIFI 15 x 15 = 225 tokens, the plain core): launches {counts()}, "
+        f"by shape {got}")
+    require(counts() == expected(k1=6, k2=6) and got == [
+        (("K1", (TB, 8, 300, 32), "float32"), 6), (("K2", (TB, 8, 300, 32), "float32"), 6)],
+        "det train at 480: K1 and K2 are not launched 6 times a step")
+    note("det_train_480", recs)
+    with held() as recs:
+        losses.append(train_steps[bf16](state, *b640[1], gen))
+    got = by_shape(recs)
+    log(f"  det train @{size} under bf16 autocast: launches {counts()}, by shape {got}")
+    require(counts() == expected(k1=7, k2=7), "det bf16 train: K1 and K2 7 times a step")
+    note("det_train_640_bf16", recs)
+    for ls in losses:
+        require(all(bool(torch.isfinite(v)) for v in ls.values()), "a det loss is not finite")
+    require(all(torch.equal(b, frozen[n]) for n, b in model.named_buffers() if n in frozen),
+            "a FrozenBN buffer changed")
+    log("  losses (total): " + ", ".join(f"{ls['loss_total'].item():.4f}" for ls in losses)
+        + f"; {len(losses[0])} loss terms; the backbone's {len(frozen)} FrozenBN statistics "
+        "untouched")
+
+    fixed_model = build_rtdetr_train_model(mcfg, seed=1, device=dev)
+    fixed_state = create_train_state(fixed_model, tcfg, cfg.build_tx(fixed_model))
+    fixed = det_batch(TB, size, gen)
+    trace = [step(fixed_state, *fixed, gen)["loss_total"].item() for _ in range(10)]
+    log("  fixed-batch loss over 10 float32 steps: " + ", ".join(f"{v:.4f}" for v in trace))
+    require(statistics.mean(trace[-3:]) < statistics.mean(trace[:3]),
+            "the det loss does not fall (the last 3 steps' mean against the first 3's)")
+    del fixed_state, fixed_model
+
+    # float32 gradients of one batch-2 step, card (K1 + K2, TF32 off) vs
+    # the CPU (plain versions): the CPU runs take the card's tokens (after a
+    # score check) and the card's assignments (after counting their own).
+    # The det model's float32 gradients are ill-conditioned at random init:
+    # two CPU float32 runs that differ only in their thread count (so in
+    # their sums' order) lie ~1e-2 apart (relative L2), printed here, so no
+    # float32 run sits within 1e-3 of another. As phase 16 holds gradients
+    # through BN batch statistics, the card's float32 gradients are held no
+    # farther from the CPU's float64 ones than three times the CPU
+    # float32's are, and the encoder's top-k heads (their gradient passes
+    # no deformable sampler and no box loss of the decoder) card vs CPU to
+    # 1e-3.
+    small = [t[:2] for t in fixed]
+    card_pick, on_cpu, gaps, assigned, differ = [None], [False], [], [None], []
+    real_topk, real_match = rtdetr_decoder.topk, det_criterion.match_levels
+
+    def spy_match(levels, targets, c):
+        q4ts = real_match(levels, targets, c)
+        if on_cpu[0]:
+            differ.append(sum(int((a.cpu() != b).sum()) for a, b in zip(q4ts, assigned[0])))
+            return [a.to(q4ts[0].device) for a in assigned[0]]
+        assigned[0] = [a.cpu() for a in q4ts]
+        return q4ts
+
+    rtdetr_decoder.topk, det_criterion.match_levels = topk_spy(card_pick, on_cpu, gaps), spy_match
+    grads, threads = {}, torch.get_num_threads()
+    try:
+        for name, where, dtype, n_threads in (
+                ("card", dev, f32, threads), ("cpu", "cpu", f32, threads),
+                ("cpu 3 threads", "cpu", f32, 3), ("cpu float64", "cpu", torch.float64, threads)):
+            on_cpu[0] = name != "card"
+            torch.set_num_threads(n_threads)
+            m = build_rtdetr_train_model(mcfg, seed=2, device=where).to(dtype)
+            x, lab, box = (t.to(where) for t in small)
+            with highest_precision():
+                total, _ = set_criterion_boxes(m(x.to(dtype)), {"labels": lab, "boxes": box},
+                                               crit)
+                total.backward()
+            grads[name] = {n: p.grad.detach().cpu().double() for n, p in m.named_parameters()
+                           if p.grad is not None}
+            del m
+    finally:
+        rtdetr_decoder.topk, det_criterion.match_levels = real_topk, real_match
+        torch.set_num_threads(threads)
+
+    def heads(gr):
+        return {n: v for n, v in gr.items() if n.startswith("decoder.enc_")}
+
+    rel, worst_t = grad_gap(grads["card"], grads["cpu"])
+    card64 = grad_gap(grads["card"], grads["cpu float64"])[0]
+    cpu64 = grad_gap(grads["cpu"], grads["cpu float64"])[0]
+    head_rel = grad_gap(heads(grads["card"]), heads(grads["cpu"]))[0]
+    spread = grad_gap(grads["cpu 3 threads"], grads["cpu"])[0]
+    gap = max(gp for _, gp in gaps)
+    result["grad_rel_l2"] = {"card_vs_cpu": rel, "card_vs_cpu64": card64, "cpu_vs_cpu64": cpu64,
+                             "cpu_threads_spread": spread, "enc_heads_card_vs_cpu": head_rel}
+    log(f"  det float32 B={len(small[0])} gradients, relative L2: card vs CPU {rel:.3e}, the CPU "
+        f"on {threads} vs 3 threads {spread:.3e}; from "
+        f"the CPU's float64: card {card64:.3e}, CPU float32 {cpu64:.3e} (the card's limit: three "
+        f"times the CPU's); the encoder's top-k heads card vs CPU {head_rel:.3e} (tolerance 1e-3); "
+        f"worst tensors card vs CPU " + ", ".join(f"{v:.3e} {n}" for v, n in worst_t)
+        + f"; the CPU runs' own top-300 differ in {[n for n, _ in gaps]} tokens (score gap "
+        f"{gap:.3e}, tolerance 1e-3), their own assignments in {differ} of {7 * 2 * T_MAX} "
+        "target slots")
+    require(gap <= 1e-3 and card64 <= 3 * cpu64 and head_rel <= 1e-3,
+            "det card and CPU gradients disagree")
+    del grads
+    log("phase 26 ok: the det train step ran K1 and K2 7 times a step at 640 and 6 at 480")
+
+    # Rate, spans and peak memory (float32 as published, and bf16 autocast):
+    # one step a window, as a step takes seconds (the match).
+    names = ("forward", "match", "loss", "backward", "optimizer")
+    pool = [det_batch(TB, size, gen) for _ in range(windows)]
+    for dtype, tstep in train_steps.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        r = []
+        for w in range(windows):
+            t0 = time.perf_counter()
+            tstep(state, *pool[w], gen)
+            torch.cuda.synchronize()
+            r.append(TB / (time.perf_counter() - t0))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        per = {n: [] for n in names}
+        for b in pool[:2]:
+            events = [torch.cuda.Event(enable_timing=True)]
+            events[0].record()
+
+            def mark(name):
+                events.append(torch.cuda.Event(enable_timing=True))
+                events[-1].record()
+
+            tstep(state, *b, gen, on_stage=mark)
+            torch.cuda.synchronize()
+            for n, e0, e1 in zip(names, events, events[1:]):
+                per[n].append(e0.elapsed_time(e1))
+        spans = {n: statistics.median(v) for n, v in per.items()}
+        result[f"train_{str(dtype)[6:]}"] = {"img_s": r, "spans_ms": spans, "peak_gib": peak}
+        log(f"  det train step B={TB} @{size} {str(dtype)[6:]}: median "
+            f"{statistics.median(r):.2f} img/s (min {min(r):.2f}, max {max(r):.2f}; {windows} "
+            f"windows of 1 step); spans (median of 2 steps) "
+            + ", ".join(f"{k} {v:.3f} ms" for k, v in spans.items())
+            + f"; peak device memory {peak:.2f} GiB on {card}")
+    match_launches = device_launches(torch, lambda: det_criterion.match_levels(
+        [{"pred_logits": torch.randn(TB, 300, 81, device=dev),
+          "pred_points": torch.rand(TB, 300, 4, device=dev)} for _ in range(7)],
+        {"labels": pool[0][1], "boxes": pool[0][2]}, crit))
+    result["match_device_kernels"] = match_launches
+    log(f"  the stacked Hungarian of 7 levels x B={TB} at 300 queries x {T_MAX} targets: "
+        f"{match_launches} device kernels a call")
+    for dtype in (bf16, f32):
+        for T in ((size // 32) ** 2, 300):
+            result["k2_times"].append(attn_times("K2", TB, T, 32, dtype))
+    del pool, state, model, train_steps, step
+    torch.cuda.empty_cache()
+
+    # -- 27. the det CLI on a rendered synthetic COCO set, and r101vd -------
+    calls, real_val = [], DetSolver.val
+
+    def spy_val(self, *a, **k):
+        before = counts()
+        out = real_val(self, *a, **k)
+        torch.cuda.synchronize()
+        calls.append({n: counts()[n] - before[n] for n in before})
+        return out
+
+    DetSolver.val = spy_val
+    solver = None
+    try:
+        with tempfile.TemporaryDirectory() as tmp, held() as recs:
+            t0 = time.perf_counter()
+            render_dataset(tmp, 16, seed=27, img_size=160)
+            log(f"  rendered a synthetic COCO set (16 train, 8 val images of 160 px) in "
+                f"{time.perf_counter() - t0:.2f} s")
+            out = os.path.join(tmp, "out")
+            args = det_cli.get_args_parser().parse_args(
+                ["-c", os.path.join(here, DET_R50_YML), "--data_root", tmp, "-u", "epoches=1",
+                 f"output_dir={out}"])
+            torch.cuda.reset_peak_memory_stats()
+            solver = det_cli.main(args)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            fit_counts, fit_recs = counts(), list(recs)
+            tr, va = solver.timings["train"], solver.timings["val"]
+            with open(os.path.join(out, "log.txt")) as f:
+                (entry,) = [json.loads(line) for line in f]
+            log(f"  det CLI epoch 0 (float32, B={TB}, multi-scale): train "
+                f"{tr['images'] / tr['seconds']:.2f} img/s ({tr['images']} images, loader wait "
+                f"{100 * tr['loader_wait_s'] / tr['seconds']:.1f}%), val "
+                f"{va['images'] / va['seconds']:.2f} img/s ({va['images']} images); peak "
+                f"{peak:.2f} GiB; launches {fit_counts} (val {calls[0]}); by shape "
+                f"{by_shape(fit_recs)}")
+            log(f"  log.txt keys {sorted(entry)}; train_loss_total {entry['train_loss_total']:.4f},"
+                f" test_AP {entry['test_AP']:.4f}")
+            require(tr["images"] == 16 and va["images"] == 8, "the det CLI's epoch is not 4 + 1")
+            require({"epoch", "n_parameters", "train_loss_total", "train_loss_giou",
+                     "train_loss_vfl_5", "test_AP", "test_AP50", "test_AR100"} <= set(entry)
+                    and all(v == v for v in entry.values()), "det CLI log.txt")
+            aifi_train = [r for r in fit_recs if r[0] == "K2" and r[1][2] != 300]
+            dec_train = [r for r in fit_recs if r[0] == "K2" and r[1][2] == 300]
+            require(len(dec_train) == 24 and fit_counts["k2"] == 24 + len(aifi_train)
+                    and calls[0] == expected(k1=7)
+                    and fit_counts["k1"] == fit_counts["k2"] + 7,
+                    "the det CLI's steps did not launch K1 / K2 as the sizes say")
+            note("det_cli_fit", fit_recs)
+            calls.clear()
+            buf = io.StringIO()
+            args = det_cli.get_args_parser().parse_args(
+                ["-c", os.path.join(here, DET_R50_YML), "--data_root", tmp, "-r",
+                 os.path.join(out, "checkpoint"), "--test-only", "-u", f"output_dir={out}"])
+            zero_counts()
+            with contextlib.redirect_stdout(buf):
+                solver = det_cli.main(args)
+            stats = buf.getvalue().strip().splitlines()[-1]
+            log(f"  -r checkpoint --test-only: start epoch {solver.start_epoch}, printed {stats}")
+            require(solver.start_epoch == 1 and stats.startswith("{'AP'")
+                    and calls[0] == expected(k1=7), "det CLI resume / test-only")
+            result["k1"]["det_cli_test_only"] = calls[0]["k1"]
+            result["cli"] = {"train": tr, "val": va, "peak_gib": peak}
+    finally:
+        DetSolver.val = real_val
+        del solver
+        torch.cuda.empty_cache()
+
+    cfg101 = YAMLConfig(os.path.join(here, DET_R101_YML)).model_config()
+    require((cfg101.depth, cfg101.hidden_dim, cfg101.dim_feedforward, cfg101.box_dim)
+            == (101, 384, 2048, 4), f"r101vd det config {cfg101}")
+    model = build_rtdetr_model(cfg101, seed=0, device=dev)
+    holder = types.SimpleNamespace(model=model, ema=None)
+    x = torch.randn(EB, size, size, 3, generator=g, device=dev)
+    for step in eval_steps.values():
+        step(holder, x)
+    with held() as recs:
+        outs = [step(holder, x) for step in eval_steps.values()]
+    got = by_shape(recs)
+    log(f"  det eval r101vd @{size} B={EB} (hidden 384, D = 48), float32 and bf16 steps: "
+        f"launches {counts()}, by shape {got}")
+    require(counts() == expected(k1=14) and {s[1][3] for s, _ in got} == {48},
+            "r101vd eval: K1 is not launched 7 times a step at D = 48")
+    note("det_r101_eval_640", recs)
+    t0 = time.perf_counter()
+    for _ in range(3):
+        eval_steps[bf16](holder, x)
+    torch.cuda.synchronize()
+    log(f"  r101vd bf16 eval: {3 * EB / (time.perf_counter() - t0):.2f} img/s (3 steps) on {card}")
+    card_vs_cpu_eval(cfg101, 0, x[:2], "det r101vd @640")
+    for dtype in (bf16, f32):
+        for T in ((size // 32) ** 2, 300):
+            result["k1_times"].append(attn_times("K1", EB, T, 48, dtype))
+    del model, holder, outs
+    torch.cuda.empty_cache()
+    log("phase 27 ok: the det CLI fit, resume and --test-only; r101vd ran K1 at D = 48")
+
+    # -- 28. the rotation routes shear / gather on the card vs the CPU -------
+    RB, S = 64, 224
+    batch = train_batch(torch, dev, RB, gen, pack=256)
+    zero_p = dict(p_blur=0.0, p_blur_family=0.0, p_noise=0.0, p_jpeg=0.0, p_iso=0.0,
+                  p_cutout=0.0, p_trunc=0.0)
+    for impl, limit, interp in (("shear", 90.0, "bilinear"), ("shear", 90.0, "cubic"),
+                                ("gather", 90.0, "cubic"), ("bmm", 180.0, "bilinear")):
+        acfg = AugmentConfig(out_size=S, rotate_impl=impl, rotate_limit_deg=limit, interp=interp,
+                             **zero_p)
+        draws = geometry_draw(torch.Generator().manual_seed(28), RB, acfg)
+        args = (batch["image"], batch["clip_bbox_buf"], batch["landmarks_buf"])
+        img_gpu, kp_gpu = augment_batch(torch.Generator(device=dev), *args, acfg,
+                                        geometry={k: v.to(dev) for k, v in draws.items()})
+        ms = cuda_ms(lambda: augment_batch(torch.Generator(device=dev), *args, acfg, geometry={
+            k: v.to(dev) for k, v in draws.items()}), 5, torch)
+        img_cpu, kp_cpu = augment_batch(torch.Generator(), *(a.cpu() for a in args), acfg,
+                                        geometry=draws)
+        e_img, e_kp = max_err(img_gpu.cpu(), img_cpu), max_err(kp_gpu.cpu(), kp_cpu)
+        log(f"  augment_batch rotate_impl={impl} limit {limit:g} {interp} B={RB} @{S}: card vs "
+            f"CPU max err {e_img:.3e} (normalised; tolerance 1e-3), keypoints {e_kp:.3e} "
+            f"(tolerance 1e-4); {ms:.3f} ms a call on {card}")
+        require(e_img <= 1e-3 and e_kp <= 1e-4, f"rotation route {impl} card vs CPU")
+    acfg = AugmentConfig(out_size=S, interp="cubic", p_hflip=1.0, p_rotate=1.0, p_affine=1.0,
+                         p_blur=1.0, p_blur_family=1.0, p_noise=1.0, p_cutout=1.0, p_trunc=1.0,
+                         p_jpeg=0.0, p_iso=0.0)
+    d = sample_draw(torch.Generator().manual_seed(28), acfg)
+    one = (batch["image"][0], batch["clip_bbox_buf"][0], batch["landmarks_buf"][0])
+    img_gpu, kp_gpu = augment_sample(None, *one, acfg, draws=to_device(d, dev))
+    img_cpu, kp_cpu = augment_sample(None, *(a.cpu() for a in one), acfg, draws=d)
+    e_img, e_kp = max_err(img_gpu.cpu(), img_cpu), max_err(kp_gpu.cpu(), kp_cpu)
+    log(f"  augment_sample (cubic, every geometric op and blur / noise / cutout / truncation on) "
+        f"@{S}: card vs CPU max err {e_img:.3e} (tolerance 1e-3), keypoints {e_kp:.3e}")
+    require(e_img <= 1e-3 and e_kp <= 1e-4, "augment_sample card vs CPU")
+    log("phase 28 ok: the rotation routes and augment_sample agree with the CPU")
+    return result
+
+
+def to_device(tree, dev):
+    """``tree`` (a dict of tensors and tuples of tensors) on ``dev``."""
+    if isinstance(tree, dict):
+        return {k: to_device(v, dev) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(to_device(v, dev) for v in tree)
+    return tree.to(dev)
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -6,9 +6,12 @@
    applied as batched matrix products;
 2. a fixed-count subset of round(p_rotate * B) images is rotated about the
    crop centre, keypoints with it: ``rotate_impl="bmm"``
-   (``ops.image_warp.rotate_shear3_bmm``) or ``"pallas"``
+   (``ops.image_warp.rotate_shear3_bmm``), ``"pallas"``
    (``ops.pallas_rotate.rotate_shear3_pallas``: the rotation kernel K3 on
-   the GPU, the "shear" semantics);
+   the GPU, the "shear" semantics) or ``"shear"``
+   (``ops.image_warp.rotate_shear3``) for limits up to 90 degrees;
+   ``"gather"``, and any route past 90 degrees, takes the inverse-affine
+   warp (``affine_warp_cubic`` or ``affine_warp_bilinear``);
 3. the photometric family (blur, motion / median / box blur, gaussian
    noise, JPEG, ISO noise, cutout, edge truncation) runs on fixed-count
    subsets (``_apply_subset``);
@@ -17,13 +20,15 @@
 ``augment_batch_pallas`` is the JAX package's fused variant: one bilinear
 affine warp per image (flip, rotation and scale / shift in one matrix), then
 blur, noise, cutout, truncation and normalisation in one pass of the
-photometric kernel K4 (``ops.pallas_augment``).
+photometric kernel K4 (``ops.pallas_augment``). ``augment_sample`` augments
+one sample: one affine warp, then the whole corruption family, each op
+gated by its own draw.
 
 Keypoints ride the same maps analytically. Every draw comes from the
 generator, on its device (the images' device); the draws and their
 application are separate functions (``geometry_draw``,
-``pallas_augment_draw``), so a test can replay another generator's draws.
-The JAX package's rotation routes "shear" and "gather" are not ported.
+``pallas_augment_draw``, ``sample_draw``), so a test can replay another
+generator's draws.
 """
 from __future__ import annotations
 
@@ -37,6 +42,8 @@ from ..ops.image_warp import (
     IMAGENET_STD,
     _cubic_weights,
     affine_warp_bilinear,
+    affine_warp_cubic,
+    rotate_shear3,
     rotate_shear3_bmm,
 )
 from ..ops.pallas_augment import fused_photometric_pallas
@@ -79,7 +86,7 @@ class AugmentConfig(NamedTuple):
     cutout_max: int = 40
     p_trunc: float = 0.2
     trunc_ratio: float = 0.2
-    rotate_impl: str = "bmm"  # or "pallas" (K3); "shear" / "gather" are not ported
+    rotate_impl: str = "bmm"  # or "pallas" (K3), "shear", "gather" (the affine warp)
 
 
 def _uniform(generator, shape, lo, hi):
@@ -203,12 +210,34 @@ def geometry_draw(generator, B: int, cfg: AugmentConfig = AugmentConfig()):
     }
     n_rot = int(round(cfg.p_rotate * B))
     if n_rot > 0 and cfg.rotate_limit_deg > 0:
-        if cfg.rotate_limit_deg > 90.0:
-            raise NotImplementedError("rotations beyond 90 degrees are not ported")
         draws["rot_idx"] = torch.randperm(B, generator=g, device=dev)[:n_rot]
         draws["thetas"] = _uniform(g, (n_rot,), -cfg.rotate_limit_deg,
                                    cfg.rotate_limit_deg) * (math.pi / 180.0)
     return draws
+
+
+def _rotate_affine(images, thetas, cubic: bool):
+    """Rotate (n, S, S, 3) crops about their centres by ``thetas`` (n,)
+    radians with the inverse-affine warp: src = R(-theta) (out - c) + c."""
+    S = images.shape[1]
+    c = (S - 1.0) / 2.0
+    cos, sin = torch.cos(thetas), torch.sin(thetas)
+    M = torch.stack([torch.stack([cos, sin, c - cos * c - sin * c], -1),
+                     torch.stack([-sin, cos, c + sin * c - cos * c], -1)], 1)
+    warp = affine_warp_cubic if cubic else affine_warp_bilinear
+    return warp(images, M, S, normalize=False)
+
+
+def _rotation(cfg: AugmentConfig):
+    """The rotation of ``cfg.rotate_impl``, as the JAX package routes it: the
+    three-shear forms up to 90 degrees, else the inverse-affine warp."""
+    if cfg.rotate_impl not in ("bmm", "pallas", "shear", "gather"):
+        raise ValueError(f"rotate_impl is 'bmm', 'pallas', 'shear' or 'gather', "
+                         f"not {cfg.rotate_impl!r}")
+    if cfg.rotate_limit_deg <= 90.0 and cfg.rotate_impl != "gather":
+        return {"bmm": rotate_shear3_bmm, "pallas": rotate_shear3_pallas,
+                "shear": rotate_shear3}[cfg.rotate_impl]
+    return _rotate_affine
 
 
 @highest_precision()
@@ -229,10 +258,7 @@ def augment_batch(generator, images, clip_bboxes, landmarks,
         constants take PyTorch's default dtype, as the JAX ones take float64
         under x64.
     """
-    rotate = {"bmm": rotate_shear3_bmm, "pallas": rotate_shear3_pallas}.get(cfg.rotate_impl)
-    if rotate is None:
-        raise NotImplementedError(
-            f"rotate_impl {cfg.rotate_impl!r} is not ported; 'bmm' and 'pallas' are")
+    rotate = _rotation(cfg)
     g, dev = generator, images.device
     B, H, W = images.shape[:3]
     S = cfg.out_size
@@ -361,6 +387,14 @@ def _sample_affine(clip_bboxes, draws, cfg: AugmentConfig):
     return M, inv
 
 
+def _forward_keypoints(landmarks, M, inv):
+    """(B, K, 2) canvas landmarks through the output-to-source maps ``M``
+    backwards: inv @ (landmark - translation), in output pixels."""
+    rel = landmarks.to(torch.float32) - M[:, None, :, 2]
+    return torch.stack([inv[:, None, 0, 0] * rel[..., 0] + inv[:, None, 0, 1] * rel[..., 1],
+                        inv[:, None, 1, 0] * rel[..., 0] + inv[:, None, 1, 1] * rel[..., 1]], -1)
+
+
 @highest_precision()
 def augment_batch_pallas(generator, images, clip_bboxes, landmarks,
                          cfg: AugmentConfig = AugmentConfig(), draws=None):
@@ -381,9 +415,103 @@ def augment_batch_pallas(generator, images, clip_bboxes, landmarks,
     draws = draws if draws is not None else pallas_augment_draw(generator, B, cfg)
     M, inv = _sample_affine(clip_bboxes, draws, cfg)
     warped = affine_warp_bilinear(images, M, S, normalize=False)
-    rel = landmarks.to(torch.float32) - M[:, None, :, 2]
-    kp = torch.stack([inv[:, None, 0, 0] * rel[..., 0] + inv[:, None, 0, 1] * rel[..., 1],
-                      inv[:, None, 1, 0] * rel[..., 0] + inv[:, None, 1, 1] * rel[..., 1]], -1)
+    kp = _forward_keypoints(landmarks, M, inv)
     out = fused_photometric_pallas(warped, draws["scalars"], draws["holes"], draws["seed"],
                                    noise=draws.get("noise"))
     return out, kp / S
+
+
+def sample_draw(generator, cfg: AugmentConfig = AugmentConfig()):
+    """The random draws of ``augment_sample`` for one sample: the affine
+    parameters (flip, rotation angle in radians or 0, scale, affine flag,
+    unit shift (2,)) and each photometric op's gate and parameters."""
+    g, dev = generator, generator.device
+    S, NH = cfg.out_size, cfg.cutout_holes
+
+    def u(shape=(), lo=0.0, hi=1.0):
+        return _uniform(g, shape, lo, hi)
+
+    def bern(p):
+        return u() < p
+
+    do_rot = bern(cfg.p_rotate)
+    theta = u((), -cfg.rotate_limit_deg, cfg.rotate_limit_deg) * (math.pi / 180.0)
+    do_aff = bern(cfg.p_affine)
+    jitter = u((), -cfg.affine_scale_jitter, cfg.affine_scale_jitter)
+    ksize, mtheta = motion_blur_draw(g, 1, cfg.motion_blur_max_ksize)
+    hi = max(int(S * cfg.trunc_ratio), 1)
+    return {
+        "do_flip": bern(cfg.p_hflip),
+        "theta": torch.where(do_rot, theta, 0.0),
+        "do_aff": do_aff,
+        "scale": torch.where(do_aff, 1.0 + jitter, 1.0),
+        "shift": u((2,), -1.0, 1.0),
+        "do_blur": bern(cfg.p_blur),
+        "do_fam": bern(cfg.p_blur_family), "u_fam": u(),
+        "motion": (ksize[0], mtheta[0]),
+        "do_noise": bern(cfg.p_noise),
+        "noise": torch.randn(S, S, 3, generator=g, device=dev) * u((), 0.0, cfg.noise_sigma_max),
+        "do_jpeg": bern(cfg.p_jpeg), "quality": u((), cfg.jpeg_quality_min, cfg.jpeg_quality_max),
+        "do_iso": bern(cfg.p_iso),
+        "iso": tuple(t[0] for t in iso_noise_draw(g, 1, S, cfg.iso_color_shift,
+                                                   cfg.iso_intensity)),
+        "do_cut": bern(cfg.p_cutout),
+        "holes_xy": torch.randint(0, S, (NH, 2), generator=g, device=dev),
+        "holes_wh": torch.randint(1, cfg.cutout_max, (NH, 2), generator=g, device=dev),
+        "do_trunc": bern(cfg.p_trunc),
+        "trunc": (torch.randint(0, hi, (), generator=g, device=dev),
+                  torch.randint(0, hi, (), generator=g, device=dev), u()),
+    }
+
+
+def _photometric_sample(img, d, cfg: AugmentConfig):
+    """The corruption family on one (1, S, S, 3) crop in [0, 255], every op
+    computed and kept where its gate is drawn (the JAX ``_photometric``)."""
+    img = torch.where(d["do_blur"], box_blur(img), img)
+    if cfg.p_blur_family > 0:
+        ksize, theta = d["motion"]
+        fam = torch.where(d["u_fam"] < 0.5, motion_blur(img, ksize[None], theta[None],
+                                                        cfg.motion_blur_max_ksize),
+                          torch.where(d["u_fam"] < 0.75, median_blur3(img), box_blur(img)))
+        img = torch.where(d["do_fam"], fam, img)
+    img = torch.where(d["do_noise"], img + d["noise"], img)
+    if cfg.p_jpeg > 0:
+        img = torch.where(d["do_jpeg"],
+                          jpeg_artifacts(torch.clamp(img, 0.0, 255.0), d["quality"][None]), img)
+    if cfg.p_iso > 0:
+        cs, it, lum, hue = d["iso"]
+        img = torch.where(d["do_iso"], iso_noise(torch.clamp(img, 0.0, 255.0), cs[None],
+                                                 it[None], lum[None], hue[None]), img)
+    img = torch.where(d["do_cut"], _cutout(img, d["holes_xy"][None], d["holes_wh"][None]), img)
+    th, tw, u = d["trunc"]
+    img = torch.where(d["do_trunc"], _truncate(img, th[None], tw[None], u[None]), img)
+    return torch.clamp(img, 0.0, 255.0)
+
+
+@highest_precision()
+def augment_sample(generator, image_buf, clip_bbox, landmarks_buf,
+                   cfg: AugmentConfig = AugmentConfig(), draws=None):
+    """Augment one sample (the JAX ``augment_sample``): one affine warp
+    (flip, rotation, scale / shift and the crop resize in one matrix;
+    ``interp="cubic"``: ``affine_warp_cubic``), the corruption family, and
+    ImageNet normalisation.
+
+    Args:
+        generator: a ``torch.Generator`` on the image's device.
+        image_buf: (P, P, 3) uint8 canvas; clip_bbox (4,) its crop box;
+            landmarks_buf (K, 2) landmark pixels, all in canvas coordinates.
+        draws: ``sample_draw``'s draws; drawn from the generator when None.
+    Returns:
+        (S, S, 3) normalised crop and (K, 2) keypoints in [0, 1] crop
+        coordinates (they may leave [0, 1]).
+    """
+    S = cfg.out_size
+    d = draws if draws is not None else sample_draw(generator, cfg)
+    M, inv = _sample_affine(clip_bbox[None], {k: d[k][None] for k in (
+        "do_flip", "theta", "do_aff", "scale", "shift")}, cfg)
+    warp = affine_warp_cubic if cfg.interp == "cubic" else affine_warp_bilinear
+    img = _photometric_sample(warp(image_buf[None], M, S, normalize=False), d, cfg)
+    mean = torch.tensor(IMAGENET_MEAN, device=img.device)
+    std = torch.tensor(IMAGENET_STD, device=img.device)
+    kp = _forward_keypoints(landmarks_buf[None], M, inv)
+    return ((img / 255.0 - mean) / std)[0], (kp[0] + 0.0) / S

@@ -1,5 +1,6 @@
-"""RT-DETR, the R2 landmarker: a PResNet, MobileNetV3 or GhostNetV2 backbone
--> HybridEncoder -> RTDETRTransformer (counterpart of models/rtdetr.py).
+"""RT-DETR, the R2 landmarker (and, with ``box_dim = 4``, the COCO box
+detector): a PResNet, MobileNetV3 or GhostNetV2 backbone -> HybridEncoder ->
+RTDETRTransformer (counterpart of models/rtdetr.py).
 
 ``build_rtdetr_model`` builds one from a seed for evaluation and
 ``build_rtdetr_train_model`` one to train (float32 parameters, training
@@ -32,8 +33,9 @@ from .rtdetr_decoder import RTDETRTransformer
 @dataclasses.dataclass(frozen=True)
 class RTDETRConfig:
     """The JAX ``RTDETRConfig`` (the rtdetr_r50vd speed config surface) less
-    its ``dtype``, which ``build_rtdetr_model`` takes. Point queries
-    (``box_dim = 2``) only: the detection task's boxes are not ported."""
+    its ``dtype``, which ``build_rtdetr_model`` takes. ``box_dim = 2`` gives
+    the speed landmarker's point queries, ``box_dim = 4`` the detection
+    task's cxcywh box queries."""
 
     backbone: str = "presnet"  # presnet | mobilenetv3_large | mobilenetv3_small | ghostnetv2
     depth: int = 50
@@ -86,7 +88,7 @@ class RTDETR(nn.Module):
         """images: (B, H, W, 3) normalised crops in the model's dtype.
 
         In training with ``num_denoising > 0`` the decoder builds its CDN
-        groups from ``targets`` {"labels" (B, T), "points" (B, T, 2)
+        groups from ``targets`` {"labels" (B, T), "points" (B, T, box_dim)
         normalised}, which it then requires, drawing their noise from
         ``generator``, a ``torch.Generator`` on the images' device (the
         train step passes its own; None takes the device's default

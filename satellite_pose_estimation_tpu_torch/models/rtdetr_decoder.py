@@ -1,7 +1,9 @@
 """RT-DETR point-query decoder with per-layer Gaussian sigma heads
 (counterpart of models/rtdetr_decoder.py).
 
-* per-pixel (x, y) anchors in logit space over every level; anchors
+* per-pixel (x, y) anchors in logit space over every level (with
+  ``box_dim = 4``, the detection task's cxcywh boxes, a level's anchors
+  carry wh = 0.05 * 2^level); anchors
   outside (eps, 1 - eps) get the logit +inf, as in JAX (which computes the
   valid mask and, unlike the upstream RT-DETR, never multiplies the memory
   by it);
@@ -28,9 +30,11 @@ the encoder's top-k outputs keep theirs through the gather. With
 the matching queries under a block self-attention mask, and the outputs
 gain ``dn_aux_outputs`` (every layer, with sigmas) and ``dn_meta``.
 
-The detection task's 4-D box queries (``box_dim = 4``) are not ported.
-Module names follow the JAX package. The decoder stays float under
-``ops.quantize.quantized_inference``, as in JAX.
+With ``box_dim = 4`` the point heads regress cxcywh boxes, the deformable
+sampling offsets scale with each reference box's size, and the outputs keep
+their names (``pred_points`` holds the boxes). Module names follow the JAX
+package. The decoder stays float under ``ops.quantize.quantized_inference``,
+as in JAX.
 """
 from __future__ import annotations
 
@@ -78,8 +82,9 @@ class MSDeformableAttention(nn.Module):
             self.attention_weights.weight.zero_()
 
     def forward(self, query, reference_points, value, spatial_shapes):
-        """query (B, Q, C); reference_points (B, Q, 2) in [0, 1]; value
-        (B, L, C); spatial_shapes [(h, w)] per level."""
+        """query (B, Q, C); reference_points (B, Q, 2) points or (B, Q, 4)
+        cxcywh boxes in [0, 1]; value (B, L, C); spatial_shapes [(h, w)] per
+        level."""
         B, Q, _ = query.shape
         L = value.shape[1]
         H, Lv, P = self.num_heads, self.num_levels, self.num_points
@@ -87,9 +92,13 @@ class MSDeformableAttention(nn.Module):
         offsets = self.sampling_offsets(query).reshape(B, Q, H, Lv, P, 2)
         attw = torch.softmax(self.attention_weights(query).reshape(B, Q, H, Lv * P), dim=-1)
         attw = attw.reshape(B, Q, H, Lv, P)
-        normalizer = torch.tensor([[w, h] for h, w in spatial_shapes], dtype=torch.float32,
-                                  device=query.device).reshape(1, 1, 1, Lv, 1, 2)
-        locations = reference_points[:, :, None, None, None, :] + offsets / normalizer
+        ref = reference_points[:, :, None, None, None, :]
+        if reference_points.shape[-1] == 2:
+            normalizer = torch.tensor([[w, h] for h, w in spatial_shapes], dtype=torch.float32,
+                                      device=query.device).reshape(1, 1, 1, Lv, 1, 2)
+            locations = ref + offsets / normalizer
+        else:  # boxes: the offsets scale with the box's size
+            locations = ref[..., :2] + offsets / P * ref[..., 2:] * 0.5
         return self.output_proj(deformable_attention_core(v, spatial_shapes, locations, attw))
 
 
@@ -124,12 +133,13 @@ class RTDETRTransformer(nn.Module):
                  learnt_init_query=False, box_dim=2, eps=1e-2, aux_loss=True, num_denoising=0,
                  label_noise_ratio=0.5, box_noise_scale=1.0, generator=None):
         super().__init__()
-        if box_dim != 2:
-            raise NotImplementedError("box queries (box_dim 4, the detection task) are not ported")
+        if box_dim not in (2, 4):
+            raise ValueError(f"box_dim is 2 (points) or 4 (cxcywh boxes), not {box_dim}")
         g = generator
         h = hidden_dim
         self.num_queries, self.num_decoder_layers = num_queries, num_decoder_layers
         self.num_classes, self.eps, self.aux_loss = num_classes, eps, aux_loss
+        self.box_dim = box_dim
         self.num_denoising = num_denoising
         self.label_noise_ratio, self.box_noise_scale = label_noise_ratio, box_noise_scale
         for i, cin in enumerate(feat_channels):
@@ -138,8 +148,8 @@ class RTDETRTransformer(nn.Module):
         self.enc_output_0 = linear(h, h, g)
         self.enc_output_1 = nn.LayerNorm(h, eps=1e-5)
         self.enc_score_head = linear(h, num_classes + 1, g)
-        self.enc_bbox_head = MLP(h, h, 2, 3, generator=g)
-        self.query_pos_head = MLP(2, 2 * h, h, 2, generator=g)
+        self.enc_bbox_head = MLP(h, h, box_dim, 3, generator=g)
+        self.query_pos_head = MLP(box_dim, 2 * h, h, 2, generator=g)
         if learnt_init_query:
             self.tgt_embed = nn.Embedding(num_queries, h)
             nn.init.xavier_uniform_(self.tgt_embed.weight, generator=g)
@@ -153,7 +163,7 @@ class RTDETRTransformer(nn.Module):
             self.add_module(f"decoder_layer_{i}", RTDecoderLayer(
                 h, nhead, dim_feedforward, dropout, activation, num_levels,
                 num_decoder_points, g))
-            self.add_module(f"dec_bbox_head_{i}", MLP(h, h, 2, 3, generator=g))
+            self.add_module(f"dec_bbox_head_{i}", MLP(h, h, box_dim, 3, generator=g))
             self.add_module(f"dec_score_head_{i}", linear(h, num_classes + 1, g))
             self.add_module(f"sigma_embed_{i}", MLP(h, h, 1, 3, generator=g))
         with torch.no_grad():
@@ -161,14 +171,18 @@ class RTDETRTransformer(nn.Module):
                                            for i in range(num_decoder_layers)]:
                 getattr(self, i).bias.fill_(_bias_init_with_prob())
 
-    def _anchors(self, spatial_shapes, device):
-        """(L, 2) anchor logits, +inf outside (eps, 1 - eps)."""
+    def _anchors(self, spatial_shapes, device, grid_size=0.05):
+        """(L, box_dim) anchor logits, +inf where a coordinate lies outside
+        (eps, 1 - eps)."""
         anchors = []
-        for h, w in spatial_shapes:
+        for lvl, (h, w) in enumerate(spatial_shapes):
             gx = (torch.arange(w, dtype=torch.float32, device=device) + 0.5) / w
             gy = (torch.arange(h, dtype=torch.float32, device=device) + 0.5) / h
             gyy, gxx = torch.meshgrid(gy, gx, indexing="ij")
-            anchors.append(torch.stack([gxx, gyy], -1).reshape(h * w, 2))
+            xy = torch.stack([gxx, gyy], -1).reshape(h * w, 2)
+            if self.box_dim == 4:
+                xy = torch.cat([xy, xy.new_full((h * w, 2), grid_size * 2.0 ** lvl)], -1)
+            anchors.append(xy)
         anchors = torch.cat(anchors, 0)
         valid = ((anchors > self.eps) & (anchors < 1 - self.eps)).all(-1, keepdim=True)
         logit = torch.log(anchors / (1 - anchors))
@@ -177,7 +191,7 @@ class RTDETRTransformer(nn.Module):
     def forward(self, feats, targets=None, generator=None):
         """feats: NCHW maps of ``feat_channels`` -> the output dict.
 
-        ``targets`` {"labels" (B, T), "points" (B, T, 2) normalised} and
+        ``targets`` {"labels" (B, T), "points" (B, T, box_dim) normalised} and
         ``generator`` (the ``torch.Generator`` the CDN draws come from; None:
         the device's default) are read only in training with
         ``num_denoising > 0``, where ``targets`` is required."""

@@ -18,8 +18,9 @@
   ("shear" form) border rule, the semantics of the rotation kernel
   (ops/pallas_rotate.py); it differs from ``rotate_shear3_bmm`` at content
   edges.
-* ``affine_warp_bilinear`` — inverse-affine bilinear warp of a batch, one
-  (2, 3) output-to-source matrix per image, outside samples zero.
+* ``affine_warp_bilinear`` / ``affine_warp_cubic`` — inverse-affine
+  bilinear / bicubic (cv2 INTER_CUBIC) warp of a batch, one (2, 3)
+  output-to-source matrix per image, taps outside the image zero.
 * ``resize_bicubic_torch`` / ``resize_bilinear_torch`` — feature-map
   resizes with torch's ``F.interpolate(align_corners=False)`` semantics
   (half-pixel centres, no antialiasing) as two dense per-axis matmuls
@@ -250,6 +251,42 @@ def affine_warp_bilinear(images, matrices, out_size: int = 256, normalize: bool 
            + sample(x0 + 1, y0) * (tx * (1 - ty))[..., None]
            + sample(x0, y0 + 1) * ((1 - tx) * ty)[..., None]
            + sample(x0 + 1, y0 + 1) * (tx * ty)[..., None])
+    if normalize:
+        mean = torch.tensor(IMAGENET_MEAN, dtype=out.dtype, device=out.device)
+        std = torch.tensor(IMAGENET_STD, dtype=out.dtype, device=out.device)
+        out = (out / 255.0 - mean) / std
+    return out
+
+
+def affine_warp_cubic(images, matrices, out_size: int = 256, normalize: bool = False):
+    """Inverse-affine bicubic warp of a batch (the JAX ``affine_warp_cubic``,
+    cv2.warpAffine INTER_CUBIC with BORDER_CONSTANT 0): out[b, y, x] =
+    img_b(M_b @ [x, y, 1]) through separable 4 x 4 Catmull-Rom taps
+    (a = -0.75), each tap outside the image reading zero. (B, H, W, C) ->
+    (B, S, S, C) float32, optionally /255 and ImageNet-normalised."""
+    B, H, W, C = images.shape
+    flat = images.to(torch.float32).reshape(B, H * W, C)
+    m = matrices.to(torch.float32)[:, :, :, None, None]  # (B, 2, 3, 1, 1)
+    d = torch.arange(out_size, dtype=torch.float32, device=images.device)
+    dx, dy = d[None, :], d[:, None]
+    sx = m[:, 0, 0] * dx + m[:, 0, 1] * dy + m[:, 0, 2]  # (B, S, S)
+    sy = m[:, 1, 0] * dx + m[:, 1, 1] * dy + m[:, 1, 2]
+    x0, y0 = torch.floor(sx), torch.floor(sy)
+    wx, wy = _cubic_weights(sx - x0), _cubic_weights(sy - y0)  # (B, S, S, 4)
+    out = torch.zeros(B, out_size, out_size, C, dtype=torch.float32, device=images.device)
+    for j in range(4):  # y taps
+        yi = y0 + (j - 1.0)
+        in_y = (yi >= 0) & (yi <= H - 1)
+        yc = torch.clamp(yi, 0, H - 1).to(torch.int64)
+        row = torch.zeros_like(out)
+        for i in range(4):  # x taps
+            xi = x0 + (i - 1.0)
+            in_x = (xi >= 0) & (xi <= W - 1)
+            xc = torch.clamp(xi, 0, W - 1).to(torch.int64)
+            idx = (yc * W + xc).reshape(B, -1, 1).expand(-1, -1, C)
+            v = torch.gather(flat, 1, idx).reshape(B, out_size, out_size, C)
+            row = row + v * (in_x & in_y)[..., None] * wx[..., i, None]
+        out = out + row * wy[..., j, None]
     if normalize:
         mean = torch.tensor(IMAGENET_MEAN, dtype=out.dtype, device=out.device)
         std = torch.tensor(IMAGENET_STD, dtype=out.dtype, device=out.device)

@@ -63,10 +63,11 @@ def gen_prediction(solver, dataset, batch_size, out_size):
     return preds
 
 
-def ensemble_solve(all_preds, writer_fn, device="cpu"):
+def ensemble_solve(all_preds, writer_fn, device="cuda"):
     """``all_preds``: {filename: [{"points", "logits"} per model]}. Solves
-    every image's pose on ``device`` in one batched call and hands each to
-    ``writer_fn(filename, quat, tvec)`` in filename order."""
+    every image's pose on ``device`` (the card unless ``"cpu"`` is asked
+    for) in one batched call and hands each to ``writer_fn(filename, quat,
+    tvec)`` in filename order."""
     filenames = sorted(all_preds)
     if not filenames:
         return

@@ -4,6 +4,12 @@ the CPU:
 
     python -m satellite_pose_estimation_tpu_torch.tools.train \
         -c configs/speed/rtdetr_r50vd_kl_1_512.yml [-r ckpt | -t ckpt] [--test-only]
+    python -m satellite_pose_estimation_tpu_torch.tools.train \
+        -c configs/det/rtdetr_r50vd_6x_coco.yml --data_root D [--test-only]
+
+The config's ``task:`` picks the solver (``train.solver.TASKS``): the
+landmarker's ``SpeedSolver`` or the detection task's ``DetSolver``, whose
+``--test-only`` prints the COCO stat dict.
 
 ``-u key=value ...`` overrides config entries (dotted keys reach into
 sections; a value is read as JSON where it parses, else as a string), e.g.
@@ -53,15 +59,17 @@ def main(args):
     if args.tuning:
         solver.tuning(args.tuning)
     if args.test_only:
-        stats, _ = solver.val()
-        print(stats)
+        # the landmarker's val() gives (scalar stats, evaluator), the
+        # detection task's the COCO stat dict
+        ret = solver.val()
+        print(ret[0] if isinstance(ret, tuple) else ret)
     else:
         solver.fit()
     return solver
 
 
 def get_args_parser():
-    parser = argparse.ArgumentParser("SPEED RT-DETR train/eval")
+    parser = argparse.ArgumentParser("RT-DETR train/eval (SPEED landmarks or COCO boxes)")
     parser.add_argument("--config", "-c", type=str, required=True)
     parser.add_argument("--resume", "-r", type=str, default=None)
     parser.add_argument("--tuning", "-t", type=str, default=None)

@@ -12,7 +12,8 @@ train/solver.py).
   ``tuning()`` makes a shape-matched partial load preferring the EMA
   weights (R2/solver/solver.py:141-178), ``surgery()`` takes the public
   DETR-R50 ``.pth`` and ``load_r1()`` a whole R1 model's ``.pth``;
-* ``TASKS`` mirrors R2/solver/__init__.py.
+* ``TASKS`` mirrors R2/solver/__init__.py: "landmarker" is ``SpeedSolver``,
+  "detection" builds ``train.det_solver.DetSolver``.
 
 Batches reach the device through ``data.prefetch.prefetch_to_device``; the
 train step draws its augmentation from a ``torch.Generator`` on the device
@@ -62,9 +63,30 @@ def count_parameters(model: torch.nn.Module) -> int:
 
 
 class CheckpointMixin:
-    """Full-state checkpoints and the resume / tuning / ``.pth`` hooks
-    shared by every task solver. The host class provides ``self.state``,
-    ``self.output_dir`` and ``self.device``."""
+    """Full-state checkpoints, the resume / tuning / ``.pth`` hooks and the
+    loop timings shared by every task solver. The host class provides
+    ``self.state``, ``self.output_dir``, ``self.device`` and
+    ``self.timings``."""
+
+    def _timed(self, batches, loop: str, batch_size: int):
+        """Yield from ``batches``, adding the time spent waiting for each to
+        ``self.timings[loop]`` (with the images and, once the loop ends and
+        the device has finished, its wall time)."""
+        rec = self.timings[loop] = {"images": 0, "loader_wait_s": 0.0, "seconds": 0.0}
+        start = time.perf_counter()
+        it = iter(batches)
+        while True:
+            t0 = time.perf_counter()
+            try:
+                batch = next(it)
+            except StopIteration:
+                break
+            rec["loader_wait_s"] += time.perf_counter() - t0
+            rec["images"] += batch_size - batch.get("pad", 0)
+            yield batch
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        rec["seconds"] = time.perf_counter() - start
 
     def _ckpt_dir(self, name):
         return os.path.abspath(os.path.join(self.output_dir, name))
@@ -225,26 +247,6 @@ class SpeedSolver(CheckpointMixin):
             self._load_checkpoint(self._resume_path)
         self.train_ds.advance_epochs(self.start_epoch)
 
-    def _timed(self, batches, loop: str, batch_size: int):
-        """Yield from ``batches``, adding the time spent waiting for each to
-        ``self.timings[loop]`` (with the images and, once the loop ends and
-        the device has finished, its wall time)."""
-        rec = self.timings[loop] = {"images": 0, "loader_wait_s": 0.0, "seconds": 0.0}
-        start = time.perf_counter()
-        it = iter(batches)
-        while True:
-            t0 = time.perf_counter()
-            try:
-                batch = next(it)
-            except StopIteration:
-                break
-            rec["loader_wait_s"] += time.perf_counter() - t0
-            rec["images"] += batch_size - batch.get("pad", 0)
-            yield batch
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        rec["seconds"] = time.perf_counter() - start
-
     # --- training -------------------------------------------------------
     def _tb_writer(self):
         """A tensorboardX writer (R2/solver/speed_solver.py:18-20), or None
@@ -385,8 +387,9 @@ class SpeedSolver(CheckpointMixin):
 
 
 def _det_solver(*args, **kwargs):
-    raise NotImplementedError("the detection task (train/det_solver.py) comes with slice 7 "
-                              "of the port and is not ported yet")
+    from .det_solver import DetSolver
+
+    return DetSolver(*args, **kwargs)
 
 
 TASKS = {

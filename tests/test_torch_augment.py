@@ -4,7 +4,9 @@ same inputs with identical drawn parameters and noise planes (the JAX draws
 are replayed from their keys and handed to the port's apply step), the
 deterministic ``augment_batch`` (every probability 0) against JAX, and the
 port's own properties under random augmentation: the fixed-count subsets
-and keypoints that follow the image content."""
+and keypoints that follow the image content. The rotation routes "shear"
+and "gather" against JAX on its rotation draws; the routes past 90 degrees
+and ``augment_sample`` are tests/test_torch_augment_routes.py's."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -172,12 +174,39 @@ def test_rotation_subset_is_fixed_count():
     assert int((kp != kp0).flatten(1).any(1).sum()) == 4
 
 
+def jax_rotation_geometry(key, cfg, B):
+    """The geometric draws JAX's ``augment_batch`` makes from ``key`` with
+    every probability but ``p_rotate`` 0 (its k_sel and k_rot keys), as
+    ``geometry_draw`` gives them (the angles in float32)."""
+    _, k_sel, k_rot, _ = jax.random.split(key, 4)
+    n_rot = int(round(cfg.p_rotate * B))
+    idx = jax.random.permutation(k_sel, B)[:n_rot]
+    thetas = jax.random.uniform(k_rot, (n_rot,), minval=-cfg.rotate_limit_deg,
+                                maxval=cfg.rotate_limit_deg) * (jnp.pi / 180.0)
+    return {"do_flip": torch.zeros(B, dtype=torch.bool), "do_aff": torch.zeros(B, dtype=torch.bool),
+            "jitter": torch.zeros(B), "shift": torch.zeros(B, 2),
+            "rot_idx": _t(np.array(idx)).long(), "thetas": _t(np.array(thetas)).float()}
+
+
 @pytest.mark.parametrize("impl", ["shear", "gather"])
 def test_unported_rotation_routes_raise(impl):
+    """The rotation routes "shear" (``rotate_shear3``) and "gather" (the
+    inverse-affine warp), which raised before they were ported, run and
+    match JAX's ``augment_batch`` on JAX's rotation draws (p_rotate 0.7,
+    the rest 0): images to 1e-4 after normalisation, keypoints to 1e-5."""
     img, bb, lm = _batch(8)
-    with pytest.raises(NotImplementedError):
+    cfg = dict(ZERO_P, p_rotate=0.7, rotate_impl=impl)
+    key = jax.random.PRNGKey(3)
+    ref_img, ref_kp = jax_augment.augment_batch(key, img, bb, lm,
+                                                jax_augment.AugmentConfig(out_size=48, **cfg))
+    acfg = augment.AugmentConfig(out_size=48, **cfg)
+    out_img, out_kp = augment.augment_batch(torch.Generator(), _t(img), _t(bb), _t(lm), acfg,
+                                            geometry=jax_rotation_geometry(key, acfg, len(img)))
+    np.testing.assert_allclose(out_img.numpy(), np.asarray(ref_img, np.float32), atol=1e-4)
+    np.testing.assert_allclose(out_kp.numpy(), np.asarray(ref_kp), rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError, match="rotate_impl"):
         augment.augment_batch(torch.Generator(), _t(img), _t(bb), _t(lm),
-                              augment.AugmentConfig(out_size=48, rotate_impl=impl))
+                              augment.AugmentConfig(out_size=48, rotate_impl="nearest"))
 
 
 def test_keypoints_follow_the_content_under_random_augmentation():

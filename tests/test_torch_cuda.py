@@ -168,6 +168,39 @@ def test_cuda_attention_kernels_at_head_dim_match_plain(cuda_device, dtype, T, D
     assert (fl.launch_count, fl.bwd_launch_count) == (before[0] + 1, before[1] + 1)
 
 
+# The detection task's token counts: AIFI at the multi-scale sizes 480, 512,
+# 544, 640 and 800 (15^2 ... 25^2; at 480 the model takes the plain core,
+# the kernel takes any T) and the decoder's 300 queries; head dims 32
+# (r50vd) and 48 (r101vd's hidden 384 over 8 heads).
+DET_T = [225, 256, 289, 300, 400, 625]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("T", DET_T)
+@pytest.mark.parametrize("D", [32, 48])
+def test_cuda_attention_kernels_at_det_shapes_match_plain(cuda_device, dtype, T, D):
+    """K1 (output and log-sum-exp) and K2 (from K1's residuals) at the det
+    task's (B, 8, T, D), T mostly not a multiple of 16, against their plain
+    versions under the max-abs and relative-L2 gates."""
+    g = torch.Generator(device=cuda_device).manual_seed(7 * T + D)
+    q, k, v, go = (torch.randn(2, 8, T, D, generator=g, device=cuda_device).to(dtype)
+                   for _ in range(4))
+    scale = D ** -0.5
+    before = (fa.launch_count, fa.bwd_launch_count)
+    out, lse = fa._launch_fwd(q, k, v, scale)
+    grads = fa._launch_bwd(q, k, v, out, lse, go, scale)
+    torch.cuda.synchronize()
+    assert (fa.launch_count, fa.bwd_launch_count) == (before[0] + 1, before[1] + 1)
+    ref = fa.attention_plain(q, k, v, scale)
+    tol = BWD_TOL[dtype]
+    assert (out.float() - ref.float()).abs().max().item() <= tol * (
+        1.0 + ref.float().abs().max().item())
+    _assert_rel_l2(out, ref)
+    torch.testing.assert_close(lse, fa.attention_plain_lse(q, k, scale), rtol=1e-5, atol=1e-5)
+    _assert_grads_close(grads, fa.attention_plain_bwd(q, k, v, go, scale), tol)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("D", [40, 64])
 def test_cuda_attention_ops_at_head_dim_carry_gradients(cuda_device, D):

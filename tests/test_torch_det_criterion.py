@@ -1,0 +1,136 @@
+"""PyTorch port, the detection criterion against the JAX package
+(losses/det_criterion.py): the matching (the port stacks every matched
+level's costs into one batched Hungarian; JAX matches level by level) gives
+identical assignments, and the losses of the last layer, the aux levels
+(the encoder's top-k among them) and the CDN levels agree to 1e-6 relative,
+their gradients with respect to every level's logits and boxes to 1e-5 of
+each tensor's scale. Padded targets carry label -1. float32 on both
+sides."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from satellite_pose_estimation_tpu.losses import det_criterion as jdc
+from satellite_pose_estimation_tpu_torch.losses import det_criterion as tdc
+
+from _torch_parity import one_thread  # noqa: F401,E402 (autouse: one torch thread)
+
+B, Q, C = 2, 24, 81  # 80 classes + the model's extra logit
+LEVELS = 3  # the last layer, one earlier layer, the encoder's top-k
+
+
+def _boxes(rng, *shape):
+    c = rng.uniform(0.2, 0.8, shape + (2,))
+    wh = rng.uniform(0.05, 0.4, shape + (2,))
+    return np.concatenate([c, wh], -1).astype(np.float32)
+
+
+def _case(seed, T=9, n_real=(6, 3), G=0):
+    """Random outputs of LEVELS matched levels (and G CDN groups' dn levels)
+    and targets padded to T with -1."""
+    rng = np.random.RandomState(seed)
+    level = lambda q: {"pred_logits": rng.randn(B, q, C).astype(np.float32) * 2,  # noqa: E731
+                       "pred_points": _boxes(rng, B, q)}
+    labels = np.full((B, T), -1, np.int32)
+    boxes = np.zeros((B, T, 4), np.float32)
+    for b, n in enumerate(n_real):
+        labels[b, :n] = rng.randint(0, C - 1, n)
+        boxes[b, :n] = _boxes(rng, n)
+    out = level(Q)
+    out["aux_outputs"] = [level(Q) for _ in range(LEVELS - 1)]
+    if G:
+        out["dn_aux_outputs"] = [level(2 * G * T) for _ in range(2)]
+        out["dn_meta"] = {"dn_num_group": G, "dn_num_split": (2 * G * T, Q)}
+    return out, {"labels": labels, "boxes": boxes}
+
+
+def _leaves(out):
+    levels = [out] + out["aux_outputs"] + out.get("dn_aux_outputs", [])
+    return [lv[k] for lv in levels for k in ("pred_logits", "pred_points")]
+
+
+def _rebuild(out, leaves):
+    it = iter(leaves)
+    level = lambda: {"pred_logits": next(it), "pred_points": next(it)}  # noqa: E731
+    new = level()
+    new["aux_outputs"] = [level() for _ in out["aux_outputs"]]
+    if "dn_aux_outputs" in out:
+        new["dn_aux_outputs"] = [level() for _ in out["dn_aux_outputs"]]
+        new["dn_meta"] = out["dn_meta"]
+    return new
+
+
+@pytest.mark.parametrize("T", [9, 20])
+def test_batched_match_equals_jax_per_level(T):
+    """The assignments of one stacked Hungarian over every level equal JAX's
+    ``_match`` of each level (padded targets cost 1e6), at 9 targets and at
+    20 of the 24 queries (mostly padding, as max_targets pads them)."""
+    out, tgt = _case(1, T=T)
+    cfg = jdc.DetCriterionConfig(num_classes=C - 1)
+    levels = [out] + out["aux_outputs"]
+    mask = tgt["labels"] >= 0
+    ref = [np.asarray(jdc._match(jnp.asarray(lv["pred_logits"]), jnp.asarray(lv["pred_points"]),
+                                 jnp.asarray(tgt["labels"]), jnp.asarray(tgt["boxes"]),
+                                 jnp.asarray(mask), cfg)) for lv in levels]
+    got = tdc.match_levels(
+        [{k: torch.from_numpy(v) for k, v in lv.items() if k != "aux_outputs"} for lv in levels],
+        {k: torch.from_numpy(v) for k, v in tgt.items()}, tdc.DetCriterionConfig(num_classes=C - 1))
+    assert len(got) == LEVELS
+    for g, r in zip(got, ref):
+        np.testing.assert_array_equal(g.numpy(), r)
+        assert all(len(set(row)) == T for row in g.numpy())  # one query per target
+
+
+@pytest.mark.parametrize("G", [0, 2], ids=["matched", "with_cdn"])
+def test_det_criterion_losses_and_gradients_match_jax(G):
+    """Every loss of ``set_criterion_boxes`` (the aux levels and, with G
+    CDN groups, the dn levels) to 1e-6 relative, and the gradient of the
+    total with respect to every level's logits and boxes to 1e-5 of each
+    tensor's scale."""
+    out, tgt = _case(2, G=G)
+    cfg = dict(num_classes=C - 1)
+    jtgt = {k: jnp.asarray(v) for k, v in tgt.items()}
+
+    def jloss(leaves):
+        total, losses = jdc.set_criterion_boxes(_rebuild(out, leaves), jtgt,
+                                                jdc.DetCriterionConfig(**cfg))
+        return total, losses
+
+    (jtotal, jlosses), jgrads = jax.value_and_grad(jloss, has_aux=True)(
+        [jnp.asarray(x) for x in _leaves(out)])
+    leaves = [torch.from_numpy(x).requires_grad_() for x in _leaves(out)]
+    total, losses = tdc.set_criterion_boxes(_rebuild(out, leaves),
+                                            {k: torch.from_numpy(v) for k, v in tgt.items()},
+                                            tdc.DetCriterionConfig(**cfg))
+    assert set(losses) == set(jlosses)
+    assert ("loss_vfl_dn_1" in losses) == bool(G) and "loss_giou_0" not in losses
+    for k, v in jlosses.items():
+        np.testing.assert_allclose(losses[k].item(), float(v), rtol=1e-6, atol=0, err_msg=k)
+    total.backward()
+    for i, (t, r) in enumerate(zip(leaves, jgrads)):
+        r = np.asarray(r)
+        np.testing.assert_allclose(t.grad.numpy(), r, rtol=0, atol=1e-5 * np.abs(r).max(),
+                                   err_msg=f"leaf {i}")
+
+
+def test_perfect_predictions_cost_less():
+    """The queries that predict the targets exactly and confidently are the
+    ones matched, and moving their boxes raises the loss."""
+    rng = np.random.RandomState(3)
+    T, q = 3, 8
+    labels = np.int64([[1, 2, 3]])
+    boxes = _boxes(rng, 1, T)
+    logits = np.full((1, q, 10), -8.0, np.float32)
+    pred = _boxes(rng, 1, q)
+    for t in range(T):
+        logits[0, 5 + t % 3, labels[0, t]] = 8.0
+        pred[0, 5 + t % 3] = boxes[0, t]
+    tgt = {"labels": torch.from_numpy(labels), "boxes": torch.from_numpy(boxes)}
+    cfg = tdc.DetCriterionConfig(num_classes=9, aux_loss=False)
+    good = {"pred_logits": torch.from_numpy(logits), "pred_points": torch.from_numpy(pred)}
+    (q4t,) = tdc.match_levels([good], tgt, cfg)
+    assert q4t.tolist() == [[5, 6, 7]]
+    bad = dict(good, pred_points=torch.from_numpy(np.roll(pred, 2, axis=1)))
+    assert tdc.set_criterion_boxes(good, tgt, cfg)[0] < tdc.set_criterion_boxes(bad, tgt, cfg)[0]

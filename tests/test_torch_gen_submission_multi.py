@@ -113,10 +113,15 @@ def _pooled(seed, n_images=4, M=3, Q=20):
 
 
 def test_ensemble_solve_matches_jax(tmp_path):
+    """The pooled solve on the CPU, asked for (``ensemble_solve`` runs on the
+    card by default, as every entry point of the port does), against JAX's."""
+    import inspect
+
+    assert inspect.signature(multi.ensemble_solve).parameters["device"].default == "cuda"
     real, synt = _pooled(0), _pooled(1)
     writer, jwriter = SubmissionWriter(), JaxWriter()
-    multi.ensemble_solve(real, writer.append_real_test)
-    multi.ensemble_solve(synt, writer.append_test)
+    multi.ensemble_solve(real, writer.append_real_test, device="cpu")
+    multi.ensemble_solve(synt, writer.append_test, device="cpu")
     jax_multi.ensemble_solve(real, jwriter.append_real_test)
     jax_multi.ensemble_solve(synt, jwriter.append_test)
     rows = list(csv.reader(open(writer.export(str(tmp_path / "port"), suffix="x"))))

@@ -416,6 +416,61 @@ def test_port_runs_the_new_backbones_solvers_loader_and_export_with_jax_blocked(
     assert proc.stdout.splitlines()[-1] == "OK"
 
 
+_TINY_DET = r"""
+import sys
+for name in ("jax", "jaxlib", "flax", "optax", "satellite_pose_estimation_tpu"):
+    sys.modules[name] = None  # any import of these now raises ImportError
+
+import argparse, json, os, tempfile
+import torch
+torch.set_num_threads(1)
+from satellite_pose_estimation_tpu_torch.core.yaml_config import YAMLConfig
+from satellite_pose_estimation_tpu_torch.tools import synthetic_det_selfcheck as selfcheck
+from satellite_pose_estimation_tpu_torch.tools import train as train_cli
+from satellite_pose_estimation_tpu_torch.train.det_solver import DetSolver
+
+with tempfile.TemporaryDirectory() as tmp:
+    selfcheck.render_dataset(tmp, 4, seed=0, img_size=64)
+    cfg = {"task": "detection", "num_classes": 2, "epoches": 1, "use_ema": True,
+           "output_dir": os.path.join(tmp, "out"),
+           "PResNet": {"depth": 18, "freeze_norm": True},
+           "HybridEncoder": {"hidden_dim": 32, "nhead": 2, "dim_feedforward": 64,
+                             "expansion": 0.5},
+           "RTDETRTransformer": {"num_queries": 8, "num_decoder_layers": 2, "num_denoising": 4},
+           "optimizer": {"type": "AdamW", "lr": 1e-4, "params": [{"params": "backbone",
+                                                                   "lr": 1e-5}]},
+           "train_dataloader": {"batch_size": 2, "dataset": {"resize": 64, "transforms": {
+               "ops": [{"type": "RandomPhotometricDistort", "p": 1.0},
+                       {"type": "RandomIoUCrop", "p": 0.8},
+                       {"type": "SanitizeBoundingBox", "min_size": 1},
+                       {"type": "RandomHorizontalFlip"}, {"type": "Resize", "size": [64, 64]}]}}},
+           "val_dataloader": {"batch_size": 4, "dataset": {"resize": 64}}}
+    DetSolver(YAMLConfig(cfg=cfg), data_root=tmp, seed=0, max_targets=3, device="cpu").fit()
+    entry = json.loads(open(os.path.join(tmp, "out", "log.txt")).read())
+    assert entry["train_loss_total"] == entry["train_loss_total"] and "test_AP" in entry
+    solver = train_cli.main(argparse.Namespace(
+        config=cfg, resume=os.path.join(tmp, "out", "checkpoint"), tuning=None, test_only=True,
+        update=None, data_root=tmp, seed=0, device="cpu"))
+    assert solver.start_epoch == 1
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
+                                       "satellite_pose_estimation_tpu")
+                and sys.modules[m] is not None)
+assert not loaded, loaded
+print("OK")
+"""
+
+
+def test_port_runs_the_detection_task_with_jax_blocked():
+    """``DetSolver``'s fit (the host transforms, a CDN train step, the COCO
+    evaluator) and the det CLI's ``-r ... --test-only`` on a rendered
+    synthetic COCO set, with jax, flax and the JAX package blocked."""
+    proc = subprocess.run([sys.executable, "-c", _TINY_DET], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.splitlines()[-1] == "OK"
+
+
 def _imported_roots(path):
     roots = set()
     for node in ast.walk(ast.parse(path.read_text(), str(path))):

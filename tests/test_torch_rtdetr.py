@@ -362,8 +362,12 @@ def test_builder_defaults_to_the_card_and_the_unported_surface_raises():
     if not torch.cuda.is_available():
         with pytest.raises((AssertionError, RuntimeError)):
             build_rtdetr_model(cfg)
-    with pytest.raises(NotImplementedError):
-        RTDETR(dataclasses.replace(cfg, box_dim=4))
+    # The detection task's 4-D boxes, once unported, now build and run
+    # (tests/test_torch_det_model.py holds them to JAX).
+    boxes = RTDETR(dataclasses.replace(cfg, box_dim=4)).eval()
+    with torch.no_grad():
+        assert boxes(torch.zeros(1, INPUT, INPUT, 3))["pred_points"].shape == (
+            1, SIZES["num_queries"], 4)
     # CDN, the learnt query table, the MobileNetV3 and GhostNetV2 trunks and
     # training, once unported, now build and run.
     for ported in (dict(num_denoising=10), dict(learnt_init_query=True),

@@ -141,8 +141,9 @@ def test_train_builder_and_the_unported_surface():
     model = build_rtdetr_train_model(_small_cfg(learnt_init_query=True), device="cpu")
     assert model.training and all(p.dtype == torch.float32 for p in model.parameters())
     assert model.decoder.tgt_embed.weight.shape == (12, 32)
-    with pytest.raises(NotImplementedError):
-        RTDETR(dataclasses.replace(_small_cfg(), box_dim=4))
+    # The detection task's 4-D box model, once unported, now builds to train.
+    boxes = RTDETR(dataclasses.replace(_small_cfg(), box_dim=4)).train()
+    assert boxes.decoder.dec_bbox_head_0.layers_2.out_features == 4
     # The MobileNetV3 trunk, once unported, now builds to train (its norms
     # are trainable BatchNorms whatever freeze_norm says).
     mobile = RTDETR(dataclasses.replace(_small_cfg(), backbone="mobilenetv3_large")).train()

@@ -246,13 +246,15 @@ def test_r1_cli_evaluates_an_r1_pth(speed, tmp_path):
 def test_solver_defaults_to_the_card_and_tasks(speed, tmp_path):
     """A solver runs on the card unless asked otherwise: without a card its
     build raises (tests/test_torch_cuda.py builds it on one). The detection
-    task is not ported yet and says so."""
+    task, once unported, builds the port's DetSolver, on the card too."""
     cfg = YAMLConfig(cfg=_cfg(tmp_path))
     solver = SpeedSolver(cfg, speed)
     assert solver.device == torch.device("cuda")
     if not torch.cuda.is_available():
         with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
             solver._build()
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        TASKS["detection"](cfg)
+    from satellite_pose_estimation_tpu_torch.train.det_solver import DetSolver
+
+    det = TASKS["detection"](cfg)
+    assert isinstance(det, DetSolver) and det.device == torch.device("cuda")
     assert TASKS["landmarker"] is SpeedSolver
