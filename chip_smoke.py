@@ -8,7 +8,7 @@ target). It builds the port's CUDA kernels from ``satellite_pose_estimation
 _tpu_torch/csrc`` with nvcc (K1, the fused attention forward; K2, its
 backward; K3, the rotation; K4, the fused photometric chain; K5, flash
 attention -- one nvcc per source, all started together), then runs
-twenty-eight phases and exits non-zero if any fails:
+thirty-one phases and exits non-zero if any fails:
 
 1. the card's name and power limit, the kernel build time, and each
    kernel's registers, shared memory and spills (ptxas's own lines);
@@ -206,7 +206,34 @@ twenty-eight phases and exits non-zero if any fails:
    at D = 48;
 28. ``augment_batch`` with ``rotate_impl`` "shear" and "gather" and past 90
    degrees, and ``augment_sample``, on the card against the CPU on the same
-   draws at B = 64.
+   draws at B = 64;
+29. ``tools/train_cifar.py``'s ``main`` on the card by default: MResNet at
+   its own widths, batch 128, 2 epochs over a synthetic CIFAR-10 of the
+   real set's file sizes written in a temporary directory (a class
+   pattern under noise): no kernel launched, finite losses, every
+   BatchNorm's statistics moved, test accuracy above chance, img/s and
+   peak memory; the loss falling over 10 steps on one fixed batch; float32
+   gradients at B = 128 (TF32 off) card vs CPU with the BatchNorms on
+   their running statistics (1e-3), and through batch statistics within
+   the larger of 1e-3 and twice the CPU float32's distance to the CPU's
+   float64;
+30. ``tools/get_inference_time.py``'s ``main``, bf16 and float32, at
+   B = 20 @224 (the full-width DETR r50s8): K1 4 times a model call at
+   (20, 8, 784, 32), the launches of a 2-iteration run each held to the
+   plain version, then the default 20 iterations timed (warp / model /
+   solver / total beside phase 5's spans); ``tools/get_backbone_time.py``
+   in both dtypes; one run under ``utils.profiling.trace`` with
+   ``device_memory_stats``;
+31. the offline tools on the card: ``simple_test_result`` and
+   ``val_p_which_p`` (both modes) on 64 known poses (numpy-drawn, 1 px
+   noise; float64): N = 11 mean SPEED < 1e-2, means and poses card vs
+   CPU; ``utils.native`` built with g++ there, the card's ``hungarian``
+   and float64 ``huber_weighted_pnp`` against it; a ``SpeedSolver`` fit of
+   configs/speed/detr_r50s8.yml (1 epoch on 8 rendered frames), then
+   ``visualize_features`` on its checkpoint (K1 4 times an image at
+   (1, 8, 784, 32) float32, each launch held to plain), ``visualize``'s
+   three subcommands and ``analyze_log`` / ``output_min_scores`` on its
+   log.txt. Each of phases 29-31 prints its seconds.
 
 K1, K2 and K5 are held to their plain versions by two gates per output:
 the largest error within 1e-5 (float32) or 2e-2 (bf16) times 1 + the
@@ -739,8 +766,9 @@ def main() -> int:
             "model": lambda: model(imgs),
             "solver": lambda: solvers.solve_pose_simple(world_d, pts_b, probs_b),
         }
+        spans5 = {}
         for name, fn in stages.items():
-            ms = statistics.median(cuda_ms(fn, 1, torch) for _ in range(3))
+            ms = spans5[name] = statistics.median(cuda_ms(fn, 1, torch) for _ in range(3))
             log(f"  stage {name}: {ms:.3f} ms per B={B} step")
 
     # K1 at the main-path shape and layout: (B, T, H, D) views of bf16,
@@ -798,6 +826,7 @@ def main() -> int:
     heads = head_dim_phase(torch, card, dev, g)
     s9 = slice9_phases(torch, card, dev, g)
     det = det_phases(torch, card, dev, g)
+    tools = tool_phases(torch, card, dev, spans5)
 
     def head_dims(name):
         """Each new head-dim instance's record for the kernels line: its
@@ -824,7 +853,7 @@ def main() -> int:
                      + cli["r1"]["launches"]["k1"] + cli["r2"]["launches"]["k1"]
                      + heads["r1_nheads4_k1"] + paths_k["k1"] + s9["eval_k1"] + s9["train"]["k1"]
                      + s9["ghost_k1"] + s9["ensemble_k1"] + s9["export_k1"]
-                     + sum(det["k1"].values())),
+                     + sum(det["k1"].values()) + sum(tools["k1"].values())),
         "launches_by_path": {"eval": main_path_launches, "train": train["k1_launches"],
                              "train_state_eval_bf16": train["k1_eval_bf16_launches"],
                              "train_pallas_augment": routes["b"]["k1"],
@@ -844,7 +873,7 @@ def main() -> int:
                              "rtdetr_ghostnetv2_eval_512": s9["ghost_k1"],
                              "ensemble_submission": s9["ensemble_k1"],
                              "exported_program": s9["export_k1"],
-                             **det["k1"]},
+                             **det["k1"], **tools["k1"]},
         "max_abs_err": k1_err,
         **k1_times,
         "head_dims": head_dims("k1"),
@@ -853,6 +882,7 @@ def main() -> int:
         "pad_vs_native_ms": heads["pad_ms"],
         "rtdetr_aifi": {"shape": [64, 8, 256, 32], "dtype": "bfloat16", **rtdetr["aifi"]},
         "det": {"max_abs_err": det["k1_err"], "shapes": det["k1_times"]},
+        "tools": {"max_abs_err": tools["k1_err"], "launches_by_shape": tools["k1_shapes"]},
     }, {
         "name": "fused_attention_bwd",
         "route": "cuda",
@@ -1798,6 +1828,34 @@ def exhaustive_known_poses(torch, n=64, seed=23):
                             Camera.K_torch(torch.float64), rotations.quat_to_rotmat(quat), tvec)
     pix = pix + torch.from_numpy(rng.randn(n, 11, 2))
     return quat.float(), tvec.float(), pix.float()
+
+
+def pose_cache(torch, n=64, seed=31, Q=20):
+    """A cached eval log of ``n`` known poses as ``SpeedSolver`` writes it
+    ({filename: {points, logits (probabilities), sigma, quat_gt, tvec_gt}}:
+    the Tango points projected with 1 px noise, keypoint k in query k, the
+    rest background; variances 0.5-4 px^2), and the matching ground-truth
+    list (train.json's format), all drawn with numpy from ``seed``."""
+    import numpy as np
+
+    quat, tvec, pix = exhaustive_known_poses(torch, n, seed)
+    rng = np.random.RandomState(seed + 1)
+    points = np.zeros((n, Q, 2))
+    points[:, :11] = pix.numpy()
+    probs = np.full((n, Q, 12), 0.01)
+    probs[:, np.arange(11), np.arange(11)] = 0.9
+    probs[:, 11:, 11] = 0.9
+    probs /= probs.sum(-1, keepdims=True)
+    sigma = 0.5 + 3.5 * rng.rand(n, Q, 2)
+    log, gt = {}, []
+    for i in range(n):
+        fn = f"img{i:06d}.jpg"
+        q, t = quat[i].tolist(), tvec[i].tolist()
+        log[fn] = {"points": np.around(points[i], 2).tolist(),
+                   "logits": np.around(probs[i], 6).tolist(),
+                   "sigma": np.around(sigma[i], 8).tolist(), "quat_gt": q, "tvec_gt": t}
+        gt.append({"filename": fn, "q_vbs2tango": q, "r_Vo2To_vbs_true": t})
+    return log, gt
 
 
 # JAX's exhaustive_pnp on the 64 poses of exhaustive_known_poses, on the
@@ -3551,6 +3609,68 @@ ATTN_GATES = {"K1": {"torch.float32": (1e-5, 1e-5), "torch.bfloat16": (2e-2, 1e-
               "K2": {"torch.float32": (1e-4, 1e-5), "torch.bfloat16": (2e-2, 1e-2)}}
 
 
+def launch_checker(torch):
+    """A context manager ``held()``: the launch counts set to 0, and every K1
+    / K2 launch inside the block held to its plain version on its own
+    inputs under ``ATTN_GATES``; it yields the list of (kernel, shape,
+    dtype, error of 1 + max|plain|, relative L2, max error) the block's
+    launches add."""
+    import contextlib
+
+    from satellite_pose_estimation_tpu_torch.ops import fused_attention as fa
+
+    launches, real_fwd, real_bwd = [], fa._launch_fwd, fa._launch_bwd
+
+    def check(name, shape, dtype, outs, refs):
+        tol, rel_tol = ATTN_GATES[name][str(dtype)]
+        raw = [max_err(o, r) for o, r in zip(outs, refs)]
+        err = max(e / (1.0 + r.float().abs().max().item()) for e, r in zip(raw, refs))
+        rel = max(rel_l2(o, r) for o, r in zip(outs, refs))
+        launches.append((name, shape, dtype, err, rel, max(raw)))
+        require(err <= tol and rel <= rel_tol,
+                f"{name} at {shape} {dtype} disagrees with its plain version: {err:.3e} of "
+                f"1 + max|plain| (limit {tol:g}), relative L2 {rel:.3e} (limit {rel_tol:g})")
+
+    def spy_fwd(q, k, v, s):
+        o, lse = real_fwd(q, k, v, s)
+        with torch.no_grad():
+            check("K1", tuple(q.shape), q.dtype, [o], [fa.attention_plain(q, k, v, s)])
+        return o, lse
+
+    def spy_bwd(q, k, v, o, lse, go, s):
+        grads = real_bwd(q, k, v, o, lse, go, s)
+        with torch.no_grad():
+            check("K2", tuple(q.shape), q.dtype, grads, fa.attention_plain_bwd(q, k, v, go, s))
+        return grads
+
+    @contextlib.contextmanager
+    def held():
+        launches.clear()
+        fa._launch_fwd, fa._launch_bwd = spy_fwd, spy_bwd
+        zero_counts()
+        try:
+            yield launches
+            torch.cuda.synchronize()
+        finally:
+            fa._launch_fwd, fa._launch_bwd = real_fwd, real_bwd
+
+    return held
+
+
+def launches_by_shape(recs):
+    """``launch_checker`` records counted by (kernel, shape, dtype)."""
+    out = {}
+    for name, shape, dtype, *_ in recs:
+        key = (name, shape, str(dtype)[6:])
+        out[key] = out.get(key, 0) + 1
+    return sorted(out.items())
+
+
+def worst_launch(recs):
+    """The largest error of 1 + max|plain| and relative L2 of ``recs``."""
+    return max((r[3] for r in recs), default=0.0), max((r[4] for r in recs), default=0.0)
+
+
 def det_phases(torch, card, dev, g):
     """Phases 25-28: the detection task's eval and train steps at
     configs/det/rtdetr_r50vd_6x_coco.yml's published widths, the det CLI and
@@ -3606,53 +3726,7 @@ def det_phases(torch, card, dev, g):
     T_MAX, steps, windows = 100, 5, 3
 
     # Every K1 / K2 launch is held to its plain version on its own inputs.
-    launches, real_fwd, real_bwd = [], fa._launch_fwd, fa._launch_bwd
-
-    def check(name, shape, dtype, outs, refs):
-        tol, rel_tol = ATTN_GATES[name][str(dtype)]
-        raw = [max_err(o, r) for o, r in zip(outs, refs)]
-        err = max(e / (1.0 + r.float().abs().max().item()) for e, r in zip(raw, refs))
-        rel = max(rel_l2(o, r) for o, r in zip(outs, refs))
-        launches.append((name, shape, dtype, err, rel, max(raw)))
-        require(err <= tol and rel <= rel_tol,
-                f"{name} at {shape} {dtype} disagrees with its plain version: {err:.3e} of "
-                f"1 + max|plain| (limit {tol:g}), relative L2 {rel:.3e} (limit {rel_tol:g})")
-
-    def spy_fwd(q, k, v, s):
-        o, lse = real_fwd(q, k, v, s)
-        with torch.no_grad():
-            check("K1", tuple(q.shape), q.dtype, [o], [fa.attention_plain(q, k, v, s)])
-        return o, lse
-
-    def spy_bwd(q, k, v, o, lse, go, s):
-        grads = real_bwd(q, k, v, o, lse, go, s)
-        with torch.no_grad():
-            check("K2", tuple(q.shape), q.dtype, grads, fa.attention_plain_bwd(q, k, v, go, s))
-        return grads
-
-    @contextlib.contextmanager
-    def held():
-        """Counts set to 0 and every launch checked: yields the list of
-        (kernel, shape, dtype, error of 1 + max|plain|, relative L2, max
-        error) the block's launches add."""
-        launches.clear()
-        fa._launch_fwd, fa._launch_bwd = spy_fwd, spy_bwd
-        zero_counts()
-        try:
-            yield launches
-            torch.cuda.synchronize()
-        finally:
-            fa._launch_fwd, fa._launch_bwd = real_fwd, real_bwd
-
-    def by_shape(recs):
-        out = {}
-        for name, shape, dtype, *_ in recs:
-            key = (name, shape, str(dtype)[6:])
-            out[key] = out.get(key, 0) + 1
-        return sorted(out.items())
-
-    def worst(recs):
-        return max((r[3] for r in recs), default=0.0), max((r[4] for r in recs), default=0.0)
+    held, by_shape, worst = launch_checker(torch), launches_by_shape, worst_launch
 
     def rate_line(r):
         return (f"median {statistics.median(r):.2f} img/s (min {min(r):.2f}, max {max(r):.2f}; "
@@ -4134,6 +4208,308 @@ def det_phases(torch, card, dev, g):
         f"@{S}: card vs CPU max err {e_img:.3e} (tolerance 1e-3), keypoints {e_kp:.3e}")
     require(e_img <= 1e-3 and e_kp <= 1e-4, "augment_sample card vs CPU")
     log("phase 28 ok: the rotation routes and augment_sample agree with the CPU")
+    return result
+
+
+def tool_phases(torch, card, dev, spans5):
+    """Phases 29-31: the classification task (``tools/train_cifar.py``), the
+    timing tools with K1 on their path, and the offline tools (re-scoring,
+    the native oracle, visualisation, the log tools) on the card."""
+    import argparse
+    import contextlib
+    import io
+    import tempfile
+
+    import numpy as np
+
+    from satellite_pose_estimation_tpu_torch.core.yaml_config import YAMLConfig
+    from satellite_pose_estimation_tpu_torch.data.cifar10 import CIFAR10, write_synthetic_batches
+    from satellite_pose_estimation_tpu_torch.geometry import Camera, WORLD_POINTS, rodrigues
+    from satellite_pose_estimation_tpu_torch.geometry.projection import normalize_points
+    from satellite_pose_estimation_tpu_torch.geometry.refine import huber_weighted_pnp
+    from satellite_pose_estimation_tpu_torch.geometry.rotations import (
+        inverse_rodrigues,
+        quat_to_rotmat,
+    )
+    from satellite_pose_estimation_tpu_torch.models.classification import (
+        build_classification_model,
+    )
+    from satellite_pose_estimation_tpu_torch.ops.hungarian import hungarian
+    from satellite_pose_estimation_tpu_torch.ops.precision import highest_precision
+    from satellite_pose_estimation_tpu_torch.tools import (
+        analyze_log,
+        get_backbone_time,
+        get_inference_time,
+        output_min_scores,
+        simple_test_result,
+        train_cifar,
+        val_p_which_p,
+        visualize,
+        visualize_features,
+    )
+    from satellite_pose_estimation_tpu_torch.tools.synthetic_selfcheck import render_dataset
+    from satellite_pose_estimation_tpu_torch.train.solver import SpeedSolver
+    from satellite_pose_estimation_tpu_torch.utils import native, profiling
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    held = launch_checker(torch)
+    f32, f64, cpu = torch.float32, torch.float64, torch.device("cpu")
+    result = {"k1": {}, "k1_shapes": {}, "k1_err": 0.0}
+
+    def record(path, recs, launches):
+        """K1's ``launches`` on ``path``, by shape, and its largest error
+        against the plain version over the checked launches ``recs``."""
+        result["k1"][path] = launches
+        result["k1_shapes"][path] = [[list(shape), dtype, n]
+                                     for (_, shape, dtype), n in launches_by_shape(recs)]
+        result["k1_err"] = max([result["k1_err"]] + [r[5] for r in recs])
+
+    def quiet(fn, *args):
+        """fn(*args) with its standard output captured: (result, the text)."""
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            out = fn(*args)
+        return out, buf.getvalue()
+
+    # -- 29. the classification task ------------------------------------------
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "cifar")
+        t0 = time.perf_counter()
+        write_synthetic_batches(root, per_file=10000, seed=29)  # CIFAR-10's own file sizes
+        gen_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        out, text = quiet(train_cifar.main, train_cifar.get_args_parser().parse_args(
+            ["--root", root, "--epochs", "2"]))  # the card, batch 128, lr 1e-3
+        torch.cuda.synchronize()
+        seen, peak = counts(), torch.cuda.max_memory_allocated() / 2 ** 30
+        for line in text.strip().splitlines():
+            log(f"  {line}")
+        require(seen == expected(), f"the classification path launches no kernel: {seen}")
+        hist, model = out["history"], out["model"]
+        require(next(model.parameters()).is_cuda, "train_cifar ran on the card by default")
+        require(all(np.isfinite(e["losses"]).all() for e in hist), "classification losses finite")
+        rates = [e["train_images"] / e["train_seconds"] for e in hist]
+        log(f"  train_cifar, MResNet (16/32/64 planes) B=128 on 50000 synthetic 32 x 32 images "
+            f"({gen_s:.1f} s to write): train {rates[0]:.1f} img/s in epoch 0 (cuDNN autotuning "
+            f"included), {rates[1]:.1f} in epoch 1; test accuracy {hist[-1]['test_acc']:.4f} "
+            f"after 2 epochs (chance 0.1); peak memory {peak:.2f} GiB; launches {seen} on {card}")
+        require(hist[-1]["test_acc"] > 0.2, "test accuracy above chance after 2 epochs")
+        fresh = build_classification_model(10, seed=0, device=dev)
+        bns = [n for n, m in model.named_modules() if isinstance(m, torch.nn.BatchNorm2d)]
+        still = [n for n in bns if torch.equal(model.get_submodule(n).running_var,
+                                               fresh.get_submodule(n).running_var)]
+        require(not still, f"BatchNorm statistics that did not move: {still}")
+
+        x, y = next(CIFAR10(root, train=True).batches(128, np.random.RandomState(1)))
+        xb, yb = train_cifar.to_device(x, y, dev)
+        m2 = build_classification_model(10, seed=1, device=dev)
+        step = train_cifar.make_train_step(m2, train_cifar.make_optimizer(m2, 1e-3))
+        losses = [step(xb, yb)[0].item() for _ in range(10)]
+        log(f"  fixed-batch loss over 10 steps: {losses[0]:.4f} -> {losses[-1]:.4f}; "
+            f"{len(bns)} of {len(bns)} BatchNorms' running statistics moved")
+        require(losses[-1] < losses[0], "the fixed-batch classification loss falls")
+
+    def grads(device, dtype, train):
+        m = build_classification_model(10, seed=2, device=device, dtype=dtype).train(train)
+        with highest_precision():
+            torch.nn.functional.cross_entropy(m(xb.to(device, dtype)), yb.to(device)).backward()
+        return torch.cat([p.grad.flatten().double().cpu() for p in m.parameters()])
+
+    def rel(a, b):
+        return ((a - b).norm() / b.norm()).item()
+
+    running = rel(grads(dev, f32, False), grads(cpu, f32, False))
+    card32, cpu32, cpu64 = grads(dev, f32, True), grads(cpu, f32, True), grads(cpu, f64, True)
+    d_card, d_cpu = rel(card32, cpu64), rel(cpu32, cpu64)
+    log(f"  float32 gradients at B=128, TF32 off: BatchNorms on running statistics card vs CPU "
+        f"{running:.3e} (limit 1e-3); through batch statistics card vs CPU {rel(card32, cpu32):.3e}, "
+        f"card {d_card:.3e} and CPU {d_cpu:.3e} from the CPU's float64 (limit: the larger of "
+        f"1e-3 and twice the CPU's)")
+    require(running <= 1e-3 and d_card <= max(1e-3, 2 * d_cpu), "classification gradients")
+    result["seconds_29"] = time.perf_counter() - t_phase
+    log(f"phase 29 ok: train_cifar on the card ({result['seconds_29']:.1f} s)")
+
+    # -- 30. the timing tools -----------------------------------------------------
+    t_phase = time.perf_counter()
+    git = get_inference_time.get_args_parser()
+    for dtype, flags in (("bfloat16", ["--bf16"]), ("float32", [])):
+        with held() as recs:
+            quiet(get_inference_time.main, git.parse_args(["--test_num", "2", *flags]))
+        want = {("K1", (20, 8, 784, 32), dtype): 4 * 7}  # 1 warm-up, 2 timed, 4 for the solver
+        require(dict(launches_by_shape(recs)) == want,
+                f"get_inference_time {dtype}: K1 {launches_by_shape(recs)}, expected {want}")
+        err, rel2 = worst_launch(recs)
+        zero_counts()
+        times, text = quiet(get_inference_time.main, git.parse_args(flags))  # B=20 @224, 20 iterations
+        torch.cuda.synchronize()
+        timed = counts()
+        require(timed == expected(k1=4 * 25), f"get_inference_time {dtype} launches {timed}")
+        record(f"get_inference_time_{dtype}", recs, len(recs) + timed["k1"])
+        for line in text.strip().splitlines():
+            log(f"  {dtype}: {line}")
+        log(f"  get_inference_time {dtype}: K1 {4 * 7} + {timed['k1']} launches at (20,8,784,32) "
+            f"(4 a model call), the first {4 * 7} each against its plain version: worst "
+            f"{err:.3e} of 1 + max|plain|, relative L2 {rel2:.3e}; phase 5's spans at B=256 bf16: "
+            + ", ".join(f"{k} {v:.3f} ms" for k, v in spans5.items()) + f" on {card}")
+        result[f"inference_{dtype}"] = times
+    for flags in (["--bf16"], []):
+        _, text = quiet(get_backbone_time.main, get_backbone_time.get_args_parser().parse_args(
+            flags))
+        for line in text.strip().splitlines():
+            log(f"  get_backbone_time {'bf16' if flags else 'float32'} B=20 @224: {line}")
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        with profiling.trace(os.path.join(tmp, "trace")):
+            quiet(get_inference_time.main, git.parse_args(["--test_num", "2", "--bf16"]))
+        require(counts()["k1"] == 4 * 7, "K1 under the profiler")
+        (trace,) = os.listdir(os.path.join(tmp, "trace"))
+        events = json.load(open(os.path.join(tmp, "trace", trace)))["traceEvents"]
+        kernels = sum(1 for e in events if e.get("cat") == "kernel")
+        log(f"  profiling.trace of get_inference_time --bf16 --test_num 2: {trace} "
+            f"({os.path.getsize(os.path.join(tmp, 'trace', trace)) / 2 ** 20:.2f} MiB, "
+            f"{len(events)} events, {kernels} device kernels); device_memory_stats "
+            f"{profiling.device_memory_stats()}")
+    result["seconds_30"] = time.perf_counter() - t_phase
+    log(f"phase 30 ok: the timing tools ran K1 4 times a model call "
+        f"({result['seconds_30']:.1f} s)")
+
+    # -- 31. the offline tools ---------------------------------------------------
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        cache, gt = pose_cache(torch, n=64, seed=31)
+        for name, obj in (("log.json", cache), ("gt.json", gt)):
+            with open(os.path.join(tmp, name), "w") as f:
+                json.dump(obj, f)
+        devices = {"card": str(dev), "cpu": "cpu"}
+        simple = {d: quiet(simple_test_result.main, argparse.Namespace(
+            ret_file=os.path.join(tmp, "log.json"), gt_file=os.path.join(tmp, "gt.json"),
+            repro=20, device=name))[0] for d, name in devices.items()}
+        which = {(mode, d): quiet(val_p_which_p.main, argparse.Namespace(
+            eval_log=os.path.join(tmp, "log.json"), repro=25, mode=mode, seed=0,
+            device=name))[0] for mode in ("random", "topn") for d, name in devices.items()}
+        gap = max([abs(simple["card"] - simple["cpu"])]
+                  + [abs(which[(m, "card")][n] - which[(m, "cpu")][n])
+                     for m in ("random", "topn") for n in range(4, 12)])
+        log(f"  64 known poses (1 px): simple_test_result mean SPEED {simple['card']:.6f} (P3P, "
+            f"no refine); val_p_which_p sigma-weighted, random N=4..11: "
+            + ", ".join(f"{which[('random', 'card')][n]:.4f}" for n in range(4, 12))
+            + "; topn: " + ", ".join(f"{which[('topn', 'card')][n]:.4f}" for n in range(4, 12))
+            + f"; card vs CPU largest gap {gap:.3e} (float64, limit 1e-9)")
+        require(which[("topn", "card")][11] < 1e-2, "val_p_which_p N = 11 mean SPEED")
+        require(gap <= 1e-9, "the re-scoring tools on the card and the CPU disagree")
+        rows = list(cache.values())
+        P = {k: simple_test_result.as_tensor([r[k] for r in rows], "cpu")
+             for k in ("points", "logits", "sigma")}
+        keep = torch.ones(64, 11, dtype=torch.bool)
+        poses = {}
+        for name, d in (("card", dev), ("cpu", cpu)):
+            a = [v.to(d) for v in P.values()]
+            poses[("simple", name)] = simple_test_result.solve(a[0], a[1], 20.0)
+            poses[("which", name)] = val_p_which_p.make_solver(25.0, True)(*a, keep.to(d))
+        for kind in ("simple", "which"):
+            (qa, ta, va), (qb, tb, vb) = poses[(kind, "card")], poses[(kind, "cpu")]
+            ang = 2 * torch.arccos((qa.cpu() * qb).sum(-1).abs().clamp(max=1.0)).max().item()
+            dt = ((ta.cpu() - tb).norm(dim=-1) / tb.norm(dim=-1)).max().item()
+            log(f"  {kind} poses card vs CPU: {int(va.sum())}/64 valid, largest angle {ang:.3e} "
+                f"rad, translation {dt:.3e} relative (limits 1e-6, 1e-9)")
+            require(torch.equal(va.cpu(), vb) and ang <= 1e-6 and dt <= 1e-9,
+                    f"{kind} poses on the card and the CPU")
+
+        t0 = time.perf_counter()
+        native._load()
+        build_s = time.perf_counter() - t0
+        rng = np.random.RandomState(31)
+        costs = rng.rand(16, 30, 11)
+        q4t = hungarian(torch.from_numpy(costs).to(dev)).cpu().numpy()
+        lsap_gap = max(abs(c[q, np.arange(11)].sum() - native.lsap(c.T)[1]) / native.lsap(c.T)[1]
+                       for c, q in zip(costs, q4t))
+        world = torch.as_tensor(WORLD_POINTS, dtype=f64)
+        K = torch.as_tensor(Camera.K, dtype=f64)
+        quat, tvec, pix = exhaustive_known_poses(torch, 8, seed=32)
+        sig = torch.from_numpy(rng.rand(8, 11, 2) * 3 + 0.5)
+        rv0 = (inverse_rodrigues(quat_to_rotmat(quat.double()))
+               + torch.from_numpy(rng.randn(8, 3) * 0.02))
+        tv0 = tvec.double() + 0.1
+        with highest_precision():
+            rv, tv = huber_weighted_pnp(world.to(dev), pix.double().to(dev), K.to(dev),
+                                        sig.to(dev), rv0.to(dev), tv0.to(dev),
+                                        torch.ones(8, 11, dtype=torch.bool, device=dev),
+                                        huber_delta=0.005, iters=30)
+        worst_ang = worst_t = 0.0
+        for i in range(8):
+            w1 = 1.0 / (np.sqrt(sig[i].numpy()) + 1e-6)
+            obs = normalize_points(pix[i].double(), K).numpy()
+            rv_n, tv_n, _ = native.gn_pnp_refine(WORLD_POINTS, obs, rv0[i].numpy(),
+                                                 tv0[i].numpy(), weights=w1 / w1.sum(0),
+                                                 huber_delta=0.005, iters=60)
+            Rd, Rn = rodrigues(rv[i].cpu()).numpy(), rodrigues(torch.from_numpy(rv_n)).numpy()
+            worst_ang = max(worst_ang, float(np.arccos(np.clip((np.trace(Rd @ Rn.T) - 1) / 2,
+                                                                -1, 1))))
+            worst_t = max(worst_t, float(np.abs(tv[i].cpu().numpy() - tv_n).max()
+                                         / np.abs(tv_n).max()))
+        log(f"  native oracle built with g++ in {build_s:.2f} s: the card's hungarian on 16 "
+            f"(30, 11) costs vs lsap, totals {lsap_gap:.3e} relative (limit 1e-5); the card's "
+            f"float64 huber_weighted_pnp (30 iterations) vs gn_pnp_refine (60) on 8 poses: "
+            f"{worst_ang:.3e} rad (limit 2e-3), translation {worst_t:.3e} (limit 2e-2)")
+        require(lsap_gap <= 1e-5 and worst_ang <= 2e-3 and worst_t <= 2e-2,
+                "the card's solvers against the native oracle")
+
+        speed = os.path.join(tmp, "speed")
+        render_dataset(speed, 8, seed=31, n_train=4)
+        yml = os.path.join(here, "configs", "speed", "detr_r50s8.yml")
+        out_dir = os.path.join(tmp, "runs", "detr_r50s8")
+        cfg = YAMLConfig(yml, output_dir=out_dir, epoches=1,
+                         train_dataloader={"batch_size": 4}, val_dataloader={"batch_size": 4})
+        with held() as recs:
+            quiet(SpeedSolver(cfg, data_root=speed, seed=0).fit)
+        record("tools_speed_solver_fit", recs, counts()["k1"])
+        require(result["k1"]["tools_speed_solver_fit"] > 0 and counts()["k2"] == 0,
+                f"the R1 fit's launches {counts()}")
+        with held() as recs:
+            written, _ = quiet(visualize_features.main, visualize_features.get_args_parser()
+                               .parse_args(["-c", yml, "-r", os.path.join(out_dir, "checkpoint"),
+                                            "--data_root", speed, "--limit", "2", "--layer", "1",
+                                            "--out_dir", os.path.join(tmp, "feat")]))
+        record("visualize_features", recs, counts()["k1"])
+        want = {("K1", (1, 8, 784, 32), "float32"): 8}
+        require(dict(launches_by_shape(recs)) == want and counts() == expected(k1=8),
+                f"visualize_features: {launches_by_shape(recs)} {counts()}, expected {want}")
+        require(len(written) == 2 and all(os.path.getsize(p) > 0 for p in written),
+                "visualize_features' PNGs")
+        err, rel2 = worst_launch(recs)
+        vis = visualize.get_args_parser()
+        img_dir = os.path.join(speed, "images", "train")
+        anns = json.load(open(os.path.join(speed, "annos", "wz_train.json")))
+        with open(os.path.join(tmp, "sub.csv"), "w") as f:
+            for a in anns:
+                f.write(",".join([a["filename"], *map(str, a["q_vbs2tango"] + a["r_Vo2To_vbs_true"])])
+                        + "\n")
+        zero_counts()
+        for argv in (["dataset", "--data_root", speed, "--resize", "224"],
+                     ["submission", "--csv", os.path.join(tmp, "sub.csv"), "--img_dir", img_dir],
+                     ["points", "--pred_file", os.path.join(out_dir, "eval_0000_log.json"),
+                      "--img_dir", img_dir]):
+            target = os.path.join(tmp, "vis_" + argv[0])
+            _, text = quiet(visualize.main, vis.parse_args([*argv, "--out_dir", target]))
+            require(os.listdir(target), f"visualize {argv[0]} wrote nothing")
+            log(f"  visualize {argv[0]}: {text.strip()}")
+        require(counts() == expected(), "visualize launches no kernel")
+        _, text = quiet(analyze_log.main, argparse.Namespace(
+            log=os.path.join(out_dir, "log.txt"), plot=False, out=""))
+        _, text2 = quiet(output_min_scores.main, argparse.Namespace(
+            output_root=os.path.join(tmp, "runs")))
+        for line in (text + text2).strip().splitlines():
+            log(f"  {line}")
+        require("best epoch 0" in text and "detr_r50s8: min score" in text2, "the log tools")
+        log(f"  SpeedSolver fit of detr_r50s8.yml (1 epoch, B=4): K1 "
+            f"{result['k1']['tools_speed_solver_fit']} launches; visualize_features --layer 1 on "
+            f"2 val frames: K1 8 at (1,8,784,32) float32, each against its plain version: worst "
+            f"{err:.3e} of 1 + max|plain|, relative L2 {rel2:.3e}; PNGs {len(written)}")
+    result["seconds_31"] = time.perf_counter() - t_phase
+    log(f"phase 31 ok: the offline tools on the card ({result['seconds_31']:.1f} s)")
     return result
 
 

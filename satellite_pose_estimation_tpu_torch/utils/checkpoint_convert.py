@@ -25,7 +25,9 @@ same for ``models.rtdetr.RTDETR``: PResNet's norms are ``FrozenBatchNorm``
 bias; a trained model's learnt query table (``tgt_embed``) and CDN label
 table (``denoising_class_embed``) come as embeddings and its trainable
 BatchNorm statistics as ``batch_stats``. ``flax_realnvp_to_state_dict``
-carries a ``models.real_nvp.RealNVP``'s parameters.
+carries a ``models.real_nvp.RealNVP``'s parameters and
+``flax_classification_to_state_dict`` a ``models.classification.
+Classification``'s.
 
 ``flax_quant_to_port(quant)`` takes the JAX ``quant`` collection of a
 calibrated int8 model (nested dicts of numpy scalars) and returns the
@@ -134,6 +136,15 @@ def flax_realnvp_to_state_dict(params: dict) -> dict:
     """JAX RealNVP ``params`` (``s_{i}`` / ``t_{i}``, each ``fc1..fc3``) ->
     the port's ``state_dict``."""
     return flax_detr_to_state_dict(params)
+
+
+def flax_classification_to_state_dict(params: dict, batch_stats: dict | None = None) -> dict:
+    """JAX ``Classification`` ``params`` / ``batch_stats`` -> the port's
+    ``models.classification.Classification`` ``state_dict``: convolution
+    kernels HWIO -> OIHW, the ``fc`` kernel (in, out) -> (out, in), every
+    norm a ``bn`` (``nn.BatchNorm2d``) with ``scale`` / ``bias`` / ``mean``
+    / ``var`` and no batches counted."""
+    return flax_detr_to_state_dict(params, batch_stats, bn="bn")
 
 
 def flax_quant_to_port(quant: dict) -> dict:

@@ -53,27 +53,38 @@ def library_path(name: str, sources: list[str]) -> Path:
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
+def compile_once(out: Path, cmd: list[str], report: Path | None = None) -> None:
+    """Run the compiler command ``cmd`` (its output file appended as ``-o
+    <tmp>``) unless ``out`` exists, and move the result to ``out``
+    atomically, so a concurrent loader sees all of it or nothing; the
+    compiler's own output goes to ``report`` first, when given. A failed
+    build raises ``RuntimeError`` with the compiler's output."""
+    if out.exists():
+        return
+    out.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
+    os.close(fd)
+    cmd = [*cmd, "-o", tmp]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"{Path(cmd[0]).name} failed ({proc.returncode}): {' '.join(cmd)}\n"
+                f"{proc.stdout}{proc.stderr}")
+        if report is not None:
+            report.write_text(proc.stdout + proc.stderr)
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+
+
 def build_library(name: str, sources: list[str]) -> ctypes.CDLL:
     """Compile ``sources`` into ``build/kernels/<name>-<hash>.so`` unless
     that file exists, then load it. ptxas's report (registers, shared
     memory and spills of each kernel) is kept beside it as ``.ptxas.txt``."""
     out = library_path(name, sources)
     if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp,
-               *[str(CSRC_DIR / s) for s in sources]]
-        try:
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                    f"{proc.stdout}{proc.stderr}")
-            out.with_suffix(".ptxas.txt").write_text(proc.stdout + proc.stderr)
-            os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
-        finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
+        compile_once(out, [find_nvcc(), *NVCC_FLAGS, *[str(CSRC_DIR / s) for s in sources]],
+                     report=out.with_suffix(".ptxas.txt"))
     return ctypes.CDLL(str(out))
-

@@ -7,13 +7,15 @@ int8 DETR and its calibration against the CPU, K1 in the int8 eval step),
 the RT-DETR eval path (K1 on its AIFI layer at 512, the model, the
 deformable sampling, the query selection, the sigma solvers and the int8
 RT-DETR against the CPU), and the RT-DETR train step at 512 (K1 and K2 on
-its AIFI layer, with and without CDN), the host-to-device prefetch and
-the solver's default device.
+its AIFI layer, with and without CDN), the host-to-device prefetch,
+the solver's default device, the classification train step, K1 in the
+inference-timing tool and the batched point-count ablation.
 These tests need a CUDA device and skip without one. The file imports no
 JAX, so on a machine without JAX it runs on its own:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
+import numpy as np
 import pytest
 import torch
 
@@ -1006,3 +1008,92 @@ def test_cuda_speed_solver_builds_on_the_card_by_default(cuda_device, tmp_path):
     assert all(v.is_cuda for v in solver.state.ema.values())
     stats, evaluator = solver.evaluate()
     assert stats["num_images"] == 2 and len(evaluator.log) == 2
+
+
+# -- the classification task and the tools ---------------------------------------
+
+@pytest.mark.cuda
+def test_cuda_classification_train_step_matches_the_cpu(cuda_device):
+    """``train_cifar``'s step on the card by default: finite losses that fall
+    on one fixed batch, the BatchNorm statistics moved, and the float32
+    gradients (BatchNorms on their running statistics, TF32 off) within 1e-3
+    relative L2 of the CPU's."""
+    from satellite_pose_estimation_tpu_torch.models.classification import (
+        build_classification_model,
+    )
+    from satellite_pose_estimation_tpu_torch.tools import train_cifar
+
+    g = torch.Generator().manual_seed(3)
+    x, y = torch.randn(16, 32, 32, 3, generator=g), torch.randint(0, 10, (16,), generator=g)
+    grads = []
+    for dev in (cuda_device, torch.device("cpu")):
+        model = build_classification_model(10, seed=1, device=dev).eval()
+        with highest_precision():
+            torch.nn.functional.cross_entropy(model(x.to(dev)), y.to(dev)).backward()
+        grads.append(torch.cat([p.grad.flatten().cpu().double() for p in model.parameters()]))
+    assert ((grads[0] - grads[1]).norm() / grads[1].norm()).item() <= 1e-3
+
+    model = build_classification_model(10, seed=1)
+    assert next(model.parameters()).is_cuda
+    before = model.backbone.stem_bn.running_mean.clone()
+    step = train_cifar.make_train_step(model, train_cifar.make_optimizer(model, 1e-3))
+    losses = [step(x.to(cuda_device), y.to(cuda_device))[0].item() for _ in range(8)]
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0]
+    assert not torch.equal(before, model.backbone.stem_bn.running_mean)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True], ids=["float32", "bf16"])
+def test_cuda_get_inference_time_runs_k1_four_times_a_model_call(cuda_device, monkeypatch,
+                                                                   bf16):
+    """The timing tool's DETR r50s8 at 224 launches K1 once per encoder layer
+    and model call at (B, 8, 784, 32), each launch within the K1 gates of
+    ``attention_plain`` on its own inputs."""
+    from satellite_pose_estimation_tpu_torch.tools import get_inference_time
+
+    real, shapes = fa._launch_fwd, []
+
+    def spy(q, k, v, s):
+        o, lse = real(q, k, v, s)
+        ref = fa.attention_plain(q, k, v, s)
+        tol = 2e-2 if bf16 else 1e-5
+        err = (o.float() - ref.float()).abs().max().item()
+        assert err <= tol * (1 + ref.float().abs().max().item())
+        _assert_rel_l2(o, ref)
+        shapes.append((tuple(q.shape), q.dtype))
+        return o, lse
+
+    monkeypatch.setattr(fa, "_launch_fwd", spy)
+    before = fa.launch_count
+    argv = ["--batch_size", "2", "--test_num", "2"] + (["--bf16"] if bf16 else [])
+    times = get_inference_time.main(get_inference_time.get_args_parser().parse_args(argv))
+    # model calls: 1 warm-up + 2 timed + 4 for the solver's pool
+    assert fa.launch_count - before == len(shapes) == 4 * 7
+    assert set(shapes) == {((2, 8, 784, 32), torch.bfloat16 if bf16 else torch.float32)}
+    assert all(v > 0 for v in times.values())
+
+
+@pytest.mark.cuda
+def test_cuda_val_p_which_p_matches_the_cpu(cuda_device, tmp_path):
+    """The batched point-count ablation on the card against the CPU on one
+    known-pose cache, both modes: every N's mean within 1e-9 (float64)."""
+    import argparse
+    import json
+    import pathlib
+    import sys
+
+    from satellite_pose_estimation_tpu_torch.tools import val_p_which_p
+
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.pop(0)
+    log, _ = chip_smoke.pose_cache(torch, n=16, seed=9)
+    (tmp_path / "log.json").write_text(json.dumps(log))
+    for mode in ("random", "topn"):
+        res = {dev: val_p_which_p.main(argparse.Namespace(
+            eval_log=str(tmp_path / "log.json"), repro=25, mode=mode, seed=2, device=dev))
+            for dev in ("cuda", "cpu")}
+        for n in range(4, 12):
+            assert abs(res["cuda"][n] - res["cpu"][n]) <= 1e-9, (mode, n)

@@ -471,6 +471,124 @@ def test_port_runs_the_detection_task_with_jax_blocked():
     assert proc.stdout.splitlines()[-1] == "OK"
 
 
+_TINY_TOOLS = r"""
+import sys
+for name in ("jax", "jaxlib", "flax", "optax", "orbax", "satellite_pose_estimation_tpu"):
+    sys.modules[name] = None  # any import of these now raises ImportError
+
+import argparse, contextlib, io, json, os, tempfile
+import torch
+torch.set_num_threads(1)
+sys.path.insert(0, os.getcwd())
+import chip_smoke
+from satellite_pose_estimation_tpu_torch.core import registry
+from satellite_pose_estimation_tpu_torch.core.yaml_config import YAMLConfig
+from satellite_pose_estimation_tpu_torch.data.cifar10 import write_synthetic_batches
+from satellite_pose_estimation_tpu_torch.tools import (
+    analyze_log, gen_new_trainjson, get_backbone_time, get_inference_time, output_min_scores,
+    simple_test_result, train_cifar, val_p_which_p, visualize, visualize_features)
+from satellite_pose_estimation_tpu_torch.tools.synthetic_selfcheck import render_dataset
+from satellite_pose_estimation_tpu_torch.train.solver import SpeedSolver
+from satellite_pose_estimation_tpu_torch.utils import native, profiling
+
+out = io.StringIO()
+with tempfile.TemporaryDirectory() as tmp, contextlib.redirect_stdout(out):
+    write_synthetic_batches(os.path.join(tmp, "cifar"), per_file=8)
+    res = train_cifar.main(train_cifar.get_args_parser().parse_args(
+        ["--root", os.path.join(tmp, "cifar"), "--epochs", "1", "--batch", "8",
+         "--device", "cpu"]))
+    assert len(res["history"][0]["losses"]) == 5
+    with profiling.trace(os.path.join(tmp, "trace")):
+        get_inference_time.main(get_inference_time.get_args_parser().parse_args(
+            ["--batch_size", "1", "--input_size", "32", "--test_num", "1", "--device", "cpu"]))
+    assert os.listdir(os.path.join(tmp, "trace")) and profiling.device_memory_stats() == {}
+    get_backbone_time.main(get_backbone_time.get_args_parser().parse_args(
+        ["--batch_size", "1", "--input_size", "32", "--test_num", "1", "--device", "cpu"]))
+    log, gt = chip_smoke.pose_cache(torch, n=4)
+    for name, obj in (("log.json", log), ("gt.json", gt)):
+        with open(os.path.join(tmp, name), "w") as f:
+            json.dump(obj, f)
+    mean = simple_test_result.main(argparse.Namespace(
+        ret_file=os.path.join(tmp, "log.json"), gt_file=os.path.join(tmp, "gt.json"), repro=20,
+        device="cpu"))
+    assert mean < 1e-1, mean
+    for mode in ("random", "topn"):
+        res = val_p_which_p.main(argparse.Namespace(
+            eval_log=os.path.join(tmp, "log.json"), repro=25, mode=mode, seed=0, device="cpu"))
+        assert res[11] < 1e-1, res
+    native.lsap(torch.rand(3, 4).double().numpy())
+
+    speed = os.path.join(tmp, "speed")
+    render_dataset(speed, 3, seed=0, n_train=2, fmt="ppm")
+    vis = visualize.get_args_parser()
+    visualize.main(vis.parse_args(["dataset", "--data_root", speed, "--resize", "64",
+                                   "--out_dir", os.path.join(tmp, "vis"), "--device", "cpu"]))
+    with open(os.path.join(tmp, "sub.csv"), "w") as f:
+        f.write("img000000.ppm,1,0,0,0,0,0,12\n")
+    visualize.main(vis.parse_args(["submission", "--csv", os.path.join(tmp, "sub.csv"),
+                                   "--img_dir", os.path.join(speed, "images", "train"),
+                                   "--out_dir", os.path.join(tmp, "vis_sub")]))
+    assert len(os.listdir(os.path.join(tmp, "vis"))) == 2
+    cfg = {"model": "DETR", "task": "landmarker", "output_dir": os.path.join(tmp, "r1"),
+           "DETR": {"backbone": "resnet18", "hidden_dim": 32, "nheads": 4, "enc_layers": 2,
+                    "dec_layers": 1, "dim_feedforward": 64, "num_queries": 12, "dropout": 0.0},
+           "train_dataloader": {"batch_size": 2, "dataset": {"resize": 64}},
+           "val_dataloader": {"batch_size": 2, "dataset": {"resize": 64}}}
+    with open(os.path.join(tmp, "detr.yml"), "w") as f:
+        json.dump(cfg, f)  # JSON is YAML
+    solver = SpeedSolver(YAMLConfig(os.path.join(tmp, "detr.yml")), data_root=speed,
+                         device="cpu")
+    solver._build()
+    solver.save_checkpoint(0)
+    _, evaluator = solver.evaluate(0)
+    evaluator.dump(os.path.join(tmp, "eval_0000_log.json"))  # the eval log SpeedSolver writes
+    res = val_p_which_p.main(argparse.Namespace(
+        eval_log=os.path.join(tmp, "eval_0000_log.json"), repro=25, mode="topn", seed=0,
+        device="cpu"))
+    assert sorted(res) == list(range(4, 12)), res
+    written = visualize_features.main(visualize_features.get_args_parser().parse_args(
+        ["-c", os.path.join(tmp, "detr.yml"), "-r", os.path.join(tmp, "r1", "checkpoint"),
+         "--data_root", speed, "--input_size", "64", "--layer", "1", "--limit", "1",
+         "--out_dir", os.path.join(tmp, "feat"), "--device", "cpu"]))
+    assert len(written) == 1 and os.path.exists(written[0])
+
+    run = os.path.join(tmp, "runs", "a")
+    os.makedirs(run)
+    with open(os.path.join(run, "log.txt"), "w") as f:
+        f.write(json.dumps({"epoch": 0, "train_loss_total": 1.0, "test_score": 0.5}) + "\n")
+    analyze_log.main(argparse.Namespace(log=os.path.join(run, "log.txt"), plot=False, out=""))
+    output_min_scores.main(argparse.Namespace(output_root=os.path.join(tmp, "runs")))
+    gen_new_trainjson.main(argparse.Namespace(
+        src=os.path.join(speed, "annos", "wz_train.json"), dst=os.path.join(tmp, "new.json"),
+        drop=[0, 1]))
+    registry.register(name="NoJaxThing")(lambda size=2: size)
+    assert registry.create("NoJaxThing", {"NoJaxThing": {"size": 5}}) == 5
+text = out.getvalue()
+for line in ("epoch 0: loss", "  model:", "resnet50 s16:", "mean speed score over 4 images",
+             "random N=11", "topn N=4", "wrote 2 crops", "wrote 1 visualisations",
+             "best epoch 0", "a: min score", "dropped landmarks [0, 1]"):
+    assert line in text, (line, text)
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
+                                       "satellite_pose_estimation_tpu")
+                and sys.modules[m] is not None)
+assert not loaded, loaded
+print("OK")
+"""
+
+
+def test_port_runs_the_classification_task_and_the_tools_with_jax_blocked():
+    """``train_cifar``, both timing tools (one under ``profiling.trace``),
+    ``simple_test_result`` and ``val_p_which_p`` on a known-pose cache and on
+    a ``SpeedSolver`` eval log, the native library, ``visualize``'s dataset and submission commands,
+    ``visualize_features`` on a ``SpeedSolver`` checkpoint, the log tools and
+    the registry, with jax, flax, optax, orbax and the JAX package blocked."""
+    proc = subprocess.run([sys.executable, "-c", _TINY_TOOLS], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.splitlines()[-1] == "OK"
+
+
 def _imported_roots(path):
     roots = set()
     for node in ast.walk(ast.parse(path.read_text(), str(path))):
