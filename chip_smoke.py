@@ -8,7 +8,7 @@ target). It builds the port's CUDA kernels from ``satellite_pose_estimation
 _tpu_torch/csrc`` with nvcc (K1, the fused attention forward; K2, its
 backward; K3, the rotation; K4, the fused photometric chain; K5, flash
 attention -- one nvcc per source, all started together), then runs
-thirty-one phases and exits non-zero if any fails:
+thirty-four phases and exits non-zero if any fails:
 
 1. the card's name and power limit, the kernel build time, and each
    kernel's registers, shared memory and spills (ptxas's own lines);
@@ -233,7 +233,30 @@ thirty-one phases and exits non-zero if any fails:
    ``visualize_features`` on its checkpoint (K1 4 times an image at
    (1, 8, 784, 32) float32, each launch held to plain), ``visualize``'s
    three subcommands and ``analyze_log`` / ``output_min_scores`` on its
-   log.txt. Each of phases 29-31 prints its seconds.
+   log.txt. Each of phases 29-31 prints its seconds;
+32. the parallel layer: DDP at dp=2 over gloo, two processes sharing the
+   one card (NCCL refuses two ranks on one device): the full-width DETR
+   r50s8 at 224 with ``sync_bn``, dropout 0, the default augmentation, a
+   global batch of 64 (32 a rank), 3 steps, against the dp=1 steps on the
+   same 64 images and seeds in this process: the gaps in losses, weights
+   and BatchNorm statistics at most twice the gap between two dp=1 runs,
+   one under bf16 autocast and one in float32 (two bf16 dp=1 runs are bit
+   for bit the same); K1 and K2 4 times a step on each rank; the step's img/s
+   and one gloo all_reduce of the gradients' volume against the step (no
+   scaling figure: the ranks share a card);
+33. the R2 CLI under ``python -m torch.distributed.run --standalone
+   --nproc_per_node=1`` (NCCL, world 1) on configs/speed/
+   rtdetr_r50vd_kl_1_512.yml at B = 16 over 48 rendered frames: one epoch
+   (2 train steps, 1 eval step: K1 3, K2 2 in the launched process),
+   log.txt written once, then ``-r checkpoint`` resuming epoch 1;
+34. TP=2 over gloo on the card: the DETR r50s8 eval step at B = 256 bf16
+   under ``tp_activation_sharding`` (K1 once per encoder layer at
+   (256, 4, 784, 32) on each rank) against the unsharded eval (points, in
+   units of the crop, and probabilities within 2e-2), and the float32
+   model at B = 8 (1e-4).
+Phase 23 also runs ``--parallel_ensemble`` (the three models on the one
+card), whose CSV must equal the serial route's. The child processes of
+phases 32-34 reuse the kernels built in phase 1 (``--child`` runs one).
 
 K1, K2 and K5 are held to their plain versions by two gates per output:
 the largest error within 1e-5 (float32) or 2e-2 (bf16) times 1 + the
@@ -250,6 +273,7 @@ prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -338,7 +362,13 @@ def recipe_merged() -> dict:
     return merged
 
 
+_T0 = time.perf_counter()
+
+
 def log(*args):
+    """Print a line; a "phase N ok" line ends with the script's seconds so far."""
+    if args and isinstance(args[0], str) and args[0].startswith("phase "):
+        args = (*args, f"[{time.perf_counter() - _T0:.1f} s]")
     print(*args, flush=True)
 
 
@@ -827,6 +857,7 @@ def main() -> int:
     s9 = slice9_phases(torch, card, dev, g)
     det = det_phases(torch, card, dev, g)
     tools = tool_phases(torch, card, dev, spans5)
+    par = parallel_phases(torch, card, dev, g)
 
     def head_dims(name):
         """Each new head-dim instance's record for the kernels line: its
@@ -842,6 +873,7 @@ def main() -> int:
     paths_k = {name: sum(p[name] for p in heads["paths"].values())
                for name in ("k1", "k2", "k5", "k5_bwd")}
 
+
     log(json.dumps({"kernels": [{
         "name": "fused_attention",
         "route": "cuda",
@@ -853,7 +885,9 @@ def main() -> int:
                      + cli["r1"]["launches"]["k1"] + cli["r2"]["launches"]["k1"]
                      + heads["r1_nheads4_k1"] + paths_k["k1"] + s9["eval_k1"] + s9["train"]["k1"]
                      + s9["ghost_k1"] + s9["ensemble_k1"] + s9["export_k1"]
-                     + sum(det["k1"].values()) + sum(tools["k1"].values())),
+                     + sum(det["k1"].values()) + sum(tools["k1"].values())
+                     + s9["ensemble_parallel_k1"] + 2 * par["ddp"]["k1_per_rank"]
+                     + par["r2_cli"]["k1"] + 2 * par["tp"]["k1_per_rank"]),
         "launches_by_path": {"eval": main_path_launches, "train": train["k1_launches"],
                              "train_state_eval_bf16": train["k1_eval_bf16_launches"],
                              "train_pallas_augment": routes["b"]["k1"],
@@ -873,7 +907,13 @@ def main() -> int:
                              "rtdetr_ghostnetv2_eval_512": s9["ghost_k1"],
                              "ensemble_submission": s9["ensemble_k1"],
                              "exported_program": s9["export_k1"],
-                             **det["k1"], **tools["k1"]},
+                             **det["k1"], **tools["k1"],
+                             "ensemble_submission_parallel": s9["ensemble_parallel_k1"],
+                             "ddp_dp2_train_rank0": par["ddp"]["k1_per_rank"],
+                             "ddp_dp2_train_rank1": par["ddp"]["k1_per_rank"],
+                             "r2_cli_torchrun_nccl": par["r2_cli"]["k1"],
+                             "tp2_eval_rank0": par["tp"]["k1_per_rank"],
+                             "tp2_eval_rank1": par["tp"]["k1_per_rank"]},
         "max_abs_err": k1_err,
         **k1_times,
         "head_dims": head_dims("k1"),
@@ -883,6 +923,7 @@ def main() -> int:
         "rtdetr_aifi": {"shape": [64, 8, 256, 32], "dtype": "bfloat16", **rtdetr["aifi"]},
         "det": {"max_abs_err": det["k1_err"], "shapes": det["k1_times"]},
         "tools": {"max_abs_err": tools["k1_err"], "launches_by_shape": tools["k1_shapes"]},
+        "parallel": parallel_held(par, "K1"),
     }, {
         "name": "fused_attention_bwd",
         "route": "cuda",
@@ -891,7 +932,8 @@ def main() -> int:
         "launches": (train["k2_launches"] + routes["b"]["k2"]
                      + sum(rt_train[p]["k2"] for p in ("train", "cdn", "bench"))
                      + cli["r2"]["launches"]["k2"] + paths_k["k2"] + s9["train"]["k2"]
-                     + sum(det["k2"].values())),
+                     + sum(det["k2"].values()) + 2 * par["ddp"]["k2_per_rank"]
+                     + par["r2_cli"]["k2"]),
         "launches_by_path": {"train": train["k2_launches"],
                              "train_pallas_augment": routes["b"]["k2"],
                              "rtdetr_train_512": rt_train["train"]["k2"],
@@ -900,13 +942,17 @@ def main() -> int:
                              "r2_cli": cli["r2"]["launches"]["k2"],
                              "detr_head_dims_16_48_64_128": paths_k["k2"],
                              "rtdetr_mobilenetv3_train_512": s9["train"]["k2"],
-                             **det["k2"]},
+                             **det["k2"],
+                             "ddp_dp2_train_rank0": par["ddp"]["k2_per_rank"],
+                             "ddp_dp2_train_rank1": par["ddp"]["k2_per_rank"],
+                             "r2_cli_torchrun_nccl": par["r2_cli"]["k2"]},
         "max_abs_err": train["k2_err"],
         **train["k2_times"],
         "head_dims": head_dims("k2"),
         "rtdetr_aifi": {"shape": [RECIPE_BATCH, 8, 256, 32], "dtype": "bfloat16",
                         **rt_train["k2_aifi"]},
         "det": {"max_abs_err": det["k2_err"], "shapes": det["k2_times"]},
+        "parallel": parallel_held(par, "K2"),
     }, {
         "name": "rotate_shear3",
         "route": "cuda",
@@ -3505,6 +3551,27 @@ def slice9_phases(torch, card, dev, g):
             f"{sum(len(r) == 8 for r in rows)} with 8 columns, {wall:.2f} s, K1 launches "
             f"{result['ensemble_k1']}")
         require(len(rows) == n and all(len(r) == 8 for r in rows), "the ensemble CSV")
+        # --parallel_ensemble: every checkpoint's forward at once per batch,
+        # all three models on the one card
+        args.parallel_ensemble, args.submission_dir = True, os.path.join(tmp, "sub_parallel")
+        os.chdir(tmp)
+        try:
+            zero_counts()
+            t0 = time.perf_counter()
+            path = gmulti.main(args)
+            torch.cuda.synchronize()
+            wall_parallel = time.perf_counter() - t0
+        finally:
+            os.chdir(cwd)
+        result["ensemble_parallel_k1"] = counts()["k1"]
+        with open(path) as f:
+            rows_parallel = list(csv.reader(f))
+        log(f"  --parallel_ensemble (3 models on the one card): {wall_parallel:.2f} s, K1 "
+            f"launches {result['ensemble_parallel_k1']}; CSV equal to the serial route's: "
+            f"{rows_parallel == rows}")
+        require(rows_parallel == rows, "--parallel_ensemble's CSV differs from the serial route's")
+        require(result["ensemble_parallel_k1"] == result["ensemble_k1"],
+                "--parallel_ensemble launched K1 another number of times")
     gc = torch.Generator().manual_seed(23)
     quat, tvec, points, probs, _, _ = known_pose_keypoints(torch, 64, 20, gc)
     pts = torch.stack([points + torch.randn(points.shape, generator=gc) for _ in range(3)], 1)
@@ -3631,15 +3698,20 @@ def launch_checker(torch):
                 f"{name} at {shape} {dtype} disagrees with its plain version: {err:.3e} of "
                 f"1 + max|plain| (limit {tol:g}), relative L2 {rel:.3e} (limit {rel_tol:g})")
 
+    def plain(device):
+        """Autocast off: inside a train step's forward it would round the
+        plain version's float32 scores to bf16."""
+        return torch.autocast(device.type, enabled=False)
+
     def spy_fwd(q, k, v, s):
         o, lse = real_fwd(q, k, v, s)
-        with torch.no_grad():
+        with torch.no_grad(), plain(q.device):
             check("K1", tuple(q.shape), q.dtype, [o], [fa.attention_plain(q, k, v, s)])
         return o, lse
 
     def spy_bwd(q, k, v, o, lse, go, s):
         grads = real_bwd(q, k, v, o, lse, go, s)
-        with torch.no_grad():
+        with torch.no_grad(), plain(q.device):
             check("K2", tuple(q.shape), q.dtype, grads, fa.attention_plain_bwd(q, k, v, go, s))
         return grads
 
@@ -3669,6 +3741,29 @@ def launches_by_shape(recs):
 def worst_launch(recs):
     """The largest error of 1 + max|plain| and relative L2 of ``recs``."""
     return max((r[3] for r in recs), default=0.0), max((r[4] for r in recs), default=0.0)
+
+
+def parallel_held(par, name):
+    """Phases 32-34's launches of kernel ``name`` (``parallel_phases``'s
+    result ``par``), each held to its plain version: per path and dtype the
+    largest error, that error over 1 + max|plain| and the relative L2, and
+    the launches by shape."""
+    out = {}
+    for path, recs in (("ddp_dp2_train", par["ddp"]["recs"]),
+                       ("r2_cli_torchrun_nccl", par["r2_cli"]["recs"]),
+                       ("tp2_eval", par["tp"]["recs"])):
+        mine = [r for r in recs if r[0] == name]
+        if not mine:
+            continue
+        out[path] = {}
+        for d in sorted({str(r[2]) for r in mine}):
+            of_dtype = [r for r in mine if str(r[2]) == d]
+            err, rel = worst_launch(of_dtype)
+            out[path][d[6:]] = {"max_abs_err": max(r[5] for r in of_dtype),
+                                "err_of_1_plus_max_plain": err, "rel_l2": rel}
+        out[path]["launches_by_shape"] = [[list(k[1]), k[2], n]
+                                          for k, n in launches_by_shape(mine)]
+    return out
 
 
 def det_phases(torch, card, dev, g):
@@ -4513,6 +4608,452 @@ def tool_phases(torch, card, dev, spans5):
     return result
 
 
+# -- the parallel layer (phases 32-34) ------------------------------------------
+
+# The full-width DETR r50s8 of phases 3-8 (seeded weights, dropout 0).
+DETR_R50S8 = dict(backbone="resnet50s8", hidden_dim=256, nheads=8, enc_layers=4, dec_layers=4,
+                  dim_feedforward=2048, num_queries=20, dropout=0.0)
+DDP_BATCH, DDP_STEPS, TP_BATCH = 64, 3, 256
+# Phase 32's gates. The correctness gate is the float32 run (TF32 off), in
+# which dp=2 and dp=1 differ only by float32 rounding (row splits, the
+# two-rank mean of the BN moments and of the gradients): step 0's losses
+# (no update yet: the augmentation, the global BN statistics, the
+# criterion) within DDP_F32_LOSS0 relative; each BN statistic within
+# DDP_F32_STAT of max(1, |dp=1's|); and after each update the total loss
+# and the weights (relative L2 over every parameter) within DDP_F32_STEP of
+# the distance that dp=1's moved from step 0. After an update a fixed
+# relative limit says little: Adam turns the float32 rounding of a gradient
+# that cancels over the batch into a step of up to ~lr, which moves a
+# correct dp=2 run's loss 1.2e-4 relative from dp=1's by step 2 on the H100
+# (two dp=1 runs: 4e-6 to 1.6e-5, cuDNN's float32 kernels not being
+# deterministic); per element, 74% of its weights lie beyond 1e-3 lr of
+# dp=1's (printed, not gated). tests/test_torch_parallel_dp.py holds these
+# measures on a tiny DETR in float32 on the CPU: there a dp=2 run whose
+# gradients are never averaged moves its weights 0.71 of their step from
+# dp=1's and its total loss 0.17 of its move (the correct run 0.0014 and
+# 0), and its ranks apart. Each rank's state equals the other's bit for bit
+# in both runs. The bf16 run (autocast, the timed one) is held
+# only to DDP_GAP_MULTIPLE x the gap that the change from float32 to bf16
+# makes at dp=1.
+DDP_F32_LOSS0, DDP_F32_STAT, DDP_F32_STEP, DDP_GAP_MULTIPLE = 1e-5, 1e-4, 0.1, 2.0
+
+
+def ddp_train(torch, dev, mesh, compute_dtype="bf16", held=None, held_steps=0, keep_init=False):
+    """DDP_STEPS train steps of the DETR r50s8 at 224 with ``sync_bn`` (float32
+    parameters under bf16 autocast, or in float32 with ``compute_dtype=None``;
+    the default augmentation, AdamW and EMA) on the seeded global batch of
+    DDP_BATCH canvases: this rank's rows under ``mesh`` (a data mesh), all
+    of them without. The first ``held_steps`` steps run inside ``held()``
+    (a ``launch_checker``), which holds each K1 / K2 launch to its plain
+    version. Returns (the losses of each step, the final state dict on the
+    CPU, the launch counts of the steps, each step's seconds, the number of
+    parameters, the held launches' records, the initial state dict on the
+    CPU with ``keep_init``, else None)."""
+    from satellite_pose_estimation_tpu_torch.data.augment import AugmentConfig
+    from satellite_pose_estimation_tpu_torch.losses.criterion import CriterionConfig
+    from satellite_pose_estimation_tpu_torch.models.detr import DETRConfig, build_detr_train_model
+    from satellite_pose_estimation_tpu_torch.parallel.mesh import shard_batch
+    from satellite_pose_estimation_tpu_torch.train.state import TrainConfig, create_train_state
+    from satellite_pose_estimation_tpu_torch.train.steps import make_train_step
+
+    model = build_detr_train_model(DETRConfig(bn="sync_bn", **DETR_R50S8), seed=0, device=dev)
+    cfg = TrainConfig(use_ema=True)
+    init = ({k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+            if keep_init else None)
+    state = create_train_state(model, cfg)
+    step = make_train_step(CriterionConfig(), cfg, AugmentConfig(out_size=224), axis_name=mesh,
+                           compute_dtype=torch.bfloat16 if compute_dtype else None)
+    batch = train_batch(torch, dev, DDP_BATCH, torch.Generator(device=dev).manual_seed(32))
+    rows = batch if mesh is None else shard_batch(batch, mesh)
+    gen = torch.Generator(device=dev).manual_seed(33)
+    torch.cuda.synchronize()
+    zero_counts()
+    losses, seconds = [], []
+
+    def one_step():
+        t0 = time.perf_counter()
+        out = step(state, rows, gen)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        losses.append({k: float(v) for k, v in out.items()})
+
+    with held() if held is not None else contextlib.nullcontext([]) as recs:
+        for _ in range(held_steps):
+            one_step()
+    recs = list(recs)
+    for _ in range(DDP_STEPS - held_steps):
+        one_step()
+    seen = counts()
+    state_dict = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    return (losses, state_dict, seen, seconds, sum(p.numel() for p in model.parameters()),
+            recs, init)
+
+
+def ddp_lr(name):
+    """A parameter's learning rate in ``ddp_train`` (TrainConfig's groups)."""
+    from satellite_pose_estimation_tpu_torch.train.state import TrainConfig
+
+    cfg = TrainConfig()
+    return cfg.lr_backbone if name.startswith("backbone.") else cfg.lr
+
+
+def ddp_gaps(a, b, init):
+    """Between two ``ddp_train`` results, ``b`` the reference and ``init`` the
+    weights both started from: {"loss": the largest relative loss gap over
+    the steps, "loss0": that at step 0, "loss_step": the largest total-loss
+    gap after an update over the distance b's total loss moved from step 0,
+    "params": the relative L2 distance of the weights over the distance b's
+    weights moved from ``init``, "bn": the largest BN statistic gap over
+    max(1, |b's|), "far": the fraction of parameter elements farther apart
+    than 1e-3 of their lr, "lr": the largest parameter gap in units of its
+    lr}."""
+    keys = ("loss_total", "loss_ce", "loss_points")
+    rel = [max(abs(x[k] - y[k]) / max(abs(y[k]), 1e-12) for k in keys)
+           for x, y in zip(a[0], b[0])]
+    start = b[0][0]["loss_total"]
+    loss_step = max(abs(x["loss_total"] - y["loss_total"]) / abs(y["loss_total"] - start)
+                    for x, y in zip(a[0][1:], b[0][1:]))
+    far = total = 0
+    worst_lr = num = den = 0.0
+    for k, v in b[1].items():
+        if not v.is_floating_point() or "running_" in k:
+            continue
+        err = (a[1][k].double() - v.double()).abs()
+        far += int((err > 1e-3 * ddp_lr(k)).sum())
+        total += err.numel()
+        worst_lr = max(worst_lr, err.max().item() / ddp_lr(k))
+        num += float(err.pow(2).sum())
+        den += float((v.double() - init[k].double()).pow(2).sum())
+    stats = max(((a[1][k].double() - v.double()).abs() / v.double().abs().clamp_min(1.0))
+                .max().item() for k, v in b[1].items() if "running_" in k)
+    return {"loss": max(rel), "loss0": rel[0], "loss_step": loss_step,
+            "params": (num / den) ** 0.5, "bn": stats, "far": far / total, "lr": worst_lr}
+
+
+def _child_init(rank, world, init):
+    """Join a gloo group of ``world`` processes on the one card."""
+    import torch
+    import torch.distributed as dist
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"file://{init}", world_size=world, rank=rank)
+    return torch, dist, dev
+
+
+def child_ddp(rank, world, init, out):
+    """Phase 32's rank: ``ddp_train`` over a data mesh of the gloo group under
+    bf16 autocast (its first step's K1 / K2 launches held to their plain
+    versions, the others timed) and in float32 with TF32 off (every launch
+    held), and one all_reduce of a flat float32 tensor of the parameter
+    count (the gradients' volume) timed alone."""
+    torch, dist, dev = _child_init(int(rank), int(world), init)
+    from satellite_pose_estimation_tpu_torch.ops.precision import highest_precision
+    from satellite_pose_estimation_tpu_torch.parallel.mesh import create_mesh
+
+    mesh, held = create_mesh(device=dev), launch_checker(torch)
+    bf16 = ddp_train(torch, dev, mesh, held=held, held_steps=1)
+    with highest_precision():
+        f32 = ddp_train(torch, dev, mesh, compute_dtype=None, held=held, held_steps=DDP_STEPS)
+    flat = torch.zeros(bf16[4], device=dev)
+    dist.all_reduce(flat)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        dist.all_reduce(flat)
+    torch.cuda.synchronize()
+    allreduce_s = (time.perf_counter() - t0) / 3
+    dist.barrier()
+    dist.destroy_process_group()
+    torch.save({"bf16": bf16, "f32": f32, "allreduce_s": allreduce_s},
+               os.path.join(out, f"ddp_{rank}.pt"))
+    return 0
+
+
+def child_tp(rank, world, init, out):
+    """Phase 34's rank: the DETR r50s8 eval step at B = TP_BATCH bf16, whole and
+    under ``tp_activation_sharding`` of a 1 x 2 mesh (K1 at 4 heads), timed;
+    and the float32 model's outputs whole and under TP at B = 8 (TF32 off).
+    The TP runs' K1 launches are held to their plain versions."""
+    torch, dist, dev = _child_init(int(rank), int(world), init)
+    from satellite_pose_estimation_tpu_torch.models.detr import DETRConfig, build_detr_model
+    from satellite_pose_estimation_tpu_torch.ops.image_warp import crop_resize_cubic_mxu
+    from satellite_pose_estimation_tpu_torch.ops.precision import highest_precision
+    from satellite_pose_estimation_tpu_torch.parallel.tp import (
+        create_mesh_2d,
+        tp_activation_sharding,
+    )
+    from satellite_pose_estimation_tpu_torch.train.steps import make_eval_step
+
+    mesh = create_mesh_2d(1, 2, device=dev)
+    cfg = DETRConfig(**DETR_R50S8)
+    model = build_detr_model(cfg, seed=0, device=dev, dtype=torch.bfloat16)
+    eval_step = make_eval_step(out_size=224, solver="simple")
+    batch = eval_batch(torch, dev, TP_BATCH, torch.Generator(device=dev).manual_seed(34))
+    held = launch_checker(torch)
+
+    def timed_eval(*ctx):
+        with contextlib.ExitStack() as stack:
+            for c in ctx:
+                stack.enter_context(c)
+            eval_step(model, batch)  # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = eval_step(model, batch)
+            torch.cuda.synchronize()
+            return res, TP_BATCH / (time.perf_counter() - t0)
+
+    whole, whole_rate = timed_eval()
+    with held() as recs, tp_activation_sharding(mesh):
+        tp_res = eval_step(model, batch)
+    recs = list(recs)
+    seen = counts()
+    _, tp_rate = timed_eval(tp_activation_sharding(mesh))
+    x = crop_resize_cubic_mxu(batch["image"][:8], batch["clip_bbox_buf"][:8], 224)
+    model32 = build_detr_model(cfg, seed=0, device=dev, dtype=torch.float32)
+    with torch.inference_mode(), highest_precision():
+        ref32 = model32(x)
+        with held() as recs32, tp_activation_sharding(mesh):
+            got32 = model32(x)
+    recs += recs32
+    wh = (batch["clip_bbox"][:, 2:4] - batch["clip_bbox"][:, 0:2])[:, None, :]
+    errs = {"bf16_points": max_err(tp_res["points"] / wh, whole["points"] / wh),
+            "bf16_probs": max_err(tp_res["probs"], whole["probs"]),
+            "f32_logits": max_err(got32["pred_logits"], ref32["pred_logits"]),
+            "f32_points": max_err(got32["pred_points"], ref32["pred_points"])}
+    finite = all(bool(torch.isfinite(v).all()) for v in tp_res.values() if v.is_floating_point())
+    dist.barrier()
+    dist.destroy_process_group()
+    with open(os.path.join(out, f"tp_{rank}.json"), "w") as f:
+        json.dump({"counts": seen, "recs": [[n, list(sh), str(d), *e] for n, sh, d, *e in recs],
+                   "errs": errs, "finite": finite, "whole_img_s": whole_rate, "tp_img_s": tp_rate},
+                  f)
+    return 0
+
+
+def child_r2_cli(out, *cli_args):
+    """Phase 33's rank, under ``python -m torch.distributed.run``: the R2 CLI's
+    ``main`` on ``cli_args`` (its solver joins the launched world, NCCL on
+    the card), each K1 / K2 launch held to its plain version; the launches,
+    their records, backend, world, start epoch and timings to ``out``."""
+    import importlib.util
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from satellite_pose_estimation_tpu_torch.parallel.mesh import shutdown
+    from satellite_pose_estimation_tpu_torch.tools import train as r2_cli
+
+    args = r2_cli.get_args_parser().parse_args(list(cli_args))
+    if importlib.util.find_spec("yaml") is None:
+        args.config = recipe_merged()
+    with launch_checker(torch)() as recs:
+        solver = r2_cli.main(args)
+    recs = [[n, list(sh), str(d), *e] for n, sh, d, *e in recs]
+    record = {"counts": counts(), "recs": recs, "backend": dist.get_backend(),
+              "world": dist.get_world_size(), "rank": dist.get_rank(),
+              "device": str(solver.device), "mesh": solver.mesh.size,
+              "start_epoch": solver.start_epoch, "timings": solver.timings}
+    shutdown()
+    if record["rank"] == 0:
+        with open(out, "w") as f:
+            json.dump(record, f)
+    return 0
+
+
+CHILDREN = {"ddp": child_ddp, "tp": child_tp, "r2_cli": child_r2_cli}
+
+
+def run_ranks(name, world, tmp, timeout):
+    """``world`` processes of this script's child ``name`` (one gloo group
+    through a file in ``tmp``), joined with ``timeout``; any nonzero exit or
+    a timeout fails the phase. Returns the seconds they took."""
+    here = os.path.abspath(__file__)
+    init = os.path.join(tmp, f"{name}_rendezvous")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, here, "--child", name, str(r), str(world), init,
+                               tmp]) for r in range(world)]
+    try:
+        codes = [p.wait(timeout=timeout) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    require(codes == [0] * world, f"the {name} ranks exited with {codes}")
+    return time.perf_counter() - t0
+
+
+def parallel_phases(torch, card, dev, g):
+    """Phases 32-34: the parallel layer on the one card. Two processes share
+    it over gloo (NCCL refuses two ranks on one device), so no figure here
+    is a scaling figure."""
+    import tempfile
+
+    from satellite_pose_estimation_tpu_torch.tools.synthetic_selfcheck import render_dataset
+
+    result = {}
+    # -- 32. DDP, dp=2 over gloo, against dp=1 --------------------------------
+    from satellite_pose_estimation_tpu_torch.ops.precision import highest_precision
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        wall = run_ranks("ddp", 2, tmp, timeout=600)
+        ranks = [torch.load(os.path.join(tmp, f"ddp_{r}.pt"), weights_only=False)
+                 for r in range(2)]
+    one = ddp_train(torch, dev, None, keep_init=True)
+    again = ddp_train(torch, dev, None)
+    with highest_precision():
+        f32 = ddp_train(torch, dev, None, compute_dtype=None)
+        f32_again = ddp_train(torch, dev, None, compute_dtype=None)
+    init = one[6]
+    gaps = {"bf16": ddp_gaps(ranks[0]["bf16"], one, init),
+            "f32": ddp_gaps(ranks[0]["f32"], f32, init),
+            "bf16_vs_f32": ddp_gaps(f32, one, init), "bf16_twice": ddp_gaps(again, one, init),
+            "f32_twice": ddp_gaps(f32_again, f32, init)}
+    log(f"  DDP dp=2 (gloo, two processes on one card) vs dp=1, DETR r50s8 @224 sync_bn, global "
+        f"B={DDP_BATCH} ({DDP_BATCH // 2} a rank), {DDP_STEPS} steps:")
+    for what, text in (("f32", "float32, TF32 off: dp=2 vs dp=1"),
+                       ("f32_twice", "float32: two dp=1 runs"),
+                       ("bf16", "bf16 autocast: dp=2 vs dp=1"),
+                       ("bf16_twice", "bf16: two dp=1 runs"),
+                       ("bf16_vs_f32", "dp=1, bf16 vs float32")):
+        g_ = gaps[what]
+        log(f"    {text}: losses {g_['loss']:.3e} relative ({g_['loss0']:.3e} at step 0), the "
+            f"total loss {g_['loss_step']:.3e} and the weights {g_['params']:.3e} of their move, "
+            f"BN {g_['bn']:.3e}; {g_['far']:.2%} of the parameter elements beyond 1e-3 lr, the "
+            f"largest {g_['lr']:.3f} lr")
+    log(f"    gates: float32 losses at step 0 {DDP_F32_LOSS0:g} relative, the total loss and the "
+        f"weights {DDP_F32_STEP:g} of their move, BN {DDP_F32_STAT:g} of max(1, |dp=1|); bf16 "
+        f"losses, weights and BN within {DDP_GAP_MULTIPLE:g} x the bf16-vs-float32 dp=1 gap; "
+        f"each rank's state bit for bit the other's")
+    g_ = gaps["f32"]
+    require(g_["loss0"] <= DDP_F32_LOSS0 and g_["loss_step"] <= DDP_F32_STEP
+            and g_["params"] <= DDP_F32_STEP and g_["bn"] <= DDP_F32_STAT,
+            f"the float32 dp=2 step is not the dp=1 step: {g_}")
+    for key in ("loss", "params", "bn"):
+        require(gaps["bf16"][key] <= DDP_GAP_MULTIPLE * gaps["bf16_vs_f32"][key],
+                f"the bf16 dp=2 {key} gap {gaps['bf16'][key]:.3e} passes {DDP_GAP_MULTIPLE:g} x "
+                f"the precision change's {gaps['bf16_vs_f32'][key]:.3e}")
+    for run in ("bf16", "f32"):
+        a, b = ranks[0][run], ranks[1][run]
+        require(a[0] == b[0], f"the ranks' {run} losses differ")
+        require(a[1].keys() == b[1].keys() and all(torch.equal(v, b[1][k])
+                                                   for k, v in a[1].items()),
+                f"the ranks' {run} states differ")
+        for r in ranks:
+            require(r[run][2] == expected(k1=4 * DDP_STEPS, k2=4 * DDP_STEPS),
+                    f"a rank's {run} launches {r[run][2]}")
+    recs = [rec for r in ranks for run in ("bf16", "f32") for rec in r[run][5]]
+    require(len(recs) == 2 * (8 + 8 * DDP_STEPS), f"{len(recs)} held launches")
+    step_s = statistics.median(ranks[0]["bf16"][3][1:])
+    share = ranks[0]["allreduce_s"] / step_s
+    result["ddp"] = {"k1_per_rank": ranks[0]["bf16"][2]["k1"] + ranks[0]["f32"][2]["k1"],
+                     "k2_per_rank": ranks[0]["bf16"][2]["k2"] + ranks[0]["f32"][2]["k2"],
+                     "gaps": gaps, "img_s": DDP_BATCH / step_s, "allreduce_share": share,
+                     "recs": recs}
+    worst = {d: worst_launch([r for r in recs if str(r[2]) == d])
+             for d in ("torch.bfloat16", "torch.float32")}
+    log(f"  K1 / K2 a rank {ranks[0]['bf16'][2]['k1']} / {ranks[0]['bf16'][2]['k2']} bf16 + "
+        f"{ranks[0]['f32'][2]['k1']} / {ranks[0]['f32'][2]['k2']} float32; {len(recs)} launches "
+        f"held to their plain versions ({launches_by_shape(recs)}): worst bf16 {worst['torch.bfloat16'][0]:.3e} of "
+        f"1 + max|plain|, relative L2 {worst['torch.bfloat16'][1]:.3e}; float32 "
+        f"{worst['torch.float32'][0]:.3e}, {worst['torch.float32'][1]:.3e}")
+    log(f"  bf16 dp=2 step {1e3 * step_s:.1f} ms ({DDP_BATCH / step_s:.1f} img/s over the global "
+        f"batch; the dp=1 step {1e3 * statistics.median(one[3][1:]):.1f} ms); one gloo "
+        f"all_reduce of the {ranks[0]['bf16'][4]} float32 gradients alone "
+        f"{1e3 * ranks[0]['allreduce_s']:.1f} ms = {100 * share:.1f}% of the step (not "
+        f"overlapped; DDP overlaps it with the backward); ranks' wall {wall:.1f} s; two "
+        f"processes share one card, so this is no scaling figure, on {card}")
+    del one, again, f32, f32_again, ranks, init
+    torch.cuda.empty_cache()
+    log(f"phase 32 ok: DDP dp=2 matches dp=1 ({time.perf_counter() - t_phase:.1f} s)")
+
+    # -- 33. the R2 CLI under torch.distributed.run, NCCL, world 1 -------------
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "speed")
+        render_dataset(root, 48, seed=33, n_train=32)
+        out = os.path.join(tmp, "r2")
+        yml = os.path.join(here, "configs/speed/rtdetr_r50vd_kl_1_512.yml")
+        runs = []
+        for extra in ([], ["-r", os.path.join(out, "checkpoint")]):
+            epochs = 1 if not extra else 2
+            record = os.path.join(tmp, f"r2_{len(runs)}.json")
+            cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                   "--nproc_per_node=1", os.path.join(here, "chip_smoke.py"), "--child",
+                   "r2_cli", record, "-c", yml, "--data_root", root, *extra, "-u",
+                   f"epoches={epochs}", f"output_dir={out}", "compute_dtype=bfloat16"]
+            proc = subprocess.run(cmd, timeout=600, capture_output=True, text=True)
+            require(proc.returncode == 0,
+                    f"the torchrun R2 CLI exited {proc.returncode}: {proc.stderr[-3000:]}")
+            with open(record) as f:
+                runs.append(json.load(f))
+            with open(os.path.join(out, "log.txt")) as f:
+                runs[-1]["log"] = [json.loads(line) for line in f]
+    first, resumed = runs
+    cli_recs = [(n, tuple(sh), d, *e) for run in runs for n, sh, d, *e in run["recs"]]
+    cli_worst = worst_launch(cli_recs)
+    log(f"  torchrun --nproc_per_node=1: backend {first['backend']}, world {first['world']}, "
+        f"device {first['device']}, mesh {first['mesh']}; epoch 0 launches {first['counts']}, "
+        f"train {first['timings']['train']['images']} images, val "
+        f"{first['timings']['val']['images']}; log.txt lines {len(first['log'])}; resumed at "
+        f"epoch {resumed['start_epoch']}, launches {resumed['counts']}, log.txt epochs "
+        f"{[e['epoch'] for e in resumed['log']]}; the two launches' K1 / K2 held to their plain "
+        f"versions ({launches_by_shape(cli_recs)}): worst {cli_worst[0]:.3e} of 1 + max|plain|, "
+        f"relative L2 {cli_worst[1]:.3e}")
+    for run in runs:
+        require(run["backend"] == "nccl" and run["world"] == 1 and run["mesh"] == 1,
+                "the launched CLI did not join a world of one over NCCL")
+        require(run["counts"] == expected(k1=3, k2=2),
+                "the launched CLI's epoch is not K1 + K2 on 2 train steps and K1 on 1 eval step")
+    require(len(first["log"]) == 1 and resumed["start_epoch"] == 1
+            and [e["epoch"] for e in resumed["log"]] == [0, 1], "log.txt or the resume")
+    require(len(cli_recs) == sum(r["counts"]["k1"] + r["counts"]["k2"] for r in runs),
+            "a launch of the CLI was not held to its plain version")
+    result["r2_cli"] = {"k1": sum(r["counts"]["k1"] for r in runs),
+                        "k2": sum(r["counts"]["k2"] for r in runs), "recs": cli_recs}
+    log(f"phase 33 ok: the R2 CLI under torch.distributed.run over NCCL "
+        f"({time.perf_counter() - t_phase:.1f} s)")
+
+    # -- 34. TP=2 over gloo: the DETR r50s8 eval at B=256 ----------------------
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        wall = run_ranks("tp", 2, tmp, timeout=600)
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(tmp, f"tp_{r}.json")) as f:
+                ranks.append(json.load(f))
+    tp_recs = []
+    for r in ranks:
+        e = r["errs"]
+        recs = [(n, tuple(sh), d, *errs) for n, sh, d, *errs in r["recs"]]
+        tp_recs += recs
+        worst = {d: worst_launch([x for x in recs if x[2] == d])
+                 for d in ("torch.bfloat16", "torch.float32")}
+        log(f"  TP=2 eval B={TP_BATCH} bf16: launches {r['counts']}; K1 held to its plain "
+            f"version ({launches_by_shape(recs)}): worst bf16 {worst['torch.bfloat16'][0]:.3e} "
+            f"of 1 + max|plain| (relative L2 {worst['torch.bfloat16'][1]:.3e}), float32 "
+            f"{worst['torch.float32'][0]:.3e} ({worst['torch.float32'][1]:.3e}); "
+            f"vs the unsharded eval: points {e['bf16_points']:.3e} of the crop, probabilities "
+            f"{e['bf16_probs']:.3e} (limits 2e-2); float32 at B=8 (TF32 off): logits "
+            f"{e['f32_logits']:.3e}, points {e['f32_points']:.3e} (limit 1e-4); "
+            f"{r['tp_img_s']:.1f} img/s (unsharded {r['whole_img_s']:.1f}); on {card}")
+        require(r["finite"], "TP eval outputs not finite")
+        require(r["counts"] == expected(k1=4) and launches_by_shape(recs) == sorted([
+            (("K1", (TP_BATCH, 4, 784, 32), "bfloat16"), 4), (("K1", (8, 4, 784, 32), "float32"), 4)]),
+            "TP=2 did not launch K1 once per encoder layer at 4 heads")
+        require(e["bf16_points"] <= 2e-2 and e["bf16_probs"] <= 2e-2, "TP bf16 outputs")
+        require(e["f32_logits"] <= 1e-4 and e["f32_points"] <= 1e-4, "TP float32 outputs")
+    result["tp"] = {"k1_per_rank": ranks[0]["counts"]["k1"], "img_s": ranks[0]["tp_img_s"],
+                    "recs": tp_recs}
+    log(f"phase 34 ok: TP=2 over gloo on one card ({time.perf_counter() - t_phase:.1f} s, "
+        f"ranks' wall {wall:.1f} s)")
+    return result
+
+
 def to_device(tree, dev):
     """``tree`` (a dict of tensors and tuples of tensors) on ``dev``."""
     if isinstance(tree, dict):
@@ -4522,4 +5063,7 @@ def to_device(tree, dev):
     return tree.to(dev)
 
 if __name__ == "__main__":
+    if len(sys.argv) > 2 and sys.argv[1] == "--child":
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        sys.exit(CHILDREN[sys.argv[2]](*sys.argv[3:]))
     sys.exit(main())

@@ -10,7 +10,10 @@ Ported so far: the R1 DETR and R2 RT-DETR eval and train steps
 (``train.steps``; RT-DETR on PResNet, MobileNetV3 or GhostNetV2), int8
 static PTQ, and the host pipeline with the CLIs (``tools.main`` for R1,
 ``tools.train`` for R2, both over ``train.solver.SpeedSolver``; the
-single-model and checkpoint-ensemble submissions; ``tools.export``). Each TPU kernel of the JAX package is a
+single-model and checkpoint-ensemble submissions; ``tools.export``), and
+the parallel layer (``parallel``: data parallelism over
+``torch.distributed``, the one-model-per-device ensemble, tensor, sequence
+and pipeline parallelism). Each TPU kernel of the JAX package is a
 hand-written CUDA kernel (``csrc/``) on the GPU, beside a plain PyTorch
 version that the CPU takes. ROADMAP.md lists what is left.
 """

@@ -58,6 +58,7 @@ from ..ops.photometric import (
     motion_blur_draw,
 )
 from ..ops.precision import highest_precision
+from ..parallel.mesh import global_rows
 
 
 class AugmentConfig(NamedTuple):
@@ -94,16 +95,28 @@ def _uniform(generator, shape, lo, hi):
                                      dtype=torch.float32)
 
 
-def _apply_subset(generator, imgs, p: float, fn):
-    """Apply ``fn(generator, sub)`` to exactly round(p * B) images chosen
-    uniformly without replacement: the marginal probability per image is
-    p, only the count is fixed."""
-    B = imgs.shape[0]
+def _apply_subset(generator, imgs, p: float, fn, draw=None):
+    """Apply ``fn(sub, params)`` to exactly round(p * B) images chosen
+    uniformly without replacement, ``params`` = ``draw(generator, n)`` (a
+    tuple of tensors with n leading rows, or None): the marginal
+    probability per image is p, only the count is fixed.
+
+    Inside a data-parallel step (``parallel.mesh.data_parallel``) B is the
+    global batch: every rank draws the global subset and its parameters
+    from the same generator and applies the rows it holds."""
+    B, lo = global_rows(imgs.shape[0])
     n = int(round(p * B))
     if n == 0:
         return imgs
     idx = torch.randperm(B, generator=generator, device=generator.device)[:n]
-    return imgs.index_copy(0, idx, fn(generator, imgs[idx]))
+    params = draw(generator, n) if draw is not None else ()
+    if B != imgs.shape[0]:
+        keep = ((idx >= lo) & (idx < lo + imgs.shape[0])).nonzero()[:, 0]
+        if keep.numel() == 0:
+            return imgs
+        idx = idx[keep] - lo
+        params = tuple(t[keep] for t in params)
+    return imgs.index_copy(0, idx, fn(imgs[idx], *params))
 
 
 def _cutout(x, holes_xy, holes_wh):
@@ -135,41 +148,43 @@ def _photometric_batch(generator, imgs, cfg: AugmentConfig):
     """The corruption family on (B, S, S, 3) crops in [0, 255]."""
     S = cfg.out_size
     g = generator
-    imgs = _apply_subset(g, imgs, cfg.p_blur, lambda g, x: box_blur(x))
+    imgs = _apply_subset(g, imgs, cfg.p_blur, box_blur)
     k = cfg.motion_blur_max_ksize
-    imgs = _apply_subset(g, imgs, cfg.p_blur_family * 0.5, lambda g, x: motion_blur(
-        x, *motion_blur_draw(g, x.shape[0], k), k))
-    imgs = _apply_subset(g, imgs, cfg.p_blur_family * 0.25, lambda g, x: median_blur3(x))
-    imgs = _apply_subset(g, imgs, cfg.p_blur_family * 0.25, lambda g, x: box_blur(x))
+    imgs = _apply_subset(g, imgs, cfg.p_blur_family * 0.5,
+                         lambda x, ksize, theta: motion_blur(x, ksize, theta, k),
+                         lambda g, n: motion_blur_draw(g, n, k))
+    imgs = _apply_subset(g, imgs, cfg.p_blur_family * 0.25, median_blur3)
+    imgs = _apply_subset(g, imgs, cfg.p_blur_family * 0.25, box_blur)
 
-    def add_noise(g, x):
-        sigma = _uniform(g, (x.shape[0], 1, 1, 1), 0.0, cfg.noise_sigma_max)
-        return x + torch.randn(x.shape, generator=g, device=g.device, dtype=torch.float32) * sigma
+    def noise_draw(g, n):
+        sigma = _uniform(g, (n, 1, 1, 1), 0.0, cfg.noise_sigma_max)
+        return (torch.randn((n,) + imgs.shape[1:], generator=g, device=g.device,
+                            dtype=torch.float32) * sigma,)
 
-    imgs = _apply_subset(g, imgs, cfg.p_noise, add_noise)
-    imgs = _apply_subset(g, imgs, cfg.p_jpeg, lambda g, x: jpeg_artifacts(
-        torch.clamp(x, 0.0, 255.0),
-        _uniform(g, (x.shape[0],), cfg.jpeg_quality_min, cfg.jpeg_quality_max)))
-    imgs = _apply_subset(g, imgs, cfg.p_iso, lambda g, x: iso_noise(
-        torch.clamp(x, 0.0, 255.0),
-        *iso_noise_draw(g, x.shape[0], S, cfg.iso_color_shift, cfg.iso_intensity)))
+    imgs = _apply_subset(g, imgs, cfg.p_noise, lambda x, noise: x + noise, noise_draw)
+    imgs = _apply_subset(g, imgs, cfg.p_jpeg, lambda x, quality: jpeg_artifacts(
+        torch.clamp(x, 0.0, 255.0), quality),
+        lambda g, n: (_uniform(g, (n,), cfg.jpeg_quality_min, cfg.jpeg_quality_max),))
+    imgs = _apply_subset(g, imgs, cfg.p_iso, lambda x, *iso: iso_noise(
+        torch.clamp(x, 0.0, 255.0), *iso),
+        lambda g, n: iso_noise_draw(g, n, S, cfg.iso_color_shift, cfg.iso_intensity))
 
-    def cutout(g, x):
-        n, dev = x.shape[0], g.device
-        xy = torch.randint(0, S, (n, cfg.cutout_holes, 2), generator=g, device=dev)
-        wh = torch.randint(1, cfg.cutout_max, (n, cfg.cutout_holes, 2), generator=g, device=dev)
-        return _cutout(x, xy, wh)
+    def cutout_draw(g, n):
+        dev = g.device
+        return (torch.randint(0, S, (n, cfg.cutout_holes, 2), generator=g, device=dev),
+                torch.randint(1, cfg.cutout_max, (n, cfg.cutout_holes, 2), generator=g,
+                              device=dev))
 
-    imgs = _apply_subset(g, imgs, cfg.p_cutout, cutout)
+    imgs = _apply_subset(g, imgs, cfg.p_cutout, _cutout, cutout_draw)
 
-    def trunc(g, x):
-        n, dev = x.shape[0], g.device
+    def trunc_draw(g, n):
+        dev = g.device
         hi = max(int(S * cfg.trunc_ratio), 1)
-        th = torch.randint(0, hi, (n,), generator=g, device=dev)
-        tw = torch.randint(0, hi, (n,), generator=g, device=dev)
-        return _truncate(x, th, tw, torch.rand(n, generator=g, device=dev, dtype=torch.float32))
+        return (torch.randint(0, hi, (n,), generator=g, device=dev),
+                torch.randint(0, hi, (n,), generator=g, device=dev),
+                torch.rand(n, generator=g, device=dev, dtype=torch.float32))
 
-    imgs = _apply_subset(g, imgs, cfg.p_trunc, trunc)
+    imgs = _apply_subset(g, imgs, cfg.p_trunc, _truncate, trunc_draw)
     return torch.clamp(imgs, 0.0, 255.0)
 
 
@@ -216,6 +231,20 @@ def geometry_draw(generator, B: int, cfg: AugmentConfig = AugmentConfig()):
     return draws
 
 
+def _rows_of(draws, lo: int, n: int):
+    """The geometric draws of a global batch restricted to its rows
+    [lo, lo + n): the per-image draws sliced, the rotated subset kept where
+    it falls in those rows and renumbered from ``lo``."""
+    out = {k: draws[k][lo:lo + n] for k in ("do_flip", "do_aff", "jitter", "shift")}
+    if "rot_idx" in draws:
+        idx = draws["rot_idx"]
+        keep = ((idx >= lo) & (idx < lo + n)).nonzero()[:, 0]
+        if keep.numel():
+            out["rot_idx"] = idx[keep] - lo
+            out["thetas"] = draws["thetas"][keep]
+    return out
+
+
 def _rotate_affine(images, thetas, cubic: bool):
     """Rotate (n, S, S, 3) crops about their centres by ``thetas`` (n,)
     radians with the inverse-affine warp: src = R(-theta) (out - c) + c."""
@@ -251,7 +280,9 @@ def augment_batch(generator, images, clip_bboxes, landmarks,
         clip_bboxes: (B, 4) crop boxes [x1, y1, x2, y2] in canvas pixels.
         landmarks: (B, K, 2) landmark pixels in canvas coordinates.
         geometry: the geometric draws (``geometry_draw``); drawn from the
-            generator when None.
+            generator when None. Inside a data-parallel step
+            (``parallel.mesh.data_parallel``) every draw is the global
+            batch's, and this rank's rows of it apply.
     Returns:
         (B, S, S, 3) ImageNet-normalised crops and (B, K, 2) keypoints in
         [0, 1] crop coordinates (they may leave [0, 1]). The normalisation
@@ -263,7 +294,10 @@ def augment_batch(generator, images, clip_bboxes, landmarks,
     B, H, W = images.shape[:3]
     S = cfg.out_size
     cubic = cfg.interp == "cubic"
-    draws = geometry if geometry is not None else geometry_draw(g, B, cfg)
+    total, lo = global_rows(B)
+    draws = geometry if geometry is not None else geometry_draw(g, total, cfg)
+    if total != B:
+        draws = _rows_of(draws, lo, B)
 
     # Separable flip / scale / shift / crop map per image: src = a * d + b.
     bb = clip_bboxes.to(torch.float32)
@@ -412,6 +446,11 @@ def augment_batch_pallas(generator, images, clip_bboxes, landmarks,
     in [0, 1] crop coordinates."""
     B = images.shape[0]
     S = cfg.out_size
+    if global_rows(B)[0] != B:
+        # K4 keys its seeded noise on the local image index, so a rank cannot
+        # draw the global batch's noise for its rows
+        raise ValueError("augment_batch_pallas draws per-rank noise: a data-parallel step "
+                         "augments with augment_batch")
     draws = draws if draws is not None else pallas_augment_draw(generator, B, cfg)
     M, inv = _sample_affine(clip_bboxes, draws, cfg)
     warped = affine_warp_bilinear(images, M, S, normalize=False)

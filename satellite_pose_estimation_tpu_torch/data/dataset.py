@@ -281,9 +281,14 @@ class SpeedTrainDataset:
 
     def batches(self, batch_size: int, shuffle: Optional[bool] = None,
                 drop_last: bool = True, pad_last: bool = False,
-                prefetch: int = 2) -> Iterator[dict]:
+                prefetch: int = 2, rows: Optional[slice] = None) -> Iterator[dict]:
         """pad_last repeats the final sample to keep the batch shape static
         (one compiled program); the pad count rides in batch['pad'].
+
+        ``rows`` (a slice of a batch, e.g. ``parallel.mesh.shard_rows``)
+        loads only those rows of every batch, with their own pad count: a
+        data-parallel rank's share. The order and the crops are those of
+        the whole batch.
 
         ``prefetch`` > 0 decodes up to that many batches ahead on a
         background thread (the reference DataLoader's worker-prefetch
@@ -306,7 +311,7 @@ class SpeedTrainDataset:
             if pad_last and len(idxs) < batch_size:
                 pad = batch_size - len(idxs)
                 idxs = idxs + [idxs[-1]] * pad
-            chunks.append((idxs, pad))
+            chunks.append(_rows_of(idxs, pad, rows))
 
         def make(idxs, pad):
             batch = _collate(self._load_parallel(idxs))
@@ -369,7 +374,10 @@ class SpeedSubmissionDataset:
         }
 
     def batches(self, batch_size: int, pad_last: bool = True,
-                prefetch: int = 2) -> Iterator[dict]:
+                prefetch: int = 2, rows: Optional[slice] = None) -> Iterator[dict]:
+        """Batches in file order, the last padded by repeating its final
+        sample (the count in batch['pad']); ``rows`` loads only those rows
+        of each, as ``SpeedTrainDataset.batches`` does."""
         n = len(self)
         chunks = []
         for start in range(0, n, batch_size):
@@ -378,7 +386,7 @@ class SpeedSubmissionDataset:
             if pad_last and len(idxs) < batch_size:
                 pad = batch_size - len(idxs)
                 idxs = idxs + [idxs[-1]] * pad
-            chunks.append((idxs, pad))
+            chunks.append(_rows_of(idxs, pad, rows))
 
         def make(idxs, pad):
             batch = _collate(_load_samples(self, idxs))
@@ -387,6 +395,15 @@ class SpeedSubmissionDataset:
 
         yield from _prefetch_iter(chunks, make, prefetch)
 
+
+
+def _rows_of(idxs, pad: int, rows: Optional[slice]):
+    """(the indices of ``rows`` of a batch, how many of them are pad): the
+    batch's last ``pad`` rows repeat its final sample."""
+    if rows is None:
+        return idxs, pad
+    lo, hi = rows.start, rows.stop
+    return idxs[lo:hi], max(0, hi - max(lo, len(idxs) - pad))
 
 
 def _prefetch_iter(items, make, prefetch: int = 2):

@@ -18,15 +18,15 @@ from typing import Iterator
 import numpy as np
 import torch
 
-
-def _is_passthrough(v) -> bool:
-    return isinstance(v, (str, list, int, float))
+from ..parallel.mesh import is_passthrough, shard_batch
 
 
 def prefetch_to_device(batch_iter: Iterator[dict], size: int = 2,
-                       device="cuda") -> Iterator[dict]:
+                       device="cuda", mesh=None) -> Iterator[dict]:
     """Wrap a host batch iterator (dicts of numpy arrays) with device-side
-    lookahead; yields dicts of tensors on ``device``.
+    lookahead; yields dicts of tensors on ``device``. With ``mesh`` (a
+    ``parallel.mesh.Mesh``) only this rank's rows of each array
+    (``parallel.mesh.shard_batch``) are copied, to the mesh's device.
 
     Non-array entries (filenames, pad counts) pass through untouched.
     Exceptions raised on the producer thread (decode, transforms, the copy)
@@ -35,7 +35,7 @@ def prefetch_to_device(batch_iter: Iterator[dict], size: int = 2,
     KeyboardInterrupt), the producer stops instead of blocking forever on a
     full queue with device buffers held.
     """
-    device = torch.device(device)
+    device = torch.device(device) if mesh is None else mesh.device
     cuda = device.type == "cuda"
     copy_stream = torch.cuda.Stream(device=device) if cuda else None
     q: "queue.Queue" = queue.Queue(maxsize=size)
@@ -43,13 +43,15 @@ def prefetch_to_device(batch_iter: Iterator[dict], size: int = 2,
     end = object()
 
     def to_device(batch: dict):
+        if mesh is not None:
+            batch = shard_batch(batch, mesh)
         if not cuda:
-            return {k: v if _is_passthrough(v) else torch.from_numpy(np.asarray(v))
+            return {k: v if is_passthrough(v) else torch.from_numpy(np.asarray(v))
                     for k, v in batch.items()}, None
         out = {}
         with torch.cuda.stream(copy_stream):
             for k, v in batch.items():
-                if _is_passthrough(v):
+                if is_passthrough(v):
                     out[k] = v
                 else:
                     host = torch.from_numpy(np.ascontiguousarray(v)).pin_memory()

@@ -18,6 +18,7 @@ import math
 import torch
 
 from ..ops.precision import to_loss_dtype
+from ..parallel.mesh import all_mean
 from .matcher import hungarian_match
 
 
@@ -87,7 +88,7 @@ def _one_level(outputs, targets, cfg: CriterionConfig, num_points, log: bool, q4
     return out
 
 
-def set_criterion(outputs, targets, cfg: CriterionConfig = CriterionConfig()):
+def set_criterion(outputs, targets, cfg: CriterionConfig = CriterionConfig(), axis_name=None):
     """The weighted total loss and the loss dict.
 
     Args:
@@ -104,9 +105,17 @@ def set_criterion(outputs, targets, cfg: CriterionConfig = CriterionConfig()):
     ``num_denoising > 0``), each decoder layer's dn queries add a level:
     group g's positives (queries g * 2T + [0, T)) are matched to the T
     targets, tiled G times, over G times the number of points.
+
+    ``axis_name``: a data ``parallel.mesh.Mesh``; the number of points is
+    then averaged over its ranks.
     """
     B, T = targets["labels"].shape
     num_points = max(float(B * T), 1.0)
+    if axis_name is not None:
+        # the replicas' mean (JAX's pmean), so that the group's mean loss is
+        # the global batch's
+        num_points = all_mean(torch.tensor(num_points, device=targets["labels"].device),
+                              axis_name)
 
     levels = [outputs]
     if cfg.aux_loss and "aux_outputs" in outputs:

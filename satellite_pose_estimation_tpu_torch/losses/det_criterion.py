@@ -23,6 +23,7 @@ import torch
 
 from ..ops.box_ops import box_cxcywh_to_xyxy, generalized_box_iou
 from ..ops.hungarian import hungarian
+from ..parallel.mesh import all_mean
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,13 +109,22 @@ def _one_level(outputs, targets, cfg: DetCriterionConfig, num_boxes, q4t):
 
 
 def set_criterion_boxes(outputs, targets, cfg: DetCriterionConfig = DetCriterionConfig(),
-                        on_match=None) -> Tuple[torch.Tensor, dict]:
+                        on_match=None, axis_name=None) -> Tuple[torch.Tensor, dict]:
     """(total, losses) of the model's outputs against ``targets``
     {"labels" (B, T), "boxes" (B, T, 4)}: the last layer's loss_vfl /
     loss_bbox / loss_giou, each aux level's loss_vfl_i / loss_bbox_i, each
     CDN level's loss_vfl_dn_i / loss_bbox_dn_i, and loss_total.
-    ``on_match()``, if given, is called once the levels are matched."""
-    num_boxes = (targets["labels"] >= 0).sum().to(torch.float32).clamp(min=1.0)
+    ``on_match()``, if given, is called once the levels are matched.
+    ``axis_name``: a data ``parallel.mesh.Mesh`` whose ranks each hold a
+    shard of the batch: the box count is then the global batch's (at least
+    one) over the number of ranks, so that the group's mean loss is the
+    global batch's."""
+    count = (targets["labels"] >= 0).sum().to(torch.float32)
+    if axis_name is None:
+        num_boxes = count.clamp(min=1.0)
+    else:
+        n = axis_name.axis_size("data")
+        num_boxes = (all_mean(count, axis_name) * n).clamp(min=1.0) / n
 
     def weighted(lv):
         return (cfg.weight_vfl * lv["loss_vfl"] + cfg.weight_bbox * lv["loss_bbox"]

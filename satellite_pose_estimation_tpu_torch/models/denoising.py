@@ -25,6 +25,8 @@ from __future__ import annotations
 
 import torch
 
+from ..parallel.mesh import global_rows
+
 
 def _cxcywh_to_xyxy(b):
     return torch.cat([b[..., :2] - b[..., 2:] / 2, b[..., :2] + b[..., 2:] / 2], -1)
@@ -45,15 +47,17 @@ def draw_denoising_noise(generator, labels: torch.Tensor, box_dim: int, num_deno
     ``flip`` (B, 2G, T) bool, with probability ``label_noise_ratio / 2``;
     ``rand_labels`` (B, 2G, T) int64 in [0, num_classes); ``u`` (B, 2G, T,
     box_dim) float32 in [0, 1); ``sign`` (B, 2G, T, box_dim) float32 of
-    +-1."""
-    B, T = labels.shape
+    +-1. Inside a data-parallel step (``parallel.mesh.data_parallel``)
+    the draws are the global batch's, and this rank's rows return."""
+    n, T = labels.shape
+    B, lo = global_rows(n)  # inside a data-parallel step: the global batch's draws
     G = _num_groups(num_denoising, T)
     kw = dict(generator=generator, device=labels.device)
     flip = torch.rand(B, 2 * G, T, dtype=torch.float32, **kw) < label_noise_ratio * 0.5
     rand_labels = torch.randint(0, num_classes, (B, 2 * G, T), **kw)
     u = torch.rand(B, 2 * G, T, box_dim, dtype=torch.float32, **kw)
     sign = torch.randint(0, 2, (B, 2 * G, T, box_dim), **kw).to(torch.float32) * 2 - 1
-    return flip, rand_labels, u, sign
+    return tuple(t[lo:lo + n] for t in (flip, rand_labels, u, sign))
 
 
 def assemble_denoising_group(draws, labels: torch.Tensor, points: torch.Tensor,

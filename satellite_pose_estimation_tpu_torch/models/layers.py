@@ -21,6 +21,7 @@ import torch
 from torch import nn
 
 from ..ops.quantize import amax_to_scale, int8_conv, int8_matmul
+from ..parallel.mesh import active_data_parallel, all_mean_differentiable
 
 
 def lecun_normal_(weight: torch.Tensor, fan_in: int,
@@ -76,21 +77,59 @@ class FrozenBatchNorm(nn.Module):
         return x * mult[:, None, None] + shift[:, None, None]
 
 
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose training statistics cover the global batch
+    inside a data-parallel step (``parallel.mesh.data_parallel``), the JAX
+    ``TorchBatchNorm`` with a bound ``axis_name``: the mean and mean square
+    of each rank's (equal) shard are averaged over the group, n counts the
+    global batch, and the gradient flows back through the average. The
+    statistics and the normalisation run in float32 (float64 for a float64
+    input), as ``nn.BatchNorm2d`` computes them on the card. A dp-N
+    step then normalises as the dp-1 step on the same global batch does, as
+    JAX's jit-SPMD program does by construction. Outside such a step it is
+    ``nn.BatchNorm2d``."""
+
+    def forward(self, x):
+        dp = active_data_parallel()
+        if dp is None or dp.size == 1 or not self.training:
+            return super().forward(x)
+        xs = x.to(torch.promote_types(x.dtype, torch.float32))
+        stats = all_mean_differentiable(
+            torch.stack([xs.mean(dim=(0, 2, 3)), xs.square().mean(dim=(0, 2, 3))]),
+            dp.mesh, dp.axis)
+        mean, mean2 = stats[0], stats[1]
+        var = torch.clamp_min(mean2 - mean.square(), 0.0)
+        n = x.numel() // x.shape[1] * dp.size
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(m * mean.detach())
+            # the unbiased variance in the running statistic, as torch stores it
+            self.running_var.mul_(1.0 - m).add_(m * var.detach() * (n / max(n - 1, 1)))
+            self.num_batches_tracked.add_(1)
+        inv = torch.rsqrt(var + self.eps) * self.weight
+        # normalised in float32 at least and cast back, as cuDNN's batch
+        # norm treats a bf16 input under autocast
+        y = (xs - mean[:, None, None]) * inv[:, None, None] + self.bias[:, None, None]
+        return y.to(x.dtype)
+
+
 def norm_layer(kind: str, features: int) -> nn.Module:
     """The norm of ``kind`` over ``features`` NCHW channels (counterpart of
     ``apply_norm``, the reference's build_batchnorm selector):
 
     * ``frozen_bn`` -- ``FrozenBatchNorm``;
-    * ``bn`` -- ``nn.BatchNorm2d`` (eps 1e-5, momentum 0.1 = JAX's retention
-      0.9, the unbiased variance in the running statistic: the JAX
-      ``TorchBatchNorm`` semantics). ``sync_bn`` is the same on one card,
-      as JAX makes it when no mesh axis is bound;
+    * ``bn`` and ``sync_bn`` -- ``BatchNorm2d`` (eps 1e-5, momentum 0.1 =
+      JAX's retention 0.9, the unbiased variance in the running statistic:
+      the JAX ``TorchBatchNorm`` semantics). On one device they are
+      ``nn.BatchNorm2d``; in a data-parallel step both take the global
+      batch's statistics, as JAX's jit-SPMD step gives ``bn`` and
+      ``sync_bn`` alike (the reference's ``bn`` is per replica);
     * ``group_bn`` -- ``nn.GroupNorm(32)`` with flax's eps 1e-6.
     """
     if kind == "frozen_bn":
         return FrozenBatchNorm(features)
     if kind in ("bn", "sync_bn"):
-        return nn.BatchNorm2d(features, eps=1e-5, momentum=0.1)
+        return BatchNorm2d(features, eps=1e-5, momentum=0.1)
     if kind == "group_bn":
         return nn.GroupNorm(32, features, eps=1e-6)
     raise ValueError(f"unknown norm kind: {kind}")

@@ -9,6 +9,11 @@ JAX layers put it (on the attention weights of the plain core, after the
 FFN activation, and on each residual branch), and ``remat`` recomputes
 each encoder layer in the backward pass (``torch.utils.checkpoint``).
 
+Inside ``parallel.tp.tp_activation_sharding`` every attention runs its
+local heads and every FFN its local hidden units (tensor parallelism);
+inside ``parallel.sp.sequence_sharding`` the encoder runs on this rank's
+tokens (sequence parallelism).
+
 ``quant`` (eval deployment) makes the FFNs int8 under the ``ffn`` scope and
 the attention projections under ``attn_proj`` (``ops.quantize.quant_scope``,
 read when the model is built); the decoder layers take
@@ -23,7 +28,10 @@ from torch.utils.checkpoint import checkpoint
 from ..ops.flash_attention import flash_self_attention
 from ..ops.fused_attention import fused_self_attention
 from ..ops.quantize import quant_scope
-from .layers import get_activation, linear
+from ..parallel.sp import active as sp_active
+from ..parallel.sp import gather_tokens, shard_tokens
+from ..parallel.tp import activation_ctx, column_parallel, row_parallel, split_ctx
+from .layers import QDense, get_activation, linear
 
 
 class _Attention(nn.Module):
@@ -59,11 +67,18 @@ class _Attention(nn.Module):
         self.attn_drop = nn.Dropout(dropout)
 
     def forward(self, q, k, v, attn_mask=None):
-        """``attn_mask``: optional (Tq, Tk) bool, True = blocked."""
+        """``attn_mask``: optional (Tq, Tk) bool, True = blocked. Inside
+        ``parallel.tp.tp_activation_sharding`` the attention runs this
+        rank's heads of the model axis, and its output projection's partial
+        sums are reduced over that axis."""
         sm_scale = 1.0 / (self.head_dim ** 0.5)
+        inner = self.nhead * self.head_dim
+        tp = _tp_ctx(self.nhead, self.mha_query)
+        nhead = self.nhead if tp is None else self.nhead // tp[0].axis_size(tp[2])
 
         def heads(proj, x):  # (B, T, C) -> (B, H, T, D) view
-            return proj(x).unflatten(-1, (self.nhead, self.head_dim)).transpose(1, 2)
+            y = proj(x) if tp is None else column_parallel(x, proj, inner, tp)
+            return y.unflatten(-1, (nhead, self.head_dim)).transpose(1, 2)
 
         qh = heads(self.mha_query, q)
         kh = heads(self.mha_key, k)
@@ -89,11 +104,29 @@ class _Attention(nn.Module):
                 s = s.masked_fill(attn_mask, -1e9)
             p = self.attn_drop(torch.softmax(s, dim=-1))
             out = torch.einsum("bhqk,bhkd->bhqd", p.to(vh.dtype), vh)
-        return self.mha_out(out.transpose(1, 2).flatten(2))
+        out = out.transpose(1, 2).flatten(2)
+        return self.mha_out(out) if tp is None else row_parallel(out, self.mha_out, inner, tp)
+
+
+def _tp_ctx(count: int, proj):
+    """The tensor-parallel context that splits ``count`` heads or hidden
+    units, or None; int8 projections have no split form."""
+    tp = split_ctx(count)
+    if tp is not None and isinstance(proj, QDense):
+        raise ValueError("tensor parallelism splits float projections; this layer is int8")
+    return tp
 
 
 def _ffn(layer, x):
-    return layer.linear2(layer.drop(layer.act(layer.linear1(x))))
+    """linear1 -> activation -> dropout -> linear2; inside
+    ``parallel.tp.tp_activation_sharding`` on this rank's hidden units, the
+    partial sums reduced over the model axis."""
+    f = layer.linear1.out_features
+    tp = _tp_ctx(f, layer.linear1)
+    if tp is None:
+        return layer.linear2(layer.drop(layer.act(layer.linear1(x))))
+    h = layer.drop(layer.act(column_parallel(x, layer.linear1, f, tp)))
+    return row_parallel(h, layer.linear2, f, tp)
 
 
 class EncoderLayer(nn.Module):
@@ -112,15 +145,31 @@ class EncoderLayer(nn.Module):
         self.drop = nn.Dropout(dropout)
 
     def forward(self, src, pos):
+        """``src`` (B, T, C) and ``pos`` (1, T, C); inside
+        ``parallel.sp.sequence_sharding`` ``src`` is this rank's T / n
+        tokens (and so is the output): the attention runs on the gathered
+        sequence, the rest on the rank's tokens."""
+        sharded = sp_active() is not None and src.shape[1] != pos.shape[1]
+
         def sa(x):
+            if not sharded:
+                qk = x + pos
+                return self.drop(self.self_attn(qk, qk, x))
+            x = gather_tokens(x)
             qk = x + pos
-            return self.drop(self.self_attn(qk, qk, x))
+            return self.drop(shard_tokens(self.self_attn(qk, qk, x)))
+
+        def ffn(x):
+            if sharded and activation_ctx() is not None:
+                # the TP split's partial sums cover every token of the group
+                return shard_tokens(_ffn(self, gather_tokens(x)))
+            return _ffn(self, x)
 
         if self.normalize_before:
             src = src + sa(self.norm1(src))
-            return src + self.drop(_ffn(self, self.norm2(src)))
+            return src + self.drop(ffn(self.norm2(src)))
         src = self.norm1(src + sa(src))
-        return self.norm2(src + self.drop(_ffn(self, src)))
+        return self.norm2(src + self.drop(ffn(src)))
 
 
 class DecoderLayer(nn.Module):
@@ -184,7 +233,7 @@ class Transformer(nn.Module):
         """src (B, T, C); query_embed (Q, C); pos_embed (T, C)."""
         pos = pos_embed[None].to(src.dtype)
         query_pos = query_embed[None].expand(src.shape[0], -1, -1).to(src.dtype)
-        mem = src
+        mem = shard_tokens(src)  # this rank's tokens under sequence sharding
         for i in range(self.num_encoder_layers):
             layer = getattr(self, f"encoder_layer_{i}")
             if self.remat and self.training:
@@ -193,6 +242,7 @@ class Transformer(nn.Module):
                 mem = layer(mem, pos)
         if self.encoder_norm is not None:
             mem = self.encoder_norm(mem)
+        mem = gather_tokens(mem, replicated=True)  # every rank decodes the whole memory
         tgt = torch.zeros_like(query_pos)
         intermediates = []
         for i in range(self.num_decoder_layers):

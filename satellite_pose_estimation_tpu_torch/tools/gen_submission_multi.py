@@ -14,9 +14,13 @@ queries) and written through ``SubmissionWriter``. Runs on the card;
         --backbone resnet50s8 --enc_layers 4 --dec_layers 4 --num_queries 20 \\
         --input_size 224 --data_root D --checkpoints A/state.pt B/state.pt
 
-The checkpoints are ``SpeedSolver``'s (``<output_dir>/<name>``). The
-one-model-per-device form (``--parallel_ensemble``, JAX
-parallel/ensemble.py) belongs to the parallel layer, which is not ported.
+The checkpoints are ``SpeedSolver``'s (``<output_dir>/<name>``).
+``--parallel_ensemble`` runs every checkpoint's forward at once per batch
+(``gen_prediction_parallel``, ``parallel.ensemble.ensemble_apply``): one
+model per card when the number of cards divides the number of
+checkpoints, every model on the one card of a one-card machine, and one
+after another on one device otherwise (as the JAX package falls back to
+its unsharded vmap); the predictions and the CSV are the serial route's.
 """
 from __future__ import annotations
 
@@ -33,6 +37,7 @@ from ..data.prefetch import prefetch_to_device
 from ..geometry.camera import WORLD_POINTS
 from ..geometry.multi_mean import solve_pose_multi_mean_batch
 from ..ops.image_warp import crop_resize_cubic_mxu
+from ..parallel.ensemble import ensemble_apply, place_ensemble, stack_variable_trees
 from ..train.solver import SpeedSolver
 from ..utils.submission import SubmissionWriter
 from .main import args_to_config, get_args_parser
@@ -63,6 +68,51 @@ def gen_prediction(solver, dataset, batch_size, out_size):
     return preds
 
 
+@torch.inference_mode()
+def gen_prediction_parallel(model, variable_trees, dataset, batch_size, out_size, autocast,
+                            device, devices=None):
+    """Every checkpoint over one split at once: the K state dicts stacked
+    and run by ``ensemble_apply`` (on ``devices``, or one after another on
+    ``device``) -> {filename: [{"points", "logits"} per checkpoint]}, as
+    ``gen_prediction`` gives each."""
+    stacked = stack_variable_trees(variable_trees)
+    model.eval()
+    # each device's replica and weights, once for the whole split
+    placement = None if devices is None else place_ensemble(model, stacked, devices)
+    preds = defaultdict(list)
+    for batch in prefetch_to_device(dataset.batches(batch_size), size=2, device=device):
+        pad = batch.pop("pad", 0)
+        filenames = batch.pop("filename")
+        images = crop_resize_cubic_mxu(batch["image"], batch["clip_bbox_buf"], out_size, True)
+        dev = images.device if devices is None else torch.device(devices[0])
+        with torch.autocast(dev.type, dtype=autocast, enabled=autocast is not None):
+            outputs = ensemble_apply(model, stacked, images, placement=placement)
+        probs = torch.softmax(outputs["pred_logits"].float(), dim=-1)  # (K, B, Q, C)
+        clip = batch["clip_bbox"].float().to(dev)
+        wh = clip[:, 2:4] - clip[:, 0:2]
+        pts_pix = outputs["pred_points"].float() * wh[None, :, None, :] + clip[None, :, None, 0:2]
+        probs, pts_pix = probs.cpu().numpy(), pts_pix.cpu().numpy()
+        for i in range(len(filenames) - pad):
+            for m in range(pts_pix.shape[0]):
+                preds[filenames[i]].append({"points": pts_pix[m, i], "logits": probs[m, i]})
+    return preds
+
+
+def ensemble_devices(device, K: int):
+    """The cards of the one-model-per-device route: every card of the
+    machine when their number divides K (one card takes every model), else
+    None (one after another on ``device``, said on stdout); None on the
+    CPU."""
+    if torch.device(device).type != "cuda":
+        return None
+    n = torch.cuda.device_count()
+    if K % n:
+        print(f"--parallel_ensemble: {K} checkpoints do not divide over {n} cards; running "
+              f"them one after another on {device}")
+        return None
+    return [torch.device("cuda", i) for i in range(n)]
+
+
 def ensemble_solve(all_preds, writer_fn, device="cuda"):
     """``all_preds``: {filename: [{"points", "logits"} per model]}. Solves
     every image's pose on ``device`` (the card unless ``"cpu"`` is asked
@@ -84,10 +134,6 @@ def ensemble_solve(all_preds, writer_fn, device="cuda"):
 
 def main(args):
     """Returns the CSV's path."""
-    if args.parallel_ensemble:
-        raise NotImplementedError(
-            "--parallel_ensemble (one model per device, JAX parallel/ensemble.py) belongs to "
-            "slice 8, the parallel layer, which is not ported")
     cfg = args_to_config(args)
     ts = datetime.now().strftime("%Y%m%d-%H%M")
     real_ds = SpeedSubmissionDataset(args.data_root, args.real_ann_file, args.real_img_dir,
@@ -95,13 +141,24 @@ def main(args):
     synt_ds = SpeedSubmissionDataset(args.data_root, args.synt_ann_file, args.synt_img_dir,
                                      resize=args.input_size)
     all_real, all_synt = defaultdict(list), defaultdict(list)
+    trees = []
     for ckpt in args.checkpoints:
         solver = SpeedSolver(cfg, data_root=args.data_root, seed=args.seed, device=args.device)
         solver.resume(ckpt)
         solver._build()
+        if args.parallel_ensemble:
+            model, autocast = solver.state.model, solver._autocast
+            trees.append({k: v.detach().clone() for k, v in model.state_dict().items()})
+            continue
         for preds, ds in ((all_real, real_ds), (all_synt, synt_ds)):
             for f, p in gen_prediction(solver, ds, args.batch_size, args.input_size).items():
                 preds[f].append(p)
+    if args.parallel_ensemble:
+        devices = ensemble_devices(solver.device, len(trees))
+        all_real, all_synt = (
+            gen_prediction_parallel(model, trees, ds, args.batch_size, args.input_size,
+                                    autocast, solver.device, devices)
+            for ds in (real_ds, synt_ds))
 
     for name, preds in (("real", all_real), ("synt", all_synt)):
         dump = {f: [{"points": m["points"].tolist(), "logits": m["logits"].tolist()}
@@ -125,7 +182,8 @@ def get_submission_parser():
     parser.add_argument("--synt_img_dir", default="images/test")
     parser.add_argument("--submission_dir", default="./submission")
     parser.add_argument("--parallel_ensemble", action="store_true",
-                        help="one model per device: raises, the parallel layer is not ported")
+                        help="run every checkpoint's forward at once per batch, one model "
+                             "per card when the cards divide the checkpoints")
     return parser
 
 

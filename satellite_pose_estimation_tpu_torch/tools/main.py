@@ -9,6 +9,11 @@ SpeedSolver. Runs on the card; ``--device cpu`` runs on the CPU:
         --backbone resnet50s8 --enc_layers 4 --dec_layers 4 \
         --num_queries 20 --input_size 224 --output_dir output/r1
 
+Data-parallel over N cards: ``python -m torch.distributed.run
+--nproc_per_node=N -m satellite_pose_estimation_tpu_torch.tools.main ...``
+(``--batch_size`` is the global batch, which N must divide; rank 0 writes
+the logs and checkpoints).
+
 ``--resume`` takes, as the reference does (R1/main.py:265-271), the public
 ``detr-r50-e632da11.pth`` through surgery; any other ``.pth`` is a whole R1
 model; anything else is a checkpoint of this package to resume.
@@ -19,6 +24,7 @@ import argparse
 import os
 
 from ..core.yaml_config import YAMLConfig
+from ..parallel.mesh import shutdown
 from ..train.solver import SpeedSolver
 
 
@@ -176,3 +182,4 @@ if __name__ == "__main__":
         "SPEED DETR train/eval", parents=[get_args_parser()]
     )
     main(parser.parse_args())
+    shutdown()

@@ -7,6 +7,11 @@ the CPU:
     python -m satellite_pose_estimation_tpu_torch.tools.train \
         -c configs/det/rtdetr_r50vd_6x_coco.yml --data_root D [--test-only]
 
+Data-parallel over N cards (the batch sizes are global; N must divide
+them): ``python -m torch.distributed.run --nproc_per_node=N -m
+satellite_pose_estimation_tpu_torch.tools.train -c ...`` (NCCL on the cards,
+gloo with ``--device cpu``); rank 0 writes the logs and checkpoints.
+
 The config's ``task:`` picks the solver (``train.solver.TASKS``): the
 landmarker's ``SpeedSolver`` or the detection task's ``DetSolver``, whose
 ``--test-only`` prints the COCO stat dict.
@@ -21,6 +26,7 @@ import argparse
 import json
 
 from ..core.yaml_config import YAMLConfig
+from ..parallel.mesh import shutdown
 from ..train.solver import TASKS
 
 
@@ -85,3 +91,4 @@ def get_args_parser():
 
 if __name__ == "__main__":
     main(get_args_parser().parse_args())
+    shutdown()

@@ -26,6 +26,16 @@ from ..losses.det_criterion import DetCriterionConfig, set_criterion_boxes
 from ..ops.image_warp import IMAGENET_MEAN, IMAGENET_STD
 from .ema import ema_update
 from .solver import CheckpointMixin, count_parameters
+from ..parallel.mesh import (
+    auto_mesh,
+    barrier,
+    data_parallel,
+    ddp_module,
+    gather_objects,
+    group_mean_losses,
+    is_main,
+    split_uneven,
+)
 from .state import TrainConfig, TrainState, clip_by_global_norm_, create_train_state
 
 
@@ -56,7 +66,8 @@ def _parse_multi_scale(yaml_cfg) -> Optional[list]:
 
 
 def make_det_train_step(crit_cfg: DetCriterionConfig, train_cfg: TrainConfig,
-                        denoising: bool = False, compute_dtype: Optional[torch.dtype] = None):
+                        denoising: bool = False, compute_dtype: Optional[torch.dtype] = None,
+                        axis_name=None):
     """``train_step(state, images, labels, boxes, generator, on_stage=None)
     -> losses``: the model in training mode on (B, S, S, 3) normalised
     images (under ``torch.autocast`` to ``compute_dtype`` when given), with
@@ -64,23 +75,36 @@ def make_det_train_step(crit_cfg: DetCriterionConfig, train_cfg: TrainConfig,
     criterion; backward; the global-norm clip; the optimizer and its
     schedule; the EMA of the weights and buffers. ``on_stage(name)`` is
     called as each stage ends (forward, match, loss, backward, optimizer).
-    The state is updated in place; the losses are detached tensors."""
+    The state is updated in place; the losses are detached tensors.
+
+    ``axis_name``: a data ``parallel.mesh.Mesh``, as ``train.steps.
+    make_train_step`` takes it: each rank passes its rows of the global
+    batch and the same seeded ``generator``; the CDN draws and the
+    BatchNorm statistics are the global batch's, the gradients are averaged
+    under ``DistributedDataParallel``, the box count is the global batch's,
+    and the losses are the group's means."""
+    replicas: dict = {}
 
     def train_step(state: TrainState, images, labels, boxes, generator, on_stage=None):
         mark = on_stage or (lambda name: None)
         model = state.model
         model.train()
-        with torch.autocast(images.device.type, dtype=compute_dtype,
-                            enabled=compute_dtype is not None):
-            if denoising:
-                # padded labels (-1) embed as the table's last row; the
-                # criterion masks them
-                outputs = model(images, {"labels": labels, "points": boxes}, generator)
-            else:
-                outputs = model(images)
-        mark("forward")
-        total, losses = set_criterion_boxes(outputs, {"labels": labels, "boxes": boxes},
-                                            crit_cfg, on_match=lambda: mark("match"))
+        # the sigma heads are read by no loss
+        forward = (model if axis_name is None
+                   else ddp_module(model, axis_name, replicas, find_unused_parameters=True))
+        with data_parallel(axis_name, images.shape[0]):
+            with torch.autocast(images.device.type, dtype=compute_dtype,
+                                enabled=compute_dtype is not None):
+                if denoising:
+                    # padded labels (-1) embed as the table's last row; the
+                    # criterion masks them
+                    outputs = forward(images, {"labels": labels, "points": boxes}, generator)
+                else:
+                    outputs = forward(images)
+            mark("forward")
+            total, losses = set_criterion_boxes(outputs, {"labels": labels, "boxes": boxes},
+                                                crit_cfg, on_match=lambda: mark("match"),
+                                                axis_name=axis_name)
         mark("loss")
         state.optimizer.zero_grad(set_to_none=True)
         total.backward()
@@ -100,6 +124,8 @@ def make_det_train_step(crit_cfg: DetCriterionConfig, train_cfg: TrainConfig,
                        tau=train_cfg.ema_warmups)
         state.step += 1
         mark("optimizer")
+        if axis_name is not None:
+            return group_mean_losses(losses, axis_name)
         return {k: v.detach() for k, v in losses.items()}
 
     return train_step
@@ -140,17 +166,26 @@ def _xyxy_pixels(cxcywh: np.ndarray, W, H) -> np.ndarray:
 
 class DetSolver(CheckpointMixin):
     """Detection-task solver, on the card unless ``device="cpu"`` is asked
-    for. It runs on one device: the JAX package's ``mesh`` argument, its
-    data-parallel wiring, belongs to the port's parallel layer (slice 8)
-    and is not ported."""
+    for.
+
+    ``mesh``: None runs data-parallel over the launched world
+    (``parallel.mesh.auto_mesh`` of the train batch: one device outside a
+    launcher); False forces one device; or a data ``parallel.mesh.Mesh``.
+    Under a mesh each rank trains on its rows of every train batch (the
+    host transforms still run over the whole batch, so that their draws
+    are the global run's; the last partial batch is dropped) and evaluates
+    its part of every val batch (``np.array_split``, so a ragged tail
+    splits unevenly), gathered before the evaluator scores it. Only rank 0
+    writes ``log.txt`` and checkpoints; the others wait at a barrier."""
 
     def __init__(self, cfg, data_root: str = "./data/coco", seed: int = 42,
-                 max_targets: int = 100, device="cuda"):
+                 max_targets: int = 100, device="cuda", mesh=None):
         self.cfg = cfg
         self.data_root = data_root
         self.seed = seed
         self.max_targets = max_targets
         self.device = torch.device(device)
+        self.mesh = mesh
         self.output_dir = cfg.output_dir
         os.makedirs(self.output_dir, exist_ok=True)
         self.start_epoch = 0
@@ -177,6 +212,12 @@ class DetSolver(CheckpointMixin):
         # the fixed train size without multi_scale (the eval size by default)
         self.train_resize = int(loaders["train"].get("dataset", {}).get("resize", self.resize))
         self.multi_scale = _parse_multi_scale(c.yaml_cfg)
+        if self.mesh is None:
+            self.mesh = auto_mesh(self.batch_size, device=self.device)
+        elif self.mesh is False:
+            self.mesh = None
+        if self.mesh is not None:
+            self.device = self.mesh.device
         self.model = model = c.build_model(self.seed, self.device)
         if model.config.box_dim != 4:
             raise ValueError("the detection task needs the 4-D box decoder; check the "
@@ -188,7 +229,7 @@ class DetSolver(CheckpointMixin):
         autocast = None if c.compute_dtype == torch.float32 else c.compute_dtype
         self.train_step = make_det_train_step(
             self.crit_cfg, self.train_cfg, denoising=bool(model.config.num_denoising),
-            compute_dtype=autocast)
+            compute_dtype=autocast, axis_name=self.mesh)
         self.eval_step = make_det_eval_step(autocast)
         if self._tuning_path:
             self._load_tuning(self._tuning_path)
@@ -246,26 +287,32 @@ class DetSolver(CheckpointMixin):
                     yield {"images": images, "labels": labels, "boxes": boxes}
 
             epoch_losses = []
-            batches = prefetch_to_device(host_batches(), size=2, device=self.device)
-            for batch in self._timed(batches, "train", self.batch_size):
+            local = self.batch_size if self.mesh is None else self.batch_size // self.mesh.size
+            batches = prefetch_to_device(host_batches(), size=2, device=self.device,
+                                         mesh=self.mesh)
+            for batch in self._timed(batches, "train", local):
                 epoch_losses.append(self.train_step(self.state, batch["images"], batch["labels"],
                                                     batch["boxes"], generator))
             stats = self.val(build=False)
-            if (epoch + 1) % self.cfg.checkpoint_step == 0 or epoch + 1 == n_epochs:
+            main = is_main(self.mesh)
+            if main and ((epoch + 1) % self.cfg.checkpoint_step == 0 or epoch + 1 == n_epochs):
                 self.save_checkpoint(epoch)
                 self.save_checkpoint(epoch, name=f"checkpoint{epoch:04d}")
             if stats["AP"] > best_stat["AP"]:
                 best_stat = stats
-                self.save_checkpoint(epoch, name="checkpoint_best")
+                if main:
+                    self.save_checkpoint(epoch, name="checkpoint_best")
             # the reference's JSON-lines stat log (R2/solver/det_solver.py:100-107)
             mean_losses = {k: float(torch.stack([lv[k] for lv in epoch_losses]).mean())
                            for k in epoch_losses[0]} if epoch_losses else {}
-            with open(log_path, "a") as f:
-                f.write(json.dumps({
-                    "epoch": epoch,
-                    **{f"train_{k}": v for k, v in mean_losses.items()},
-                    **{f"test_{k}": float(v) for k, v in stats.items()},
-                    "n_parameters": count_parameters(self.state.model)}) + "\n")
+            if main:
+                with open(log_path, "a") as f:
+                    f.write(json.dumps({
+                        "epoch": epoch,
+                        **{f"train_{k}": v for k, v in mean_losses.items()},
+                        **{f"test_{k}": float(v) for k, v in stats.items()},
+                        "n_parameters": count_parameters(self.state.model)}) + "\n")
+            barrier(self.mesh)
             print(f"epoch {epoch}: AP {stats['AP']:.4f} (best {best_stat['AP']:.4f})")
         return best_stat
 
@@ -284,13 +331,25 @@ class DetSolver(CheckpointMixin):
         def host_batches():
             for start in range(0, n, self.val_batch_size):
                 samples = [val_ds[i] for i in range(start, min(start + self.val_batch_size, n))]
-                yield {"images": self._collate(samples)[0], "samples": samples,
+                mine = (range(len(samples)) if self.mesh is None
+                        else split_uneven(len(samples), self.mesh))
+                # a rank left without images of a short tail batch still
+                # takes part in the gather
+                images = (self._collate([samples[i] for i in mine])[0] if len(mine)
+                          else np.zeros((0, self.resize, self.resize, 3), np.float32))
+                yield {"images": images, "samples": samples,
                        "pad": self.val_batch_size - len(samples)}
 
         batches = prefetch_to_device(host_batches(), size=2, device=self.device)
         for batch in self._timed(batches, "val", self.val_batch_size):
-            out = self.eval_step(self.state, batch["images"])
-            scores, boxes = out["scores"].cpu().numpy(), out["boxes"].float().cpu().numpy()
+            part = None
+            if batch["images"].shape[0]:
+                out = self.eval_step(self.state, batch["images"])
+                part = (out["scores"].cpu().numpy(), out["boxes"].float().cpu().numpy())
+            parts = [part] if self.mesh is None else gather_objects(part, self.mesh)
+            parts = [p for p in parts if p is not None]  # in rank order
+            scores = np.concatenate([p[0] for p in parts])
+            boxes = np.concatenate([p[1] for p in parts])
             for i, s in enumerate(batch["samples"]):
                 W, H = s["orig_size"]
                 gt = s["boxes"]

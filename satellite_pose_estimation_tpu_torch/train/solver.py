@@ -35,6 +35,15 @@ from ..data.dataset import SpeedTrainDataset
 from ..data.prefetch import prefetch_to_device
 from ..geometry.solvers import SolverConfig
 from ..models.layers import FrozenBatchNorm
+from ..parallel.mesh import (
+    all_gather_rows,
+    auto_mesh,
+    barrier,
+    gather_objects,
+    group_mean_losses,
+    is_main,
+    shard_rows,
+)
 from ..utils.checkpoint_convert import (
     load_torch_checkpoint,
     r1_state_dict_to_port,
@@ -92,6 +101,10 @@ class CheckpointMixin:
         return os.path.abspath(os.path.join(self.output_dir, name))
 
     def save_checkpoint(self, epoch: int, name: str = "checkpoint"):
+        """Write the state to ``<output_dir>/<name>/state.pt``: on rank 0
+        only under a data-parallel mesh (every rank holds the same state)."""
+        if not is_main(getattr(self, "mesh", None)):
+            return
         st = self.state
         path = self._ckpt_dir(name)
         os.makedirs(path, exist_ok=True)
@@ -183,14 +196,26 @@ class CheckpointMixin:
 
 class SpeedSolver(CheckpointMixin):
     """Landmarker-task solver (SPEED keypoints -> pose). Runs on the card
-    unless ``device="cpu"`` is asked for."""
+    unless ``device="cpu"`` is asked for.
+
+    ``mesh``: None runs data-parallel over the world that
+    ``python -m torch.distributed.run`` launched (``parallel.mesh.
+    auto_mesh`` of the train and val batch sizes, which the world size must
+    divide; the device is then ``cuda:{LOCAL_RANK}``), and on one device
+    without a launcher; False forces one device; or a data
+    ``parallel.mesh.Mesh``. The batch sizes are global: each rank loads and
+    steps on its rows of every train and val batch, the eval gathers the
+    per-image poses and scores before the evaluator scores them, and only
+    rank 0 writes ``log.txt``, the eval logs and the checkpoints while the
+    others wait at a barrier. Every rank resumes from the same file."""
 
     def __init__(self, cfg: YAMLConfig, data_root: str = "./data/speed", seed: int = 42,
-                 device="cuda"):
+                 device="cuda", mesh=None):
         self.cfg = cfg
         self.data_root = data_root
         self.seed = seed
         self.device = torch.device(device)
+        self.mesh = mesh
         self.output_dir = cfg.output_dir
         os.makedirs(self.output_dir, exist_ok=True)
         self.start_epoch = 0
@@ -214,6 +239,12 @@ class SpeedSolver(CheckpointMixin):
         self.batch_size = train_settings.batch_size
         self.val_batch_size = val_settings.batch_size
         self.resize = train_settings.resize
+        if self.mesh is None:
+            self.mesh = auto_mesh(self.batch_size, self.val_batch_size, device=self.device)
+        elif self.mesh is False:
+            self.mesh = None
+        if self.mesh is not None:
+            self.device = self.mesh.device
 
         steps_per_epoch = max(len(self.train_ds) // self.batch_size, 1)
         self.train_cfg = cfg.train_config(steps_per_epoch)
@@ -233,7 +264,7 @@ class SpeedSolver(CheckpointMixin):
         self.train_step = make_train_step(
             self.criterion_cfg, self.train_cfg, cfg.augment_config(self.resize),
             denoising=bool(getattr(model.config, "num_denoising", 0)),
-            compute_dtype=autocast)
+            compute_dtype=autocast, axis_name=self.mesh)
         solver_kind = "sigma" if self.criterion_cfg.point_loss == "uncert" else "simple"
         self.eval_step = make_eval_step(
             criterion_cfg=self.criterion_cfg, solver_cfg=SolverConfig(input_size=self.resize),
@@ -263,7 +294,7 @@ class SpeedSolver(CheckpointMixin):
         log_path = os.path.join(self.output_dir, "log.txt")
         scalars = []
         best_score = float("inf")
-        tb = self._tb_writer()
+        tb = self._tb_writer() if is_main(self.mesh) else None
 
         for epoch in range(self.start_epoch, cfg.epoches):
             train_stats = self.train_one_epoch(epoch)
@@ -287,17 +318,20 @@ class SpeedSolver(CheckpointMixin):
                 "epoch": epoch,
                 "n_parameters": count_parameters(self.state.model),
             }
-            with open(log_path, "a") as f:
-                f.write(json.dumps(log_entry) + "\n")
-            evaluator.dump(os.path.join(self.output_dir, f"eval_{epoch:04d}_log.json"))
+            if is_main(self.mesh):
+                with open(log_path, "a") as f:
+                    f.write(json.dumps(log_entry) + "\n")
+                evaluator.dump(os.path.join(self.output_dir, f"eval_{epoch:04d}_log.json"))
+            barrier(self.mesh)
             if tb is not None:
                 for k, v in train_stats.items():
                     tb.add_scalar(f"train/{k}", v, epoch)
                 for k in ("score", "score_tvec", "score_quat"):
                     if k in eval_stats:
                         tb.add_scalar(f"eval/{k}", eval_stats[k], epoch)
-        with open(os.path.join(self.output_dir, "scalars.json"), "w") as f:
-            json.dump(scalars, f)
+        if is_main(self.mesh):
+            with open(os.path.join(self.output_dir, "scalars.json"), "w") as f:
+                json.dump(scalars, f)
         if tb is not None:
             tb.export_scalars_to_json(os.path.join(self.output_dir, "all_scalars.json"))
             tb.close()
@@ -307,8 +341,10 @@ class SpeedSolver(CheckpointMixin):
         generator = torch.Generator(device=self.device).manual_seed(
             self.seed * 1000003 + epoch)
 
+        rows = None if self.mesh is None else shard_rows(self.batch_size, self.mesh)
+
         def host_batches():
-            for b in self.train_ds.batches(self.batch_size):
+            for b in self.train_ds.batches(self.batch_size, rows=rows):
                 for key in _NOT_TRAINED_ON:
                     b.pop(key, None)
                 yield b
@@ -316,7 +352,8 @@ class SpeedSolver(CheckpointMixin):
         batches = prefetch_to_device(host_batches(), size=2, device=self.device)
         n_steps = len(self.train_ds) // self.batch_size
         n_batches = 0
-        for batch in logger.log_every(self._timed(batches, "train", self.batch_size),
+        local = self.batch_size if rows is None else rows.stop - rows.start
+        for batch in logger.log_every(self._timed(batches, "train", local),
                                       self.cfg.log_step, header=f"Epoch: [{epoch}]"):
             losses = self.train_step(self.state, batch, generator)
             n_batches += 1
@@ -336,22 +373,33 @@ class SpeedSolver(CheckpointMixin):
         evaluator = SpeedEvaluator()
         loss_sums: dict = {}
         n_loss_batches = 0
+        rows = None if self.mesh is None else shard_rows(self.val_batch_size, self.mesh)
         host = self.val_ds.batches(self.val_batch_size, shuffle=False, drop_last=False,
-                                   pad_last=True)
+                                   pad_last=True, rows=rows)
+        local = self.val_batch_size if rows is None else rows.stop - rows.start
         for batch in self._timed(prefetch_to_device(host, size=2, device=self.device), "val",
-                                 self.val_batch_size):
+                                 local):
             filenames = batch.pop("filename")
             pad = batch.pop("pad", 0)
             results = self.eval_step(self.state, batch)
             # per-batch mean eval losses, the padded tail batch's pad images
-            # weighed in (R2/solver/speed_engine.py:123-172)
-            for k, v in results.pop("eval_losses", {}).items():
+            # weighed in (R2/solver/speed_engine.py:123-172); under a mesh the
+            # ranks' means, which weigh equal shards as the global batch does
+            eval_losses = results.pop("eval_losses", {})
+            if self.mesh is not None and eval_losses:
+                eval_losses = group_mean_losses(eval_losses, self.mesh)
+            for k, v in eval_losses.items():
                 loss_sums[k] = loss_sums.get(k, 0.0) + float(v)
             n_loss_batches += 1
-            results = {k: v.cpu().numpy() for k, v in results.items()}
             for key in ("quat_gt", "tvec_gt"):
                 if key in batch:
-                    results[key] = batch[key].cpu().numpy()
+                    results[key] = batch[key]
+            if self.mesh is not None:  # the global batch, in rank order
+                results = {k: all_gather_rows(v, self.mesh) for k, v in results.items()}
+                gathered = gather_objects((filenames, pad), self.mesh)
+                filenames = [f for names, _ in gathered for f in names]
+                pad = sum(p for _, p in gathered)
+            results = {k: v.cpu().numpy() for k, v in results.items()}
             evaluator.update_batch(filenames, results, pad=pad)
         stats_str = evaluator.summarize()
         print(f"Eval epoch {epoch}: {stats_str}")

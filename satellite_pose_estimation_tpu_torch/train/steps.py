@@ -28,6 +28,7 @@ from ..losses.criterion import CriterionConfig, set_criterion
 from ..models.layers import site_scales, static_scales
 from ..models.postprocess import collect_aux_points
 from ..ops.image_warp import crop_resize_cubic_mxu
+from ..parallel.mesh import data_parallel, ddp_module, group_mean_losses
 from .ema import ema_update
 from .state import TrainConfig, TrainState, clip_by_global_norm_
 
@@ -52,10 +53,20 @@ def make_train_step(criterion_cfg: CriterionConfig, train_cfg: TrainConfig,
     "points": the augmented normalised landmarks}) and ``generator`` for its
     CDN groups. The state is updated in place; the returned losses are
     detached tensors (no host synchronisation).
+
+    ``axis_name``: a data ``parallel.mesh.Mesh``. Each rank then passes its
+    rows of the global batch (``parallel.mesh.shard_batch``) and the same
+    seeded ``generator``: the augmentation and the CDN groups draw the
+    global batch's parameters and apply the rank's rows, BatchNorm takes
+    the global batch's statistics, the model runs under
+    ``DistributedDataParallel`` (its gradients averaged over the group while
+    the backward runs), the criterion averages its number of points, and
+    the returned losses are the group's means (JAX's ``pmean``). A dp-N
+    step so matches the one-device step on the global batch. Dropout masks
+    are drawn per rank.
     """
     augment = augment_batch_pallas if use_pallas_augment else augment_batch
-    if axis_name is not None:
-        raise NotImplementedError("data-parallel training (axis_name) is not ported")
+    replicas: dict = {}  # model -> its DistributedDataParallel wrapper
 
     def train_step(state: TrainState, batch, generator, on_stage=None):
         """``on_stage(name)``, if given, is called as each stage ends
@@ -63,22 +74,30 @@ def make_train_step(criterion_cfg: CriterionConfig, train_cfg: TrainConfig,
         event for a per-stage breakdown."""
         mark = on_stage or (lambda name: None)
         model = state.model
-        images, kp_norm = augment(generator, batch["image"], batch["clip_bbox_buf"],
-                                  batch["landmarks_buf"], augment_cfg)
-        targets = {"labels": batch["labels"], "landmarks": kp_norm}
-        mark("augment")
-        model.train()
-        if compute_dtype is None:
-            images = images.to(next(model.parameters()).dtype)
-        with torch.autocast(images.device.type, dtype=compute_dtype,
-                            enabled=compute_dtype is not None):
-            if denoising:
-                outputs = model(images, {"labels": batch["labels"], "points": kp_norm},
-                                generator)
-            else:
-                outputs = model(images)
-        mark("forward")
-        total, losses = set_criterion(outputs, targets, criterion_cfg)
+        with data_parallel(axis_name, batch["image"].shape[0]):
+            images, kp_norm = augment(generator, batch["image"], batch["clip_bbox_buf"],
+                                      batch["landmarks_buf"], augment_cfg)
+            targets = {"labels": batch["labels"], "landmarks": kp_norm}
+            mark("augment")
+            model.train()
+            forward = model
+            if axis_name is not None:
+                # an RT-DETR's sigma heads are read by the Laplace point
+                # loss alone
+                unread = criterion_cfg.point_loss != "uncert" and any(
+                    "sigma_embed" in n for n, _ in model.named_parameters())
+                forward = ddp_module(model, axis_name, replicas, find_unused_parameters=unread)
+            if compute_dtype is None:
+                images = images.to(next(model.parameters()).dtype)
+            with torch.autocast(images.device.type, dtype=compute_dtype,
+                                enabled=compute_dtype is not None):
+                if denoising:
+                    outputs = forward(images, {"labels": batch["labels"], "points": kp_norm},
+                                      generator)
+                else:
+                    outputs = forward(images)
+            mark("forward")
+            total, losses = set_criterion(outputs, targets, criterion_cfg, axis_name)
         mark("loss")
 
         state.optimizer.zero_grad(set_to_none=True)
@@ -93,6 +112,8 @@ def make_train_step(criterion_cfg: CriterionConfig, train_cfg: TrainConfig,
                        tau=train_cfg.ema_warmups)
         state.step += 1
         mark("optimizer")
+        if axis_name is not None:
+            return group_mean_losses(losses, axis_name)
         return {k: v.detach() for k, v in losses.items()}
 
     return train_step

@@ -8,7 +8,8 @@ with iter/data times and ETA.
 Counterpart of utils/metric_logger.py. `synchronize_between_processes`
 matches the reference's cross-rank all_reduce of (count, total)
 (R2/src/misc/logger.py:37-48) over an initialised ``torch.distributed``
-process group and is a no-op in one process. The smoothing window stays
+process group, on the device its backend takes (the card under NCCL), and
+is a no-op in one process. The smoothing window stays
 process-local, exactly as in the reference.
 """
 from __future__ import annotations
@@ -17,6 +18,18 @@ import datetime
 import time
 from collections import defaultdict, deque
 from typing import Optional
+
+
+def sync_device():
+    """The device whose tensors the default process group's backend reduces:
+    this process's current card under NCCL, which takes CUDA tensors only,
+    and the CPU otherwise."""
+    import torch
+    import torch.distributed as dist
+
+    if dist.get_backend() == "nccl":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
 
 
 class SmoothedValue:
@@ -54,14 +67,16 @@ class SmoothedValue:
 
     def synchronize_between_processes(self):
         """Sum (count, total) across processes (the reference's dist
-        barrier+all_reduce, R2/src/misc/logger.py:37-48). The window deque
+        barrier+all_reduce, R2/src/misc/logger.py:37-48), on the device the
+        default group's backend takes (``sync_device``). The window deque
         stays local, as upstream."""
         import torch
         import torch.distributed as dist
 
         if not (dist.is_available() and dist.is_initialized()):
             return
-        t = torch.tensor([float(self.total), float(self.count)], dtype=torch.float64)
+        t = torch.tensor([float(self.total), float(self.count)], dtype=torch.float64,
+                         device=sync_device())
         dist.all_reduce(t)
         self.total = float(t[0])
         self.count = int(t[1])

@@ -158,7 +158,7 @@ def test_apply_subset_changes_exactly_round_p_b():
     x = torch.from_numpy(_imgs(6, n=10, size=8))
     g = torch.Generator().manual_seed(3)
     for p in (0.0, 0.1, 0.25, 0.45, 1.0):
-        out = augment._apply_subset(g, x, p, lambda g, sub: sub + 1.0)
+        out = augment._apply_subset(g, x, p, lambda sub: sub + 1.0)
         changed = (out != x).flatten(1).any(1)
         assert int(changed.sum()) == int(round(p * 10))
 

@@ -171,11 +171,11 @@ def test_synthetic_det_selfcheck_main(tmp_path):
 
 def test_tasks_and_defaults(tmp_path):
     """TASKS routes the detection task to DetSolver; the solver runs on the
-    card unless asked otherwise, and on one device (JAX's data-parallel
-    ``mesh`` is not an argument)."""
+    card unless asked otherwise, and takes JAX's data-parallel ``mesh``
+    (None: the launched world, one device outside a launcher)."""
     import inspect
 
     cfg = YAMLConfig(cfg=_config(str(tmp_path)))
     solver = TASKS["detection"](cfg)
     assert isinstance(solver, DetSolver) and solver.device == torch.device("cuda")
-    assert "mesh" not in inspect.signature(DetSolver).parameters
+    assert inspect.signature(DetSolver).parameters["mesh"].default is None

@@ -104,7 +104,10 @@ def test_backbone_structure_follows_jax():
     assert isinstance(model.backbone.layer3_1.bn2, torch.nn.GroupNorm)
     assert model.backbone.layer3_1.bn2.eps == 1e-6 and model.backbone.bn1.num_groups == 32
     sync = DETRKeypointModel(DETRConfig(backbone="resnet18", bn="sync_bn", **SIZES))
-    assert type(sync.backbone.layer2_0.downsample_bn) is torch.nn.BatchNorm2d
+    # the port's BatchNorm2d: nn.BatchNorm2d on one device, the global batch's
+    # statistics in a data-parallel step
+    assert type(sync.backbone.layer2_0.downsample_bn) is layers.BatchNorm2d
+    assert isinstance(sync.backbone.layer2_0.downsample_bn, torch.nn.BatchNorm2d)
     with pytest.raises(ValueError):
         DETRKeypointModel(DETRConfig(bn="layer_norm", **SIZES))
 

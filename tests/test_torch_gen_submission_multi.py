@@ -79,14 +79,61 @@ def test_main_writes_the_csv_and_the_raw_predictions(run):
     assert not np.allclose(first[0]["points"], first[1]["points"])
 
 
-def test_parallel_ensemble_raises_until_the_parallel_layer_is_ported(run):
-    args, _, _, _ = run
-    args.parallel_ensemble = True
+def test_parallel_ensemble_raises_until_the_parallel_layer_is_ported(run, tmp_path):
+    """``--parallel_ensemble`` (both checkpoints' forwards at once through
+    ``parallel.ensemble.ensemble_apply``; on the CPU one after another on
+    one device) writes the serial route's CSV, row for row."""
+    args, path, _, _ = run
+    with open(path) as f:
+        serial = list(csv.reader(f))
+    args.parallel_ensemble, submission_dir = True, args.submission_dir
+    args.submission_dir = str(tmp_path / "parallel")
     try:
-        with pytest.raises(NotImplementedError, match="slice 8"):
-            multi.main(args)
+        with pytest.MonkeyPatch.context() as mp:
+            mp.chdir(tmp_path)
+            with open(multi.main(args)) as f:
+                assert list(csv.reader(f)) == serial
     finally:
-        args.parallel_ensemble = False
+        args.parallel_ensemble, args.submission_dir = False, submission_dir
+
+
+def test_parallel_ensemble_places_the_models_once_a_split(run, monkeypatch):
+    """Over two devices (two entries for the CPU), ``gen_prediction_parallel``
+    builds each device's replica and weights once for the whole split, not
+    once a batch, and predicts what the one-device route predicts."""
+    from satellite_pose_estimation_tpu_torch.data.dataset import SpeedSubmissionDataset
+    from satellite_pose_estimation_tpu_torch.parallel import ensemble
+
+    args, _, ckpts, _ = run
+    trees = []
+    for ckpt in ckpts:
+        solver = SpeedSolver(args_to_config(args), data_root=args.data_root, seed=args.seed,
+                             device="cpu")
+        solver.resume(ckpt)
+        solver._build()
+        trees.append({k: v.detach().clone() for k, v in solver.state.model.state_dict().items()})
+    model = solver.state.model
+    ds = SpeedSubmissionDataset(args.data_root, args.synt_ann_file, args.synt_img_dir,
+                                resize=args.input_size)  # 2 frames: 2 batches of 1
+    calls = {"place": 0, "apply": 0}
+
+    def counted(name, fn):
+        def wrapper(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+        return wrapper
+
+    monkeypatch.setattr(multi, "place_ensemble", counted("place", ensemble.place_ensemble))
+    monkeypatch.setattr(multi, "ensemble_apply", counted("apply", ensemble.ensemble_apply))
+    got = multi.gen_prediction_parallel(model, trees, ds, 1, args.input_size, None, "cpu",
+                                        devices=["cpu", "cpu"])
+    assert calls == {"place": 1, "apply": 2}, calls
+    ref = multi.gen_prediction_parallel(model, trees, ds, 1, args.input_size, None, "cpu")
+    assert sorted(got) == sorted(ref)
+    for f in ref:
+        for a, b in zip(got[f], ref[f]):
+            np.testing.assert_allclose(a["points"], b["points"], rtol=1e-5, atol=1e-4)
+            np.testing.assert_allclose(a["logits"], b["logits"], rtol=1e-5, atol=1e-6)
 
 
 def _pooled(seed, n_images=4, M=3, Q=20):

@@ -620,3 +620,77 @@ _LIBRARY_ATTENTION = ("scaled_dot_product_attention", "MultiheadAttention",
 def test_port_sources_call_no_library_attention(path):
     text = path.read_text()
     assert not [name for name in _LIBRARY_ATTENTION if name in text]
+
+
+_TWO_RANK_STEP = r"""
+import sys
+for name in ("jax", "jaxlib", "flax", "optax", "satellite_pose_estimation_tpu"):
+    sys.modules[name] = None  # any import of these now raises ImportError (each rank too)
+
+import os
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+
+def rank_main(rank, init):
+    torch.set_num_threads(1)
+    sys.path.insert(0, os.getcwd())
+    dist.init_process_group("gloo", init_method="file://" + init, world_size=2, rank=rank)
+    from satellite_pose_estimation_tpu_torch.data.augment import AugmentConfig
+    from satellite_pose_estimation_tpu_torch.losses.criterion import CriterionConfig
+    from satellite_pose_estimation_tpu_torch.models.detr import DETRConfig, build_detr_train_model
+    from satellite_pose_estimation_tpu_torch.parallel.mesh import create_mesh, shard_batch
+    from satellite_pose_estimation_tpu_torch.train.state import TrainConfig, create_train_state
+    from satellite_pose_estimation_tpu_torch.train.steps import make_train_step
+
+    model = build_detr_train_model(DETRConfig(bn="sync_bn", hidden_dim=32, nheads=4,
+                                              enc_layers=1, dec_layers=1, dim_feedforward=64,
+                                              dropout=0.0), seed=0, device="cpu")
+    cfg = TrainConfig(use_ema=True)
+    state = create_train_state(model, cfg)
+    mesh = create_mesh(device="cpu")
+    step = make_train_step(CriterionConfig(), cfg, AugmentConfig(out_size=64, p_rotate=0.5),
+                           axis_name=mesh)
+    g = torch.Generator().manual_seed(0)
+    batch = {
+        "image": torch.randint(0, 256, (4, 80, 80, 3), generator=g, dtype=torch.uint8),
+        "clip_bbox_buf": torch.tensor([[4.0, 4.0, 76.0, 76.0]] * 4),
+        "landmarks_buf": torch.rand(4, 11, 2, generator=g) * 60 + 8,
+        "labels": torch.arange(11).repeat(4, 1),
+    }
+    losses = step(state, shard_batch(batch, mesh), torch.Generator().manual_seed(1))
+    total = torch.tensor([float(losses["loss_total"])])
+    gathered = [torch.zeros(1), torch.zeros(1)]
+    dist.all_gather(gathered, total)
+    assert torch.isfinite(total).all() and gathered[0] == gathered[1], gathered
+    loaded = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
+                                           "satellite_pose_estimation_tpu")
+                    and sys.modules[m] is not None)
+    assert not loaded, loaded
+    dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    mp.spawn(rank_main, args=(sys.argv[1],), nprocs=2)
+    print("OK")
+"""
+
+
+def test_port_runs_a_two_rank_data_parallel_step_with_jax_blocked(tmp_path):
+    """Two gloo ranks (``torch.multiprocessing.spawn``) take one dp train
+    step (sync_bn, DDP, the global augmentation draws) with jax, flax and
+    the JAX package blocked in every process: the same finite loss on both."""
+    script = tmp_path / "two_ranks.py"
+    script.write_text(_TWO_RANK_STEP)
+    proc = subprocess.run([sys.executable, str(script), str(tmp_path / "rendezvous")], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.splitlines()[-1] == "OK"
+
+
+def test_the_import_scan_covers_the_parallel_layer():
+    scanned = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")}
+    assert {f"parallel/{m}.py" for m in ("mesh", "ensemble", "multihost", "tp", "sp", "pp")} \
+        <= scanned
