@@ -7,8 +7,8 @@ Run from the repository root on a machine with a CUDA GPU (an H100 is the
 target). It builds the port's CUDA kernels from ``satellite_pose_estimation
 _tpu_torch/csrc`` with nvcc (K1, the fused attention forward; K2, its
 backward; K3, the rotation; K4, the fused photometric chain; K5, flash
-attention -- one nvcc per source, all started together), then runs
-thirty-four phases and exits non-zero if any fails:
+attention; K6, the int8 attention core -- one nvcc per source, all started
+together), then runs thirty-five phases and exits non-zero if any fails:
 
 1. the card's name and power limit, the kernel build time, and each
    kernel's registers, shared memory and spills (ptxas's own lines);
@@ -195,7 +195,8 @@ thirty-four phases and exits non-zero if any fails:
    gradients at B = 2 (ill-conditioned at random init: the card within 3x
    the CPU float32's distance to the CPU's float64, the encoder's top-k
    heads card vs CPU within 1e-3 relative L2); rates with forward /
-   match / loss / backward / optimizer spans and peak memory, the stacked
+   match / loss / backward / optimizer spans (read in the rate windows'
+   own steps) and peak memory, the stacked
    Hungarian's device kernels a call; K2's time at both shapes beside its
    plain version, SDPA's backward and its bound;
 27. ``tools/train.py``'s ``main`` on the det YAML over a rendered synthetic
@@ -253,7 +254,23 @@ thirty-four phases and exits non-zero if any fails:
    under ``tp_activation_sharding`` (K1 once per encoder layer at
    (256, 4, 784, 32) on each rank) against the unsharded eval (points, in
    units of the crop, and probabilities within 2e-2), and the float32
-   model at B = 8 (1e-4).
+   model at B = 8 (1e-4);
+35. K6, the int8 attention core (``ops.quantize.int8_attention_core``),
+   against its plain version on the same codes at (B, H, Tq, Tk) =
+   (256, 8, 784, 784), (64, 8, 256, 256), (256, 8, 20, 784), (256, 8, 1, 1)
+   and (256, 8, 49, 49), head dims 16, 32, 48, 64 and 128, bf16 and
+   float32, static and dynamic scales (bf16: K1's gates; float32: the int32
+   scores bit for bit, the probability codes at most one apart on at most
+   0.1% of them, the output within 1e-4 relative L2); the full-width int8
+   DETR at B = 256 @224 bf16 (bench's int8 eval, scope ``conv,ffn``) with
+   its encoder attentions on the core, calibrated on 2 warped batches
+   (``amax_q`` / ``amax_k`` / ``amax_v`` beside the other sites): K6 once
+   per encoder layer and step at (256, 8, 784, 32), each launch held to
+   plain, img/s and the "model" span beside the same weights without the
+   core (phase 12's route), the float32 model card vs CPU (probabilities
+   median 1e-3, max 1e-2; every static scale equal bit for bit); under
+   ``conv,ffn,dec`` K6 also at the decoder's (20, 20) and (20, 784); K6's
+   time (CUDA events and a CUDA graph) beside its plain version and bound.
 Phase 23 also runs ``--parallel_ensemble`` (the three models on the one
 card), whose CSV must equal the serial route's. The child processes of
 phases 32-34 reuse the kernels built in phase 1 (``--child`` runs one).
@@ -477,10 +494,12 @@ def sdpa_kernels(torch, fn):
     return sorted({e.key[:70] for e in prof.key_averages() if e.device_type.name == "CUDA"})
 
 
-def device_launches(torch, fn):
-    """The number of device kernels one call of ``fn`` runs (profiler)."""
+def device_launches(torch, fn, warm=True):
+    """The number of device kernels one call of ``fn`` runs (profiler),
+    after a warm-up call unless ``warm`` is False (``fn`` already ran)."""
     from torch.profiler import ProfilerActivity, profile
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
@@ -566,23 +585,31 @@ def _kernel_modules():
     return fused_attention, pallas_rotate, pallas_augment, flash_attention
 
 
+def _k6_module():
+    from satellite_pose_estimation_tpu_torch.ops import quantize
+    return quantize
+
+
 def zero_counts():
     """Set every kernel's launch count to 0."""
     fa, pr, pa, fl = _kernel_modules()
     fa.launch_count = fa.bwd_launch_count = pr.launch_count = pa.launch_count = 0
     fl.launch_count = fl.bwd_launch_count = 0
+    _k6_module().launch_count = 0
 
 
 def counts():
-    """Every kernel's launch count: K1, K2, K3, K4, K5 forward and backward."""
+    """Every kernel's launch count: K1, K2, K3, K4, K5 forward and backward,
+    K6."""
     fa, pr, pa, fl = _kernel_modules()
     return {"k1": fa.launch_count, "k2": fa.bwd_launch_count, "k3": pr.launch_count,
-            "k4": pa.launch_count, "k5": fl.launch_count, "k5_bwd": fl.bwd_launch_count}
+            "k4": pa.launch_count, "k5": fl.launch_count, "k5_bwd": fl.bwd_launch_count,
+            "k6": _k6_module().launch_count}
 
 
 def expected(**nonzero):
     """A launch-count dict with the given counts and 0 for every other kernel."""
-    return {**{k: 0 for k in ("k1", "k2", "k3", "k4", "k5", "k5_bwd")}, **nonzero}
+    return {**{k: 0 for k in ("k1", "k2", "k3", "k4", "k5", "k5_bwd", "k6")}, **nonzero}
 
 
 def recorded_quantize(quantize, fn, keep=None):
@@ -654,8 +681,9 @@ def main() -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.device_count()} device(s)")
     _, pr, pa, fl = _kernel_modules()
+    iq = _k6_module()
     loaders = [fa.load_library, fa.load_bwd_library, pr.load_library, pa.load_library,
-               fl.load_library]
+               fl.load_library, iq.load_library]
     def build(load):
         start = time.perf_counter()
         load()
@@ -668,7 +696,7 @@ def main() -> int:
     from satellite_pose_estimation_tpu_torch.utils.cuda_build import library_path
     for lib, sources in (("fused_attention", fa.SOURCES), ("fused_attention_bwd", fa.BWD_SOURCES),
                          ("rotate_shear3", pr.SOURCES), ("fused_photometric", pa.SOURCES),
-                         ("flash_attention", fl.SOURCES)):
+                         ("flash_attention", fl.SOURCES), ("int8_attention", iq.SOURCES)):
         report = library_path(lib, sources).with_suffix(".ptxas.txt").read_text()
         for line in report.splitlines():
             if "entry function" in line or "spill" in line or "Used" in line:
@@ -676,8 +704,8 @@ def main() -> int:
     log("  build and load of each library, in parallel: " + ", ".join(
         f"{lib} {t:.2f} s" for lib, t in zip(("fused_attention", "fused_attention_bwd",
                                                "rotate_shear3", "fused_photometric",
-                                               "flash_attention"), each_s)))
-    log(f"phase 1 ok: K1, K2, K3, K4 and K5 built and loaded in {build_s:.2f} s")
+                                               "flash_attention", "int8_attention"), each_s)))
+    log(f"phase 1 ok: K1, K2, K3, K4, K5 and K6 built and loaded in {build_s:.2f} s")
 
     # -- 2. kernel against its plain version ---------------------------------
     sm_scale = 32 ** -0.5
@@ -858,6 +886,7 @@ def main() -> int:
     det = det_phases(torch, card, dev, g)
     tools = tool_phases(torch, card, dev, spans5)
     par = parallel_phases(torch, card, dev, g)
+    k6 = int8_core_phase(torch, card, dev, g)
 
     def head_dims(name):
         """Each new head-dim instance's record for the kernels line: its
@@ -992,6 +1021,26 @@ def main() -> int:
                              "detr_head_dims_16_48_64_128": paths_k["k5_bwd"]},
         **routes["times"]["k5_bwd"],
         "head_dims": head_dims("k5_bwd"),
+    }, {
+        "name": "int8_attention",
+        "route": "cuda",
+        "source": "satellite_pose_estimation_tpu_torch/csrc/int8_attention.cu",
+        "replaces": "satellite_pose_estimation_tpu/ops/quantize.py:104",
+        "not_pallas": "JAX's int8_attention_core is two XLA dot_generals around a softmax",
+        "launches": sum(k6["launches"].values()),
+        "launches_by_path": k6["launches"],
+        "launches_per_int8_core_eval_step": k6["per_step"],
+        "max_abs_err": k6["max_abs_err"],
+        **{key: k6["times"][0][key] for key in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                                "bound_by", "graph_ms", "core_ms", "shape",
+                                                "dtype")},
+        "sdpa_float_core_ms_another_function": k6["times"][0]["sdpa_float_core_ms"],
+        "other_shapes": k6["times"][1:],
+        "sweep": k6["sweep"],
+        "eval_img_s": k6["img_s"],
+        "eval_model_ms": k6["model_ms"],
+        "card_vs_cpu_float32_probs": k6["card_vs_cpu"],
+        "phase_seconds": k6["seconds"],
     }]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",
@@ -4010,8 +4059,6 @@ def det_phases(torch, card, dev, g):
     step = train_steps[f32]
     b640 = [det_batch(TB, size, gen) for _ in range(2)]
     b480 = det_batch(TB, 480, gen)
-    step(state, *b640[0], gen)  # warm-up
-    step(state, *b480, gen)
     with held() as recs:
         losses = [step(state, *b, gen) for b in b640]
     got = by_shape(recs)
@@ -4062,8 +4109,8 @@ def det_phases(torch, card, dev, g):
     # score check) and the card's assignments (after counting their own).
     # The det model's float32 gradients are ill-conditioned at random init:
     # two CPU float32 runs that differ only in their thread count (so in
-    # their sums' order) lie ~1e-2 apart (relative L2), printed here, so no
-    # float32 run sits within 1e-3 of another. As phase 16 holds gradients
+    # their sums' order) lay 6.0e-3 apart (relative L2, measured on an
+    # H100's host; PERF.md), so no float32 run sits within 1e-3 of another. As phase 16 holds gradients
     # through BN batch statistics, the card's float32 gradients are held no
     # farther from the CPU's float64 ones than three times the CPU
     # float32's are, and the encoder's top-k heads (their gradient passes
@@ -4082,13 +4129,11 @@ def det_phases(torch, card, dev, g):
         return q4ts
 
     rtdetr_decoder.topk, det_criterion.match_levels = topk_spy(card_pick, on_cpu, gaps), spy_match
-    grads, threads = {}, torch.get_num_threads()
+    grads = {}
     try:
-        for name, where, dtype, n_threads in (
-                ("card", dev, f32, threads), ("cpu", "cpu", f32, threads),
-                ("cpu 3 threads", "cpu", f32, 3), ("cpu float64", "cpu", torch.float64, threads)):
+        for name, where, dtype in (("card", dev, f32), ("cpu", "cpu", f32),
+                                   ("cpu float64", "cpu", torch.float64)):
             on_cpu[0] = name != "card"
-            torch.set_num_threads(n_threads)
             m = build_rtdetr_train_model(mcfg, seed=2, device=where).to(dtype)
             x, lab, box = (t.to(where) for t in small)
             with highest_precision():
@@ -4100,7 +4145,6 @@ def det_phases(torch, card, dev, g):
             del m
     finally:
         rtdetr_decoder.topk, det_criterion.match_levels = real_topk, real_match
-        torch.set_num_threads(threads)
 
     def heads(gr):
         return {n: v for n, v in gr.items() if n.startswith("decoder.enc_")}
@@ -4109,12 +4153,10 @@ def det_phases(torch, card, dev, g):
     card64 = grad_gap(grads["card"], grads["cpu float64"])[0]
     cpu64 = grad_gap(grads["cpu"], grads["cpu float64"])[0]
     head_rel = grad_gap(heads(grads["card"]), heads(grads["cpu"]))[0]
-    spread = grad_gap(grads["cpu 3 threads"], grads["cpu"])[0]
     gap = max(gp for _, gp in gaps)
     result["grad_rel_l2"] = {"card_vs_cpu": rel, "card_vs_cpu64": card64, "cpu_vs_cpu64": cpu64,
-                             "cpu_threads_spread": spread, "enc_heads_card_vs_cpu": head_rel}
-    log(f"  det float32 B={len(small[0])} gradients, relative L2: card vs CPU {rel:.3e}, the CPU "
-        f"on {threads} vs 3 threads {spread:.3e}; from "
+                             "enc_heads_card_vs_cpu": head_rel}
+    log(f"  det float32 B={len(small[0])} gradients, relative L2: card vs CPU {rel:.3e}; from "
         f"the CPU's float64: card {card64:.3e}, CPU float32 {cpu64:.3e} (the card's limit: three "
         f"times the CPU's); the encoder's top-k heads card vs CPU {head_rel:.3e} (tolerance 1e-3); "
         f"worst tensors card vs CPU " + ", ".join(f"{v:.3e} {n}" for v, n in worst_t)
@@ -4127,43 +4169,40 @@ def det_phases(torch, card, dev, g):
     log("phase 26 ok: the det train step ran K1 and K2 7 times a step at 640 and 6 at 480")
 
     # Rate, spans and peak memory (float32 as published, and bf16 autocast):
-    # one step a window, as a step takes seconds (the match).
+    # one step a window, as a step takes seconds (the match); the stage
+    # spans are read from CUDA events recorded in the windows' own steps.
     names = ("forward", "match", "loss", "backward", "optimizer")
     pool = [det_batch(TB, size, gen) for _ in range(windows)]
     for dtype, tstep in train_steps.items():
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        r = []
+        r, per = [], {n: [] for n in names}
         for w in range(windows):
-            t0 = time.perf_counter()
-            tstep(state, *pool[w], gen)
-            torch.cuda.synchronize()
-            r.append(TB / (time.perf_counter() - t0))
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        per = {n: [] for n in names}
-        for b in pool[:2]:
-            events = [torch.cuda.Event(enable_timing=True)]
-            events[0].record()
+            events = []
 
             def mark(name):
                 events.append(torch.cuda.Event(enable_timing=True))
                 events[-1].record()
 
-            tstep(state, *b, gen, on_stage=mark)
+            t0 = time.perf_counter()
+            mark("start")
+            tstep(state, *pool[w], gen, on_stage=mark)
             torch.cuda.synchronize()
+            r.append(TB / (time.perf_counter() - t0))
             for n, e0, e1 in zip(names, events, events[1:]):
                 per[n].append(e0.elapsed_time(e1))
+        peak = torch.cuda.max_memory_allocated() / 2**30
         spans = {n: statistics.median(v) for n, v in per.items()}
         result[f"train_{str(dtype)[6:]}"] = {"img_s": r, "spans_ms": spans, "peak_gib": peak}
         log(f"  det train step B={TB} @{size} {str(dtype)[6:]}: median "
             f"{statistics.median(r):.2f} img/s (min {min(r):.2f}, max {max(r):.2f}; {windows} "
-            f"windows of 1 step); spans (median of 2 steps) "
+            f"windows of 1 step); spans (median over the windows' steps) "
             + ", ".join(f"{k} {v:.3f} ms" for k, v in spans.items())
             + f"; peak device memory {peak:.2f} GiB on {card}")
     match_launches = device_launches(torch, lambda: det_criterion.match_levels(
         [{"pred_logits": torch.randn(TB, 300, 81, device=dev),
           "pred_points": torch.rand(TB, 300, 4, device=dev)} for _ in range(7)],
-        {"labels": pool[0][1], "boxes": pool[0][2]}, crit))
+        {"labels": pool[0][1], "boxes": pool[0][2]}, crit), warm=False)  # the steps ran it
     result["match_device_kernels"] = match_launches
     log(f"  the stacked Hungarian of 7 levels x B={TB} at 300 queries x {T_MAX} targets: "
         f"{match_launches} device kernels a call")
@@ -5051,6 +5090,308 @@ def parallel_phases(torch, card, dev, g):
                     "recs": tp_recs}
     log(f"phase 34 ok: TP=2 over gloo on one card ({time.perf_counter() - t_phase:.1f} s, "
         f"ranks' wall {wall:.1f} s)")
+    return result
+
+
+# K6 against its plain version: the largest error within this factor times
+# 1 + the largest plain value, and the relative L2 error within the second
+# number. float32: the scores are the same integers and a probability code
+# may move by one where exp's rounding crosses a .5 boundary, so the output
+# is held by its relative L2 (and the codes by their own gate below).
+K6_GATES = {"torch.float32": (2e-2, 1e-4), "torch.bfloat16": (2e-2, 1e-2)}
+INT8_OPS_S = 1979e12  # H100 SXM dense int8 tensor-core peak (NVIDIA's data sheet)
+
+
+def k6_bound(qq, kq, out):
+    """K6's bound on its codes: 4 B H Tq Tk D int8 operations (two products)
+    at the int8 peak, against the codes read once and the output written
+    once at the memory rate."""
+    B, H, Tq, D = qq.shape
+    Tk = kq.shape[2]
+    ops = 4.0 * B * H * Tq * Tk * D
+    nbytes = B * H * (Tq + 2 * Tk) * D + out.numel() * out.element_size()
+    ops_ms, bytes_ms = ops / INT8_OPS_S * 1e3, nbytes / HBM_BYTE_S * 1e3
+    return {"bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def k6_checker(torch):
+    """A context manager ``held()`` for K6 as ``launch_checker`` is for K1 /
+    K2: counts set to 0, every K6 launch in the block held to the plain
+    version on its own codes and scales (autocast off) under ``K6_GATES``;
+    yields records as ``launch_checker``'s, with the shape (B, H, Tq, Tk,
+    D)."""
+    quantize = _k6_module()
+    launches, real = [], quantize._kernel
+
+    def spy(qq, kq, vq, scales, dtype, probes=False):
+        out = real(qq, kq, vq, scales, dtype, probes)
+        with torch.no_grad(), torch.autocast(qq.device.type, enabled=False):
+            ref = quantize.int8_attention_plain(qq, kq, vq, scales[0], scales[1], dtype)
+        o = out[0] if probes else out
+        tol, rel_tol = K6_GATES[str(dtype)]
+        raw = max_err(o, ref)
+        err, rel = raw / (1.0 + ref.float().abs().max().item()), rel_l2(o, ref)
+        shape = tuple(qq.shape[:3]) + (kq.shape[2], qq.shape[3])
+        launches.append(("K6", shape, dtype, err, rel, raw))
+        require(err <= tol and rel <= rel_tol,
+                f"K6 at {shape} {dtype} disagrees with its plain version: {err:.3e} of 1 + "
+                f"max|plain| (limit {tol:g}), relative L2 {rel:.3e} (limit {rel_tol:g})")
+        return out
+
+    @contextlib.contextmanager
+    def held():
+        launches.clear()
+        quantize._kernel = spy
+        zero_counts()
+        try:
+            yield launches
+            torch.cuda.synchronize()
+        finally:
+            quantize._kernel = real
+
+    return held
+
+
+def int8_core_phase(torch, card, dev, g):
+    """Phase 35: K6, the int8 attention core, against its plain version over
+    shapes, head dims, dtypes and scales; the full-width int8 DETR eval with
+    its encoder attentions on the core (bench's int8 eval plus the core) and
+    the decoder's under ``conv,ffn,dec``; K6's times and bound."""
+    from satellite_pose_estimation_tpu_torch.models import layers
+    from satellite_pose_estimation_tpu_torch.models.detr import DETRConfig, build_detr_model
+    from satellite_pose_estimation_tpu_torch.models.transformer import _Attention
+    from satellite_pose_estimation_tpu_torch.ops.image_warp import crop_resize_cubic_mxu
+    from satellite_pose_estimation_tpu_torch.ops.precision import highest_precision
+    from satellite_pose_estimation_tpu_torch.train.steps import make_eval_step
+    from satellite_pose_estimation_tpu_torch.utils.calibrate import calibrate_act_scales
+
+    iq = _k6_module()
+    bf16, f32 = torch.bfloat16, torch.float32
+    t_phase = time.perf_counter()
+    result = {"launches": {}, "max_abs_err": 0.0}
+
+    def with_core(model):
+        for m in model.modules():
+            if isinstance(m, _Attention) and m.quant:
+                m.quant_core = True
+        return model
+
+    def inputs(B, H, Tq, Tk, D, dtype):
+        """(B, H, T, D) views of (B, T, H, D) buffers, as the projections
+        give them."""
+        return [torch.randn(B, T, H, D, generator=g, device=dev).to(dtype).transpose(1, 2)
+                for T in (Tq, Tk, Tk)]
+
+    def codes_of(q, k, v, scales, sm):
+        (qq, qs), (kq, ks), (vq, vs) = (iq._act_quantize(t, s)
+                                        for t, s in zip((q, k, v), scales))
+        return qq, kq, vq, qs * ks * sm, iq._div127(vs)
+
+    # -- K6 against its plain version ---------------------------------------
+    # (B, H, Tq, Tk): the encoder (256, 8, 784), RT-DETR's AIFI (64, 8, 256),
+    # the decoder's cross attention 20 x 784, one token and a 7 x 7 map.
+    shapes = [(256, 8, 784, 784), (64, 8, 256, 256), (256, 8, 20, 784), (256, 8, 1, 1),
+              (256, 8, 49, 49)]
+    worst = {str(d)[6:]: {"err": 0.0, "rel": 0.0} for d in (bf16, f32)}
+    flips = {"moved": 0, "codes": 0, "max_apart": 0}
+    scores_equal = True
+    for B, H, Tq, Tk in shapes:
+        for D in (16, 32, 48, 64, 128):
+            for dtype in (bf16, f32):
+                for static in (False, True):
+                    q, k, v = inputs(B, H, Tq, Tk, D, dtype)
+                    scales = [t.float().abs().amax() * 0.8 if static else None
+                              for t in (q, k, v)]
+                    codes = codes_of(q, k, v, scales, D ** -0.5)
+                    probes = dtype == f32
+                    got = iq._launch(*codes, dtype, probes=probes)
+                    out = got[0] if probes else got
+                    s_ref = iq.int8_scores(*codes[:2])
+                    p_ref = iq.probability_codes(s_ref, codes[3], dtype)
+                    ref = iq.int8_av(p_ref, codes[2], codes[4], dtype)
+                    tol, rel_tol = K6_GATES[str(dtype)]
+                    raw = max_err(out, ref)
+                    err, rel = raw / (1.0 + ref.float().abs().max().item()), rel_l2(out, ref)
+                    w = worst[str(dtype)[6:]]
+                    w["err"], w["rel"] = max(w["err"], err), max(w["rel"], rel)
+                    result["max_abs_err"] = max(result["max_abs_err"], raw)
+                    require(err <= tol and rel <= rel_tol,
+                            f"K6 at {(B, H, Tq, Tk, D)} {dtype} static={static}: {err:.3e} of "
+                            f"1 + max|plain| (limit {tol:g}), relative L2 {rel:.3e} "
+                            f"(limit {rel_tol:g})")
+                    if probes:
+                        _, s, p = got
+                        scores_equal &= torch.equal(s, s_ref)
+                        apart = (p - p_ref).abs()  # codes in [0, 127]: no int8 overflow
+                        moved = int((apart > 0).sum())
+                        require(torch.equal(s, s_ref) and int(apart.max()) <= 1
+                                and moved <= 1e-3 * p.numel(),
+                                f"K6 at {(B, H, Tq, Tk, D)} float32: scores or codes")
+                        flips["moved"] += moved
+                        flips["codes"] += p.numel()
+                        flips["max_apart"] = max(flips["max_apart"], int(apart.max()))
+                        del s, p, apart
+                    del q, k, v, codes, got, out, s_ref, p_ref, ref
+    torch.cuda.empty_cache()
+    result["sweep"] = {"worst": worst, "codes_moved": flips["moved"],
+                       "codes_checked": flips["codes"]}
+    log(f"  K6 vs plain over (B, H, Tq, Tk) {shapes} x D 16 / 32 / 48 / 64 / 128 x static and "
+        f"dynamic scales: bf16 worst {worst['bfloat16']['err']:.3e} of 1 + max|plain| (limit 2e-2), "
+        f"relative L2 {worst['bfloat16']['rel']:.3e} (limit 1e-2); float32 worst "
+        f"{worst['float32']['err']:.3e}, relative L2 {worst['float32']['rel']:.3e} (limit 1e-4), "
+        f"int32 scores equal: {scores_equal}, probability codes moved {flips['moved']} of "
+        f"{flips['codes']} ({flips['moved'] / flips['codes']:.3e}; limit 1e-3 a call), by at most "
+        f"{flips['max_apart']}")
+
+    # -- the full-width int8 eval with the core -------------------------------
+    base = dict(backbone="resnet50s8", hidden_dim=256, nheads=8, enc_layers=4, dec_layers=4,
+                dim_feedforward=2048, num_queries=20, dropout=0.0, quantize_int8=True)
+    size, EB, steps, windows = 224, 256, 5, 3
+    held = k6_checker(torch)
+    scope = os.environ.get("SPE_INT8_SCOPE", "conv,ffn")
+    core = with_core(build_detr_model(DETRConfig(**base), seed=0, device=dev))
+    plain = build_detr_model(DETRConfig(**base), seed=0, device=dev)  # phase 12's route
+    pool = [eval_batch(torch, dev, EB, g) for _ in range(steps * windows + 3)]
+    warp = [crop_resize_cubic_mxu(b["image"], b["clip_bbox_buf"], size, True) for b in pool[:2]]
+    t0 = time.perf_counter()
+    quant = calibrate_act_scales(core, warp, compute_dtype=bf16)
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t0
+    quant_plain = calibrate_act_scales(plain, warp, compute_dtype=bf16)
+    del warp
+    core_keys = [k for k in quant if k.rsplit(".", 1)[1] in layers.CORE_SITES]
+    require(len(core_keys) == 3 * base["enc_layers"] and set(quant) - set(core_keys)
+            == set(quant_plain), "the core's calibration sites")
+    step_core = make_eval_step(out_size=size, compute_dtype=bf16, quant=quant)
+    step_plain = make_eval_step(out_size=size, compute_dtype=bf16, quant=quant_plain)
+    for step, net in ((step_core, core), (step_plain, plain)):
+        step(net, pool[0])  # warm-up
+    torch.cuda.synchronize()
+    with held() as recs:
+        results = [step_core(core, b) for b in pool[:3]]
+    seen, got = counts(), launches_by_shape(recs)
+    log(f"  int8 eval with the core, scope {scope}, B={EB} @224: {len(quant)} sites "
+        f"({len(core_keys)} amax_q / amax_k / amax_v), calibrated in {calib_s:.3f} s; launches in "
+        f"3 steps {seen}, by shape {got}, each held to plain: worst {worst_launch(recs)[0]:.3e} "
+        f"of 1 + max|plain|, relative L2 {worst_launch(recs)[1]:.3e}")
+    require(seen == expected(k6=3 * base["enc_layers"])
+            and got == [(("K6", (EB, 8, 784, 784, 32), "bfloat16"), 3 * base["enc_layers"])],
+            "the int8 eval with the core did not launch K6 once per encoder layer")
+    result["launches"]["eval_int8_core_static"] = seen["k6"]
+    result["per_step"] = seen["k6"] // 3
+    result["max_abs_err"] = max(result["max_abs_err"], max(r[5] for r in recs))
+    for res in results:
+        for key_, val in res.items():
+            if val.is_floating_point():
+                require(bool(torch.isfinite(val).all()), f"int8 core eval {key_} not finite")
+
+    def rate(step, net):
+        rates = []
+        for w in range(windows):
+            chunk = pool[3 + w * steps: 3 + (w + 1) * steps]
+            t0 = time.perf_counter()
+            for b in chunk:
+                step(net, b)
+            torch.cuda.synchronize()
+            rates.append(EB * steps / (time.perf_counter() - t0))
+        return rates
+
+    imgs = crop_resize_cubic_mxu(pool[3]["image"], pool[3]["clip_bbox_buf"], size, True)
+    rates, spans = {}, {}
+    for name, step, net, q_ in (("without the core (phase 12's route)", step_plain, plain,
+                                 quant_plain), ("with the core", step_core, core, quant)):
+        rates[name] = rate(step, net)
+        static = layers.site_scales(net, q_)
+        with torch.inference_mode(), torch.autocast("cuda", dtype=bf16), \
+                layers.static_scales(static):
+            net(imgs)
+            torch.cuda.synchronize()
+            spans[name] = statistics.median(cuda_ms(lambda: net(imgs), 1, torch)
+                                            for _ in range(3))
+        r = rates[name]
+        log(f"  int8 static eval step {name}, B={EB} @224: median {statistics.median(r):.2f} "
+            f"img/s (min {min(r):.2f}, max {max(r):.2f}; 3 windows of {steps} steps), \"model\" "
+            f"span {spans[name]:.3f} ms on {card}")
+    result["img_s"], result["model_ms"] = rates, spans
+    del plain, imgs, results
+
+    # float32: the card (K6, TF32 off) against the CPU (plain version) on the
+    # card's calibrated ranges; every site's static scale, the core's
+    # included, equal bit for bit.
+    cpu = with_core(build_detr_model(DETRConfig(**base), seed=0, device="cpu"))
+    small = {k: v[:2] for k, v in pool[0].items()}
+    with highest_precision():
+        out_gpu, rec_gpu = recorded_quantize(
+            iq, lambda: make_eval_step(out_size=size, quant=quant)(core, small))
+        out_cpu, rec_cpu = recorded_quantize(
+            iq, lambda: make_eval_step(out_size=size, quant={k: v.cpu() for k, v in quant.items()})(
+                cpu, {k: v.cpu() for k, v in small.items()}))
+    d = (out_gpu["probs"].cpu() - out_cpu["probs"]).abs()
+    scales_equal = (len(rec_gpu) == len(rec_cpu) == len(quant)
+                    and all(torch.equal(rec_gpu[i][1], rec_cpu[i][1]) for i in rec_gpu))
+    log(f"  float32 int8 model with the core, card vs CPU, B=2: probabilities median "
+        f"{d.median().item():.3e} (limit 1e-3), max {d.max().item():.3e} (limit 1e-2); "
+        f"{len(rec_gpu)} sites quantized, every static scale equal: {scales_equal}")
+    require(d.median().item() <= 1e-3 and d.max().item() <= 1e-2 and scales_equal,
+            "the float32 int8 model with the core disagrees with the CPU")
+    result["card_vs_cpu"] = {"median": d.median().item(), "max": d.max().item()}
+    del cpu, core, pool
+
+    # The decoder's attentions under conv,ffn,dec: K6 at (20, 20) and (20, 784).
+    prev = os.environ.get("SPE_INT8_SCOPE")
+    os.environ["SPE_INT8_SCOPE"] = "conv,ffn,dec"  # read when the model is built
+    try:
+        dec = with_core(build_detr_model(DETRConfig(**base), seed=0, device=dev))
+    finally:
+        if prev is None:
+            del os.environ["SPE_INT8_SCOPE"]
+        else:
+            os.environ["SPE_INT8_SCOPE"] = prev
+    batch = eval_batch(torch, dev, 8, g)
+    make_eval_step(out_size=size, compute_dtype=bf16)(dec, batch)  # warm-up
+    with held() as recs:
+        make_eval_step(out_size=size, compute_dtype=bf16)(dec, batch)
+    got = launches_by_shape(recs)
+    want = [(("K6", (8, 8, T, Tk, 32), "bfloat16"), 4) for T, Tk in ((20, 20), (20, 784),
+                                                                      (784, 784))]
+    log(f"  scope conv,ffn,dec, B=8, dynamic scales: K6 launches by shape {got}, each held to "
+        f"plain: worst {worst_launch(recs)[0]:.3e} of 1 + max|plain|")
+    require(counts() == expected(k6=12) and got == want,
+            "the decoder's attentions did not launch K6 under conv,ffn,dec")
+    result["launches"]["eval_int8_core_dec_scope"] = counts()["k6"]
+    result["max_abs_err"] = max(result["max_abs_err"], max(r[5] for r in recs))
+    del dec
+
+    # -- K6's time, by CUDA events and from a CUDA graph ----------------------
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    result["times"] = []
+    for B, H, Tq, Tk in ((EB, 8, 784, 784), (64, 8, 256, 256), (EB, 8, 20, 784)):
+        q, k, v = inputs(B, H, Tq, Tk, 32, bf16)
+        codes = codes_of(q, k, v, (None, None, None), 32 ** -0.5)
+        scales = torch.stack([codes[3].float(), codes[4].float()])
+        kernel = lambda: iq._kernel(*codes[:3], scales, bf16)  # noqa: E731
+        rec, runs = timed(torch, kernel, lambda: iq.int8_attention_plain(*codes, bf16), iters=10)
+        rec.update(k6_bound(codes[0], codes[1], kernel()), graph_ms=graph_ms(torch, kernel),
+                   shape=[B, H, Tq, Tk, 32], dtype="bfloat16",
+                   core_ms=statistics.median(cuda_ms(
+                       lambda: iq.int8_attention_core(q, k, v, 32 ** -0.5), 10, torch)
+                       for _ in range(3)),
+                   sdpa_float_core_ms=statistics.median(cuda_ms(
+                       lambda: sdpa(q, k, v, scale=32 ** -0.5), 10, torch) for _ in range(3)))
+        result["times"].append(rec)
+        log(f"  K6 ({B},{H},{Tq},{Tk},32) bf16 codes: kernel {rec['ms']:.4f} ms "
+            f"({rec['graph_ms']:.4f} ms replayed from a CUDA graph), plain {rec['plain_ms']:.4f} "
+            f"ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}; "
+            f"{100 * rec['bound_ms'] / rec['ms']:.1f}% of it); the whole core with its "
+            f"quantization {rec['core_ms']:.4f} ms; no PyTorch call computes this function "
+            f"(SDPA's float core, another function: {rec['sdpa_float_core_ms']:.4f} ms) (runs "
+            f"plain, kernel, kernel, plain: {runs}) on {card}")
+        del q, k, v, codes, scales
+    torch.cuda.empty_cache()
+    result["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 35 ok: K6 matches its plain version and ran 4 times an int8 eval step with the "
+        f"core ({result['seconds']:.1f} s)")
     return result
 
 

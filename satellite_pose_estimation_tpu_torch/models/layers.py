@@ -6,8 +6,9 @@ statistics of the JAX one: convolution and dense kernels are LeCun-normal
 
 The int8 modules ``QConv`` and ``QDense`` are ``nn.Conv2d`` / ``nn.Linear``
 with the same parameters, so one state dict loads into the float and the
-int8 model. Their activation scales come from the static-PTQ hook
-(``calibration`` / ``static_scales``, below, keyed by module; ``int8_sites``
+int8 model. Their activation scales, and the q, k and v scales of an
+attention whose core is int8, come from the static-PTQ hook
+(``calibration`` / ``static_scales``, below, keyed by site; ``int8_sites``
 and ``site_scales`` map them to and from module paths), which plays the
 part of the JAX ``quant`` variable collection.
 """
@@ -168,21 +169,37 @@ class MLP(nn.Module):
 _quant = threading.local()
 
 
+CORE_SITES = ("amax_q", "amax_k", "amax_v")  # an int8 attention core's q, k, v
+
+
 def int8_sites(model: nn.Module) -> dict:
-    """``{"<module path>.act_amax": module}`` for every int8 module of
-    ``model``: the keys of its calibrated ranges, the JAX ``quant``
-    collection's paths joined by dots."""
-    return {f"{name}.act_amax" if name else "act_amax": m for name, m in model.named_modules()
-            if isinstance(m, (QConv, QDense))}
+    """``{key: site}`` for every int8 site of ``model``: ``"<module
+    path>.act_amax"`` -> the module for a ``QConv`` / ``QDense``, and
+    ``"<module path>.amax_q"`` (``_k``, ``_v``) -> (module, name) for an
+    attention whose core is int8 (``quant`` and ``quant_core``). The keys
+    are those of its calibrated ranges, the JAX ``quant`` collection's paths
+    joined by dots."""
+    sites = {}
+    for name, m in model.named_modules():
+        if isinstance(m, (QConv, QDense)):
+            sites[_join(name, "act_amax")] = m
+        elif getattr(m, "quant_core", False) and m.quant:
+            sites.update({_join(name, leaf): (m, leaf) for leaf in CORE_SITES})
+    return sites
+
+
+def _join(path, leaf):
+    return f"{path}.{leaf}" if path else leaf
 
 
 def site_scales(model: nn.Module, quant: dict, device=None) -> dict:
     """The static scales of ``model``'s int8 sites from the calibrated
     ranges ``quant`` (``{key: amax}``, keyed as ``int8_sites``):
-    ``{module: max(amax, 1e-8) / 127}`` on ``device`` (default the
+    ``{site: max(amax, 1e-8) / 127}`` on ``device`` (default the
     model's). Raises unless ``quant`` holds exactly the model's sites: a
-    dict calibrated under another ``SPE_INT8_SCOPE``, on a wrapped model or
-    on another model would leave sites dynamic."""
+    dict calibrated under another ``SPE_INT8_SCOPE``, without the int8
+    attention cores, on a wrapped model or on another model would leave
+    sites dynamic."""
     sites = int8_sites(model)
     missing, extra = sorted(sites.keys() - quant.keys()), sorted(quant.keys() - sites.keys())
     if missing or extra:
@@ -204,32 +221,37 @@ def _quant_context(scales, amax):
 
 
 def calibration(amax: dict):
-    """Within this context every int8 module records the running max
-    |activation| it sees into ``amax`` (``{module: float32 scalar}``) and
-    still quantizes dynamically -- the JAX calibration pass."""
+    """Within this context every int8 site records the running max
+    |activation| it sees into ``amax`` (``{site: float32 scalar}``, sites as
+    ``int8_sites`` names them) and still quantizes dynamically -- the JAX
+    calibration pass."""
     return _quant_context(None, amax)
 
 
 def static_scales(scales: dict):
-    """Within this context every int8 module quantizes its activations with
+    """Within this context every int8 site quantizes its activations with
     its scale in ``scales`` (``site_scales``; a None value leaves that site
-    dynamic, and a module absent from it raises). Outside both contexts
+    dynamic, and a site absent from it raises). Outside both contexts
     every site is dynamic."""
     return _quant_context(scales, None)
 
 
-def act_scale_or_calibrate(mod: nn.Module, x):
-    """The static-PTQ hook of the int8 modules (JAX ``_act_scale_or_calibrate``):
+def act_scale_or_calibrate(mod: nn.Module, x, name: str = "act_amax"):
+    """The static-PTQ hook of the int8 sites (JAX ``_act_scale_or_calibrate``):
     in ``calibration`` record max |x| and return None (dynamic); under
-    ``static_scales`` return the module's scale; else None (dynamic)."""
+    ``static_scales`` return the site's scale; else None (dynamic). The
+    site is ``mod`` for ``act_amax`` (a ``QConv`` / ``QDense``), else
+    (``mod``, ``name``) (an int8 attention core's ``amax_q`` / ``_k`` /
+    ``_v``)."""
     ctx = getattr(_quant, "ctx", None)
     if ctx is None:
         return None
+    site = mod if name == "act_amax" else (mod, name)
     scales, amax = ctx
     if amax is None:
-        return scales[mod]
+        return scales[site]
     seen = x.detach().abs().amax().float()
-    amax[mod] = torch.maximum(amax[mod], seen) if mod in amax else seen
+    amax[site] = torch.maximum(amax[site], seen) if site in amax else seen
     return None
 
 

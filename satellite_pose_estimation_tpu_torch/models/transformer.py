@@ -17,7 +17,11 @@ tokens (sequence parallelism).
 ``quant`` (eval deployment) makes the FFNs int8 under the ``ffn`` scope and
 the attention projections under ``attn_proj`` (``ops.quantize.quant_scope``,
 read when the model is built); the decoder layers take
-``quant and quant_scope("dec")``.
+``quant and quant_scope("dec")``. An attention with ``quant`` and
+``quant_core`` set also runs its core on int8 codes
+(``ops.quantize.int8_attention_core``, K6 on the card), whatever the
+``attn_proj`` scope: no layer sets ``quant_core``, as in JAX, so a caller
+sets the attribute on the modules it wants.
 """
 from __future__ import annotations
 
@@ -27,11 +31,11 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.flash_attention import flash_self_attention
 from ..ops.fused_attention import fused_self_attention
-from ..ops.quantize import quant_scope
+from ..ops.quantize import int8_attention_core, quant_scope
 from ..parallel.sp import active as sp_active
 from ..parallel.sp import gather_tokens, shard_tokens
 from ..parallel.tp import activation_ctx, column_parallel, row_parallel, split_ctx
-from .layers import QDense, get_activation, linear
+from .layers import QDense, act_scale_or_calibrate, get_activation, linear
 
 
 class _Attention(nn.Module):
@@ -47,17 +51,24 @@ class _Attention(nn.Module):
     ``fused`` and ``flash`` fall to ``plain`` for a mask and for dropout in
     training, and ``fused`` also for sequences shorter than 256 tokens (the
     JAX routing rule). ``quant`` makes the projections int8 under the
-    ``attn_proj`` scope; the core stays in floating point (JAX's optional
-    int8 core, ``quant_core``, is not ported: no config selects it).
+    ``attn_proj`` scope. ``quant`` and ``quant_core`` together make the core
+    int8 (``ops.quantize.int8_attention_core``; on a GPU, K6) whenever no
+    dropout is needed, before every rule above and whatever the scope, as
+    JAX routes it; its q, k and v scales are the static-PTQ sites
+    ``amax_q``, ``amax_k`` and ``amax_v`` of this module. JAX's int8 core
+    ignores a mask; this one raises on it (a mask comes only with CDN
+    training, where quant is off).
     """
 
     def __init__(self, d_model, nhead, dropout=0.1, impl="fused", generator=None,
-                 quant=False):
+                 quant=False, quant_core=False):
         super().__init__()
         self.nhead = nhead
         self.head_dim = d_model // nhead
         self.dropout = dropout
         self.impl = impl
+        self.quant = quant
+        self.quant_core = quant_core
         inner = nhead * self.head_dim
         qproj = quant and quant_scope("attn_proj")
         self.mha_query = linear(d_model, inner, generator, qproj)
@@ -92,7 +103,16 @@ class _Attention(nn.Module):
             # Short sequences (decoder queries): launch overhead beats any
             # score-traffic saving.
             impl = "plain"
-        if impl == "fused":
+        if self.quant and self.quant_core and not needs_dropout:
+            if attn_mask is not None:
+                raise ValueError("the int8 attention core takes no mask")
+            if tp is not None:
+                raise ValueError("the int8 attention core quantizes all heads with one scale; "
+                                 "tensor parallelism splits them")
+            scales = tuple(act_scale_or_calibrate(self, t, f"amax_{n}")
+                           for n, t in (("q", qh), ("k", kh), ("v", vh)))
+            out = int8_attention_core(qh, kh, vh, sm_scale, scales)
+        elif impl == "fused":
             out = fused_self_attention(qh, kh, vh, sm_scale)
         elif impl == "flash":
             out = flash_self_attention(qh, kh, vh, sm_scale)

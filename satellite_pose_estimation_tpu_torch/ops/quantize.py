@@ -19,9 +19,16 @@ im2col of the int8 codes (one ``_int_mm`` with K = k*k*C_in; k*k shifted
 GEMMs summed in int32 took 1.9x its backbone time on an H100, PERF.md).
 Its output is an NCHW view of channels-last memory, which the next
 convolution reads with no copy.
+
+``int8_attention_core`` runs both products of an attention core on int8
+codes: on CUDA tensors through K6, the hand-written kernel
+``csrc/int8_attention.cu`` (int8 ``mma.sync``, built with nvcc at first use;
+``launch_count`` counts its launches), on CPU tensors through its plain
+version ``int8_attention_plain``. On a CUDA tensor it never falls back.
 """
 from __future__ import annotations
 
+import ctypes
 import os
 import threading
 from contextlib import contextmanager
@@ -29,7 +36,16 @@ from contextlib import contextmanager
 import torch
 import torch.nn.functional as F
 
+from ..utils.cuda_build import build_library
+from .precision import highest_precision
+
 _build = threading.local()
+
+SOURCES = ["int8_attention.cu"]  # K6
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_HEAD_DIM = 128
+launch_count = 0
+_lib = None
 
 
 @contextmanager
@@ -163,3 +179,154 @@ def int8_conv(x, weight, stride=1, padding=0, out_dtype=None, act_scale=None):
     wq, ws = _weight_quantize(weight, 0)
     y = _conv_codes(xq, wq, stride, padding)
     return _rescale(y, xs, ws, out_dtype).permute(0, 3, 1, 2)
+
+
+# -- the int8 attention core (K6) ---------------------------------------------
+
+def int8_attention_core(qh, kh, vh, sm_scale, act_scales=(None, None, None)):
+    """softmax(q k^T * sm_scale) v with both products on int8 codes (JAX
+    ``int8_attention_core``). ``qh`` (B, H, Tq, D), ``kh`` / ``vh`` (B, H,
+    Tk, D); ``act_scales``: calibrated per-tensor scales of q, k and v (None:
+    a dynamic max). The exact int32 scores are rescaled into qh's dtype, the
+    softmax is taken in that dtype, the probabilities are quantized at the
+    fixed scale 1/127 (round half to even), the AV product is exact int32 and
+    is rescaled by v_scale / 127 into qh's dtype. Autocast does not reach
+    inside: the roundings are those of qh's dtype. CUDA tensors (float32 or
+    bf16, D <= 128) go through K6; CPU tensors through the plain version."""
+    dev = qh.device.type
+    if dev not in ("cpu", "cuda"):
+        raise ValueError(f"the int8 attention core runs on cpu or cuda, not {qh.device}")
+    with torch.autocast(dev, enabled=False):
+        sq, sk, sv = act_scales
+        qq, qs = _act_quantize(qh, sq)
+        kq, ks = _act_quantize(kh, sk)
+        vq, vs = _act_quantize(vh, sv)
+        score_scale, out_scale = qs * ks * sm_scale, _div127(vs)
+        if dev == "cuda":
+            return _launch(qq, kq, vq, score_scale, out_scale, qh.dtype)
+        return int8_attention_plain(qq, kq, vq, score_scale, out_scale, qh.dtype)
+
+
+def int8_attention_plain(qq, kq, vq, score_scale, out_scale, dtype):
+    """K6's plain version on the codes: ``int8_av(probability_codes(
+    int8_scores(qq, kq), score_scale, dtype), vq, out_scale, dtype)``."""
+    return int8_av(probability_codes(int8_scores(qq, kq), score_scale, dtype), vq, out_scale,
+                   dtype)
+
+
+def _exact_int_product(a, b):
+    """a @ b of integer codes (..., M, K) @ (..., K, N) as int32, computed in
+    float32 (with TF32 off) on either device: every partial sum is an integer
+    below 2^24 in magnitude, so every float32 sum is exact (the callers
+    check the bound)."""
+    with highest_precision():
+        return torch.matmul(a.float(), b.float()).to(torch.int32)
+
+
+def int8_scores(qq, kq):
+    """The exact int32 scores qq kq^T of (B, H, Tq, D) and (B, H, Tk, D) int8
+    codes: |s| <= 127^2 D < 2^24 for D <= 1040."""
+    if qq.shape[-1] * 127 ** 2 >= 2 ** 24:
+        raise ValueError(f"head dim {qq.shape[-1]}: int8 scores pass float32's exact integers")
+    return _exact_int_product(qq, kq.transpose(-1, -2))
+
+
+def probability_codes(s, score_scale, dtype):
+    """The int8 probability codes of int32 scores ``s``: x = dtype(float32(s)
+    * score_scale), p = softmax(x) in dtype, codes round(dtype(p * 127))."""
+    p = torch.softmax(torch.mul(s, score_scale).to(dtype), dim=-1)
+    return torch.round(p * 127).to(torch.int8)
+
+
+def int8_av(pq, vq, out_scale, dtype):
+    """dtype(float32(pq vq) * out_scale): the exact int32 product of the
+    probability codes (B, H, Tq, Tk) and v's codes (B, H, Tk, D). A row's
+    codes sum to at most 127 + Tk / 2, so |pq vq| < 2^24 for Tk < 2^18."""
+    if pq.shape[-1] >= 2 ** 18:
+        raise ValueError(f"{pq.shape[-1]} keys: the int8 AV product passes float32's exact "
+                         "integers")
+    return torch.mul(_exact_int_product(pq, vq), out_scale).to(dtype)
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (first use only) and load K6's library."""
+    global _lib
+    if _lib is None:
+        lib = build_library("int8_attention", SOURCES)
+        lib.spe_int8_attention.argtypes = (
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 4)
+        lib.spe_int8_attention.restype = ctypes.c_int
+        lib.spe_int8_attention_error_string.argtypes = [ctypes.c_int]
+        lib.spe_int8_attention_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def kernel_head_dim(D: int) -> int:
+    """The head dim of K6's instance for head dim ``D``: D rounded up to a
+    multiple of 32 (one m16n8k32 step). Raises past ``MAX_HEAD_DIM``."""
+    if not 1 <= D <= MAX_HEAD_DIM:
+        raise ValueError(f"the int8 attention kernel takes head dims 1 to {MAX_HEAD_DIM}, not {D}")
+    return -(-D // 32) * 32
+
+
+def _launch(qq, kq, vq, score_scale, out_scale, dtype, probes=False):
+    """K6 on the codes: checks, zero-pads the head dim to the instance's
+    (exact: zero codes add nothing) and slices the output back. Returns the
+    (B, H, Tq, D) output, a view of a (B, Tq, H, D') buffer, and with
+    ``probes`` also the int32 scores and the int8 probability codes."""
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(f"the int8 attention kernel outputs float32 or bfloat16, not {dtype}")
+    if qq.dim() != 4 or kq.dim() != 4 or vq.shape != kq.shape:
+        raise ValueError(f"expected q (B, H, Tq, D) and k, v (B, H, Tk, D) codes, got "
+                         f"{tuple(qq.shape)}, {tuple(kq.shape)}, {tuple(vq.shape)}")
+    B, H, Tq, D = qq.shape
+    if kq.shape[:2] != (B, H) or kq.shape[3] != D:
+        raise ValueError(f"q {tuple(qq.shape)} and k {tuple(kq.shape)} differ in B, H or D")
+    if any(t.dtype != torch.int8 or t.device != qq.device for t in (qq, kq, vq)):
+        raise TypeError("the int8 attention kernel takes int8 codes on one device")
+    width = kernel_head_dim(D)
+    codes = [_rows4(x, width) for x in (qq, kq, vq)]
+    scales = torch.stack([score_scale.float(), out_scale.float()])
+    out = _kernel(*codes, scales, dtype, probes)
+    if probes:
+        return (out[0][..., :D],) + out[1:]
+    return out[..., :D]
+
+
+def _rows4(x, width):
+    """int8 codes zero-padded to ``width`` head dims, with rows on 4 bytes
+    and a unit stride on the head dim (K6 loads 4 codes at a time)."""
+    if x.shape[-1] != width:
+        return F.pad(x, (0, width - x.shape[-1]))
+    if x.stride(-1) != 1 or x.data_ptr() % 4 or any(s % 4 for s in x.stride()[:3]):
+        return x.contiguous()
+    return x
+
+
+def _kernel(qq, kq, vq, scales, dtype, probes=False):
+    """One K6 launch on codes whose head dim is a multiple of 32 (at most
+    128) and whose rows are on 4 bytes; ``scales`` holds score_scale and
+    out_scale (float32, on the device)."""
+    global launch_count
+    B, H, Tq, D = qq.shape
+    Tk = kq.shape[2]
+    out = torch.empty((B, Tq, H, D), dtype=dtype, device=qq.device).transpose(1, 2)
+    s_probe = p_probe = None
+    if probes:
+        s_probe = torch.empty((B, H, Tq, Tk), dtype=torch.int32, device=qq.device)
+        p_probe = torch.empty((B, H, Tq, Tk), dtype=torch.int8, device=qq.device)
+    strides = (ctypes.c_longlong * 12)(*(s for t in (qq, kq, vq, out) for s in t.stride()[:3]))
+    lib = load_library()
+    with torch.cuda.device(qq.device):
+        stream = torch.cuda.current_stream(qq.device).cuda_stream
+        err = lib.spe_int8_attention(
+            qq.data_ptr(), kq.data_ptr(), vq.data_ptr(), out.data_ptr(), scales.data_ptr(),
+            _DTYPE_CODES[dtype], B, H, Tq, Tk, D, ctypes.addressof(strides),
+            None if s_probe is None else s_probe.data_ptr(),
+            None if p_probe is None else p_probe.data_ptr(), stream)
+    if err != 0:
+        msg = lib.spe_int8_attention_error_string(err).decode()
+        raise RuntimeError(f"int8 attention launch failed: CUDA error {err} ({msg})")
+    launch_count += 1
+    return (out, s_probe, p_probe) if probes else out

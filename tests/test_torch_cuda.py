@@ -1097,3 +1097,123 @@ def test_cuda_val_p_which_p_matches_the_cpu(cuda_device, tmp_path):
             for dev in ("cuda", "cpu")}
         for n in range(4, 12):
             assert abs(res["cuda"][n] - res["cpu"][n]) <= 1e-9, (mode, n)
+
+
+# -- K6, the int8 attention core ---------------------------------------------
+
+# (B, H, Tq, Tk): one token, the DETR decoder's self and cross shapes, a
+# 7 x 7 map, the RT-DETR AIFI shape and the encoder's 784 tokens.
+K6_SHAPES = [(2, 2, 1, 1), (4, 8, 20, 20), (4, 8, 20, 784), (2, 4, 49, 49), (4, 8, 256, 256),
+             (2, 8, 784, 784)]
+
+
+def _k6_inputs(dev, B, H, Tq, Tk, D, dtype, seed):
+    """(B, H, T, D) views of (B, T, H, D) buffers, as the projections give them."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(B, T, H, D, generator=g, device=dev).to(dtype).transpose(1, 2)
+            for T in (Tq, Tk, Tk)]
+
+
+def _k6_codes(q, k, v, scales, sm):
+    (qq, qs), (kq, ks), (vq, vs) = (tq._act_quantize(t, s) for t, s in zip((q, k, v), scales))
+    return qq, kq, vq, qs * ks * sm, tq._div127(vs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("static", [False, True], ids=["dynamic", "static"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("D", [16, 32, 48, 64, 128])
+@pytest.mark.parametrize("B,H,Tq,Tk", K6_SHAPES)
+def test_cuda_int8_attention_matches_plain(cuda_device, B, H, Tq, Tk, D, dtype, static):
+    """K6 against its plain version on the same codes: the int32 scores bit
+    for bit; in float32 the probability codes at most one apart on at most
+    0.1% of them (exp's rounding at a .5 boundary) and the output within
+    1e-4 relative L2; in bf16 K1's limits (2e-2 of 1 + max|plain|, 1e-2
+    relative L2). A second launch gives the same bits."""
+    q, k, v = _k6_inputs(cuda_device, B, H, Tq, Tk, D, dtype, seed=Tq * D + Tk)
+    sm = D ** -0.5
+    scales = [t.float().abs().amax() * 0.8 if static else None for t in (q, k, v)]
+    before = tq.launch_count
+    out = tq.int8_attention_core(q, k, v, sm, scales)
+    torch.cuda.synchronize()
+    assert tq.launch_count == before + 1 and out.dtype == dtype and out.shape == (B, H, Tq, D)
+    codes = _k6_codes(q, k, v, scales, sm)
+    again, s, p = tq._launch(*codes, dtype, probes=True)
+    torch.cuda.synchronize()
+    assert torch.equal(again, out)
+    s_ref = tq.int8_scores(*codes[:2])
+    p_ref = tq.probability_codes(s_ref, codes[3], dtype)
+    ref = tq.int8_attention_plain(*codes, dtype)
+    assert torch.equal(s, s_ref)
+    apart = (p.int() - p_ref.int()).abs()
+    err = (out.float() - ref.float()).abs().max().item()
+    if dtype == torch.float32:
+        assert apart.max().item() <= 1 and (apart > 0).float().mean().item() <= 1e-3
+        _assert_rel_l2(out, ref, 1e-4)
+    else:
+        assert err <= 2e-2 * (1.0 + ref.float().abs().max().item())
+        _assert_rel_l2(out, ref, 1e-2)
+
+
+@pytest.mark.cuda
+def test_cuda_int8_attention_never_falls_back(cuda_device, monkeypatch):
+    """On CUDA tensors the core launches K6 and never reaches the plain
+    version; a launch the kernel refuses (B * H past the grid's 65535) and a
+    head dim past 128 raise."""
+    monkeypatch.setattr(tq, "int8_attention_plain", None)  # any call would raise
+    q = torch.randn(2, 4, 49, 32, device=cuda_device)
+    out = tq.int8_attention_core(q, q, q, 0.2)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    wide = torch.randn(65536, 1, 1, 32, device=cuda_device)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        tq.int8_attention_core(wide, wide, wide, 0.2)
+    deep = torch.randn(1, 1, 4, 160, device=cuda_device)
+    with pytest.raises(ValueError, match="head dims"):
+        tq.int8_attention_core(deep, deep, deep, 0.2)
+
+
+@pytest.mark.cuda
+def test_cuda_int8_core_detr_matches_cpu(cuda_device, monkeypatch):
+    """A small int8 DETR (scope conv,ffn,dec) whose attentions all take the
+    int8 core, calibrated on the card: K6 three times a forward (encoder,
+    decoder self and cross), every static scale, the core's included, equal
+    to the CPU's, and the float32 probabilities within 1e-2 of the CPU's."""
+    monkeypatch.setenv("SPE_INT8_SCOPE", "conv,ffn,dec")
+    cfg = DETRConfig(backbone="resnet18", hidden_dim=32, nheads=4, enc_layers=1, dec_layers=1,
+                     dim_feedforward=64, num_queries=20, dropout=0.0, quantize_int8=True)
+    models = [build_detr_model(cfg, seed=5, device=d) for d in (cuda_device, "cpu")]
+    for m in (mod for model in models for mod in model.modules()):
+        if hasattr(m, "quant_core"):
+            m.quant_core = True
+    g = torch.Generator().manual_seed(5)
+    batch = {"image": torch.randint(0, 256, (2, 80, 80, 3), generator=g, dtype=torch.uint8),
+             "clip_bbox_buf": torch.tensor([[4.0, 4.0, 76.0, 76.0]] * 2),
+             "clip_bbox": torch.tensor([[700.0, 400.0, 1100.0, 800.0]] * 2),
+             "quat_gt": torch.tensor([[1.0, 0.0, 0.0, 0.0]] * 2),
+             "tvec_gt": torch.tensor([[0.0, 0.0, 12.0]] * 2)}
+    gpu_batch = {k: v.to(cuda_device) for k, v in batch.items()}
+    warp = image_warp.crop_resize_cubic_mxu(gpu_batch["image"], gpu_batch["clip_bbox_buf"], 64,
+                                            True)
+    quant = calibrate_act_scales(models[0], [warp])
+    assert set(quant) == set(layers.int8_sites(models[0]))
+    assert sum(k.endswith(("amax_q", "amax_k", "amax_v")) for k in quant) == 9
+    scales, real = [], tq._act_quantize
+
+    def spy(x, scale=None):
+        q, sc = real(x, scale)
+        scales.append(sc.cpu())
+        return q, sc
+
+    monkeypatch.setattr(tq, "_act_quantize", spy)
+    before = tq.launch_count
+    with highest_precision():
+        out_gpu = make_eval_step(out_size=64, quant=quant)(models[0], gpu_batch)
+        torch.cuda.synchronize()
+        launches = tq.launch_count - before
+        out_cpu = make_eval_step(out_size=64, quant={k: v.cpu() for k, v in quant.items()})(
+            models[1], batch)
+    n = len(quant)
+    assert launches == 3 and len(scales) == 2 * n
+    assert all(torch.equal(a, b) for a, b in zip(scales[:n], scales[n:]))
+    assert (out_gpu["probs"].cpu() - out_cpu["probs"]).abs().max().item() <= 1e-2

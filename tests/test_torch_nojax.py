@@ -151,6 +151,52 @@ assert not loaded, loaded
 print("OK", len(quant))
 """
 
+_TINY_INT8_CORE = r"""
+import sys
+for name in ("jax", "jaxlib", "flax", "optax", "satellite_pose_estimation_tpu"):
+    sys.modules[name] = None  # any import of these now raises ImportError
+
+import torch
+from satellite_pose_estimation_tpu_torch.models.detr import DETRConfig, build_detr_model
+from satellite_pose_estimation_tpu_torch.models.layers import CORE_SITES
+from satellite_pose_estimation_tpu_torch.models.transformer import _Attention
+from satellite_pose_estimation_tpu_torch.ops import quantize
+from satellite_pose_estimation_tpu_torch.ops.image_warp import crop_resize_cubic_mxu
+from satellite_pose_estimation_tpu_torch.train.steps import make_eval_step
+from satellite_pose_estimation_tpu_torch.utils.calibrate import calibrate_act_scales
+
+model = build_detr_model(DETRConfig(hidden_dim=32, nheads=4, enc_layers=1, dec_layers=1,
+                                    dim_feedforward=64, dropout=0.0, quantize_int8=True),
+                         seed=0, device="cpu")
+for m in model.modules():
+    if isinstance(m, _Attention):
+        m.quant_core = True
+g = torch.Generator().manual_seed(0)
+batch = {
+    "image": torch.randint(0, 256, (2, 80, 80, 3), generator=g, dtype=torch.uint8),
+    "clip_bbox_buf": torch.tensor([[4.0, 4.0, 76.0, 76.0]] * 2),
+    "clip_bbox": torch.tensor([[700.0, 400.0, 1100.0, 800.0]] * 2),
+    "quat_gt": torch.tensor([[1.0, 0.0, 0.0, 0.0]] * 2),
+    "tvec_gt": torch.tensor([[0.0, 0.0, 12.0]] * 2),
+}
+quant = calibrate_act_scales(
+    model, [crop_resize_cubic_mxu(batch["image"], batch["clip_bbox_buf"], 64, True)])
+core = sorted(k for k in quant if k.rsplit(".", 1)[1] in CORE_SITES)
+assert core == [f"transformer.encoder_layer_0.self_attn.{leaf}" for leaf in
+                ("amax_k", "amax_q", "amax_v")], core
+calls = []
+real = quantize.int8_attention_core
+import satellite_pose_estimation_tpu_torch.models.transformer as transformer
+transformer.int8_attention_core = lambda *a: calls.append(a[0].shape) or real(*a)
+res = make_eval_step(out_size=64, quant=quant)(model, batch)
+assert len(calls) == 1 and torch.isfinite(res["probs"]).all()
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "flax", "satellite_pose_estimation_tpu")
+                and sys.modules[m] is not None)
+assert not loaded, loaded
+print("OK", len(quant))
+"""
+
 _TINY_RTDETR = r"""
 import sys
 for name in ("jax", "jaxlib", "flax", "optax", "satellite_pose_estimation_tpu"):
@@ -315,6 +361,16 @@ def test_port_runs_the_kernel_routes_with_jax_blocked():
 
 def test_port_calibrates_and_runs_an_int8_eval_step_with_jax_blocked():
     proc = subprocess.run([sys.executable, "-c", _TINY_INT8], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.startswith("OK")
+
+
+def test_port_runs_the_int8_attention_core_with_jax_blocked():
+    """A tiny int8 DETR whose encoder attention takes the int8 core (its
+    plain version on the CPU), calibrated (``amax_q`` / ``_k`` / ``_v``
+    beside the other sites) and evaluated on static scales."""
+    proc = subprocess.run([sys.executable, "-c", _TINY_INT8_CORE], cwd=ROOT,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.startswith("OK")
