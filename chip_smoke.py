@@ -7,8 +7,9 @@ Run from the repository root on a machine with a CUDA GPU (an H100 is the
 target). It builds the port's CUDA kernels from ``satellite_pose_estimation
 _tpu_torch/csrc`` with nvcc (K1, the fused attention forward; K2, its
 backward; K3, the rotation; K4, the fused photometric chain; K5, flash
-attention; K6, the int8 attention core -- one nvcc per source, all started
-together), then runs thirty-five phases and exits non-zero if any fails:
+attention; K6, the int8 attention core, and its q / k / v quantize
+launch -- one nvcc per source, all started together), then runs
+thirty-five phases and exits non-zero if any fails:
 
 1. the card's name and power limit, the kernel build time, and each
    kernel's registers, shared memory and spills (ptxas's own lines);
@@ -256,21 +257,26 @@ together), then runs thirty-five phases and exits non-zero if any fails:
    units of the crop, and probabilities within 2e-2), and the float32
    model at B = 8 (1e-4);
 35. K6, the int8 attention core (``ops.quantize.int8_attention_core``),
-   against its plain version on the same codes at (B, H, Tq, Tk) =
-   (256, 8, 784, 784), (64, 8, 256, 256), (256, 8, 20, 784), (256, 8, 1, 1)
-   and (256, 8, 49, 49), head dims 16, 32, 48, 64 and 128, bf16 and
-   float32, static and dynamic scales (bf16: K1's gates; float32: the int32
-   scores bit for bit, the probability codes at most one apart on at most
-   0.1% of them, the output within 1e-4 relative L2); the full-width int8
-   DETR at B = 256 @224 bf16 (bench's int8 eval, scope ``conv,ffn``) with
-   its encoder attentions on the core, calibrated on 2 warped batches
-   (``amax_q`` / ``amax_k`` / ``amax_v`` beside the other sites): K6 once
-   per encoder layer and step at (256, 8, 784, 32), each launch held to
-   plain, img/s and the "model" span beside the same weights without the
-   core (phase 12's route), the float32 model card vs CPU (probabilities
-   median 1e-3, max 1e-2; every static scale equal bit for bit); under
-   ``conv,ffn,dec`` K6 also at the decoder's (20, 20) and (20, 784); K6's
-   time (CUDA events and a CUDA graph) beside its plain version and bound.
+   and its q / k / v quantize launch against their plain versions on the
+   same inputs at (B, H, Tq, Tk) = (256, 8, 784, 784), (64, 8, 256, 256),
+   (256, 8, 20, 784), (256, 8, 1, 1) and (256, 8, 49, 49), head dims 16,
+   32, 48, 64 and 128, bf16 and float32, static and dynamic scales: the
+   int32 scores, the probability codes ("codes moved 0") and the output
+   bit for bit, the quantize launch's codes and factors bit for bit
+   (``_act_quantize`` and the products), beside K1's gates; the full-width
+   int8 DETR at B = 256 @224 bf16 (bench's int8 eval, scope ``conv,ffn``)
+   with its encoder attentions on the core, calibrated on 2 warped batches
+   (``amax_q`` / ``amax_k`` / ``amax_v`` beside the other sites): the
+   quantize launch and K6 once per encoder layer and step at
+   (256, 8, 784, 32), each launch held to plain bit for bit, img/s and the
+   "model" span beside the same weights without the core (phase 12's
+   route), and a profile of both spans by device operation; the float32
+   model card vs CPU (probabilities median 1e-3, max 1e-2; every static
+   scale equal bit for bit); under ``conv,ffn,dec`` both launches also at
+   the decoder's (20, 20) and (20, 784); K6's and the quantize launch's
+   times (CUDA events and a CUDA graph) beside their plain versions and
+   bounds at the encoder, AIFI and cross shapes, and the whole core with
+   static and with dynamic scales.
 Phase 23 also runs ``--parallel_ensemble`` (the three models on the one
 card), whose CSV must equal the serial route's. The child processes of
 phases 32-34 reuse the kernels built in phase 1 (``--child`` runs one).
@@ -595,21 +601,21 @@ def zero_counts():
     fa, pr, pa, fl = _kernel_modules()
     fa.launch_count = fa.bwd_launch_count = pr.launch_count = pa.launch_count = 0
     fl.launch_count = fl.bwd_launch_count = 0
-    _k6_module().launch_count = 0
+    _k6_module().launch_count = _k6_module().quantize_launch_count = 0
 
 
 def counts():
     """Every kernel's launch count: K1, K2, K3, K4, K5 forward and backward,
-    K6."""
+    K6 and its q / k / v quantize launch (k6q)."""
     fa, pr, pa, fl = _kernel_modules()
     return {"k1": fa.launch_count, "k2": fa.bwd_launch_count, "k3": pr.launch_count,
             "k4": pa.launch_count, "k5": fl.launch_count, "k5_bwd": fl.bwd_launch_count,
-            "k6": _k6_module().launch_count}
+            "k6": _k6_module().launch_count, "k6q": _k6_module().quantize_launch_count}
 
 
 def expected(**nonzero):
     """A launch-count dict with the given counts and 0 for every other kernel."""
-    return {**{k: 0 for k in ("k1", "k2", "k3", "k4", "k5", "k5_bwd", "k6")}, **nonzero}
+    return {**{k: 0 for k in ("k1", "k2", "k3", "k4", "k5", "k5_bwd", "k6", "k6q")}, **nonzero}
 
 
 def recorded_quantize(quantize, fn, keep=None):
@@ -1031,16 +1037,35 @@ def main() -> int:
         "launches_by_path": k6["launches"],
         "launches_per_int8_core_eval_step": k6["per_step"],
         "max_abs_err": k6["max_abs_err"],
+        "held_codes_moved": k6["held_codes_moved"],
         **{key: k6["times"][0][key] for key in ("ms", "plain_ms", "library_ms", "bound_ms",
-                                                "bound_by", "graph_ms", "core_ms", "shape",
-                                                "dtype")},
+                                                "bound_by", "graph_ms", "core_static_ms",
+                                                "core_dynamic_ms", "shape", "dtype")},
         "sdpa_float_core_ms_another_function": k6["times"][0]["sdpa_float_core_ms"],
-        "other_shapes": k6["times"][1:],
+        "other_shapes": [{k: v for k, v in t.items() if k != "quantize"}
+                         for t in k6["times"][1:]],
         "sweep": k6["sweep"],
         "eval_img_s": k6["img_s"],
         "eval_model_ms": k6["model_ms"],
+        "eval_model_ops_with_core_top": k6["model_ops_with_core_top"],
+        "eval_model_ops_gap": k6["model_ops_gap"],
         "card_vs_cpu_float32_probs": k6["card_vs_cpu"],
         "phase_seconds": k6["seconds"],
+    }, {
+        "name": "int8_quantize_qkv",
+        "route": "cuda",
+        "source": "satellite_pose_estimation_tpu_torch/csrc/int8_attention.cu",
+        "replaces": "satellite_pose_estimation_tpu/ops/quantize.py:122",
+        "not_pallas": "the three _act_quantize calls inside JAX's int8_attention_core "
+                      "(ops/quantize.py:122-124), XLA elementwise work",
+        "launches": sum(k6["quantize_launches"].values()),
+        "launches_by_path": k6["quantize_launches"],
+        "max_abs_err": k6["quantize_max_abs_err"],
+        **{key: k6["times"][0]["quantize"][key]
+           for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "graph_ms",
+                       "shape", "dtype")},
+        "other_shapes": [t["quantize"] for t in k6["times"][1:]],
+        "quantize_launches_differing_in_sweep": k6["sweep"]["quantize_launches_differ"],
     }]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",
@@ -5095,9 +5120,8 @@ def parallel_phases(torch, card, dev, g):
 
 # K6 against its plain version: the largest error within this factor times
 # 1 + the largest plain value, and the relative L2 error within the second
-# number. float32: the scores are the same integers and a probability code
-# may move by one where exp's rounding crosses a .5 boundary, so the output
-# is held by its relative L2 (and the codes by their own gate below).
+# number (PR 15's gates, kept beside the bit-for-bit checks: the scores, the
+# probability codes and the output equal the plain version's).
 K6_GATES = {"torch.float32": (2e-2, 1e-4), "torch.bfloat16": (2e-2, 1e-2)}
 INT8_OPS_S = 1979e12  # H100 SXM dense int8 tensor-core peak (NVIDIA's data sheet)
 
@@ -5115,52 +5139,165 @@ def k6_bound(qq, kq, out):
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
 
 
+def quantize_bound(q, k, v, codes):
+    """The quantize launch's bound: q, k and v read once and their codes (at
+    the instance's head dim) and the two factors written once, at the
+    memory rate, against one float32 division an element at the float32
+    peak."""
+    elems = sum(t.numel() for t in (q, k, v))
+    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v)) + sum(
+        c.numel() for c in codes) + 8
+    return bound(elems, nbytes, F32_FLOP_S)
+
+
+def k6_quantize_gap(quantize, q, k, v, scales, sm, got):
+    """The largest difference between the quantize launch's output ``got``
+    (three padded code buffers and the factors) and the plain version's: the
+    codes of ``_act_quantize`` with zeros past D, and q_scale * k_scale *
+    sm_scale, v_scale / 127. 0 when they are equal bit for bit."""
+    import torch
+    ref = quantize.quantize_qkv_plain(q, k, v, sm, scales)
+    D = q.shape[3]
+    gaps = [max_err(c[..., :D], r) for c, r in zip(got[:3], ref[:3])]
+    gaps += [float(c[..., D:].abs().max()) if c.shape[3] > D else 0.0 for c in got[:3]]
+    gaps.append(max_err(got[3], torch.stack([ref[3].float(), ref[4].float()])))
+    return max(gaps)
+
+
 def k6_checker(torch):
     """A context manager ``held()`` for K6 as ``launch_checker`` is for K1 /
     K2: counts set to 0, every K6 launch in the block held to the plain
-    version on its own codes and scales (autocast off) under ``K6_GATES``;
-    yields records as ``launch_checker``'s, with the shape (B, H, Tq, Tk,
-    D)."""
+    version on its own codes and scales (autocast off): its output and its
+    probability codes (from a second launch with probes, not counted) bit
+    for bit, and PR 15's gates; every quantize launch held bit for bit to
+    ``_act_quantize`` and the products of the scales. Yields records as
+    ``launch_checker``'s, with the shape (B, H, Tq, Tk, D) and the codes
+    moved last."""
     quantize = _k6_module()
-    launches, real = [], quantize._kernel
+    launches, real, real_q = [], quantize._kernel, quantize._quantize_kernel
 
     def spy(qq, kq, vq, scales, dtype, probes=False):
         out = real(qq, kq, vq, scales, dtype, probes)
         with torch.no_grad(), torch.autocast(qq.device.type, enabled=False):
             ref = quantize.int8_attention_plain(qq, kq, vq, scales[0], scales[1], dtype)
+            _, s, p = real(qq, kq, vq, scales, dtype, probes=True)
+            quantize.launch_count -= 1  # the comparison's launch
+            s_ref = quantize.int8_scores(qq, kq)
+            moved = int((p != quantize.probability_codes(s_ref, scales[0], dtype)).sum())
+            scores_equal = torch.equal(s, s_ref)
+        del s, p, s_ref
         o = out[0] if probes else out
         tol, rel_tol = K6_GATES[str(dtype)]
         raw = max_err(o, ref)
         err, rel = raw / (1.0 + ref.float().abs().max().item()), rel_l2(o, ref)
         shape = tuple(qq.shape[:3]) + (kq.shape[2], qq.shape[3])
-        launches.append(("K6", shape, dtype, err, rel, raw))
-        require(err <= tol and rel <= rel_tol,
-                f"K6 at {shape} {dtype} disagrees with its plain version: {err:.3e} of 1 + "
-                f"max|plain| (limit {tol:g}), relative L2 {rel:.3e} (limit {rel_tol:g})")
+        launches.append(("K6", shape, dtype, err, rel, raw, moved))
+        require(err <= tol and rel <= rel_tol and torch.equal(o, ref) and moved == 0
+                and scores_equal,
+                f"K6 at {shape} {dtype} differs from its plain version: {err:.3e} of 1 + "
+                f"max|plain| (limit {tol:g}), relative L2 {rel:.3e} (limit {rel_tol:g}), "
+                f"codes moved {moved}, scores equal {scores_equal}")
         return out
+
+    def spy_q(qh, kh, vh, scales, sm, width):
+        got = real_q(qh, kh, vh, scales, sm, width)
+        with torch.no_grad(), torch.autocast(qh.device.type, enabled=False):
+            gap = k6_quantize_gap(quantize, qh, kh, vh, scales, sm, got)
+        shape = tuple(qh.shape[:3]) + (kh.shape[2], qh.shape[3])
+        launches.append(("K6q", shape, qh.dtype, gap, gap, gap, 0))
+        require(gap == 0.0, f"the quantize launch at {shape} {qh.dtype} differs from "
+                f"_act_quantize: {gap}")
+        return got
 
     @contextlib.contextmanager
     def held():
         launches.clear()
-        quantize._kernel = spy
+        quantize._kernel, quantize._quantize_kernel = spy, spy_q
         zero_counts()
         try:
             yield launches
             torch.cuda.synchronize()
         finally:
-            quantize._kernel = real
+            quantize._kernel, quantize._quantize_kernel = real, real_q
 
     return held
 
 
-def int8_core_phase(torch, card, dev, g):
-    """Phase 35: K6, the int8 attention core, against its plain version over
-    shapes, head dims, dtypes and scales; the full-width int8 DETR eval with
-    its encoder attentions on the core (bench's int8 eval plus the core) and
-    the decoder's under ``conv,ffn,dec``; K6's times and bound."""
+# The full-width int8 DETR of bench's int8 eval (phase 12), whose attentions
+# phase 35 runs on the int8 core.
+K6_EVAL_CONFIG = dict(backbone="resnet50s8", hidden_dim=256, nheads=8, enc_layers=4, dec_layers=4,
+                      dim_feedforward=2048, num_queries=20, dropout=0.0, quantize_int8=True)
+
+
+def with_int8_core(model):
+    """``model`` with every int8 attention (``quant``) on the int8 core."""
+    from satellite_pose_estimation_tpu_torch.models.transformer import _Attention
+    for m in model.modules():
+        if isinstance(m, _Attention) and m.quant:
+            m.quant_core = True
+    return model
+
+
+def span_ops(torch, net, imgs, static):
+    """The device kernels of one call of ``net(imgs)`` (bf16 autocast, the
+    ``static`` scales, after a warm-up call) under the profiler: {name:
+    (device ms, count)}."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from satellite_pose_estimation_tpu_torch.models import layers
+    with torch.inference_mode(), torch.autocast("cuda", dtype=torch.bfloat16), \
+            layers.static_scales(static):
+        net(imgs)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            net(imgs)
+            torch.cuda.synchronize()
+    return {e.key[:80]: (e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages() if e.device_type.name == "CUDA"}
+
+
+def child_k6_profile(out):
+    """Phase 35's two "model" spans, with and without the int8 core,
+    profiled in a fresh process (a process's later profiler sessions may
+    miss the ctypes kernels): the same seeded models, calibrated on two
+    warped batches of 256, one call each on a third; writes {"with the
+    core": ops, "without the core": ops} as JSON to ``out``."""
+    import torch
+
     from satellite_pose_estimation_tpu_torch.models import layers
     from satellite_pose_estimation_tpu_torch.models.detr import DETRConfig, build_detr_model
-    from satellite_pose_estimation_tpu_torch.models.transformer import _Attention
+    from satellite_pose_estimation_tpu_torch.ops.image_warp import crop_resize_cubic_mxu
+    from satellite_pose_estimation_tpu_torch.utils.calibrate import calibrate_act_scales
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(35)
+    warp = [crop_resize_cubic_mxu(b["image"], b["clip_bbox_buf"], 224, True)
+            for b in (eval_batch(torch, dev, 256, g) for _ in range(3))]
+    ops = {}
+    for name, core in (("with the core", True), ("without the core", False)):
+        net = build_detr_model(DETRConfig(**K6_EVAL_CONFIG), seed=0, device=dev)
+        net = with_int8_core(net) if core else net
+        quant = calibrate_act_scales(net, warp[:2], compute_dtype=torch.bfloat16)
+        ops[name] = span_ops(torch, net, warp[2], layers.site_scales(net, quant))
+        del net
+    with open(out, "w") as f:
+        json.dump(ops, f)
+    return 0
+
+
+CHILDREN["k6_profile"] = child_k6_profile
+
+
+def int8_core_phase(torch, card, dev, g):
+    """Phase 35: K6, the int8 attention core, and its quantize launch against
+    their plain versions over shapes, head dims, dtypes and scales; the
+    full-width int8 DETR eval with its encoder attentions on the core
+    (bench's int8 eval plus the core) and the decoder's under
+    ``conv,ffn,dec``; K6's and the quantize launch's times and bounds, the
+    whole core's, and a profile of the eval's "model" span."""
+    import tempfile
+
+    from satellite_pose_estimation_tpu_torch.models import layers
+    from satellite_pose_estimation_tpu_torch.models.detr import DETRConfig, build_detr_model
     from satellite_pose_estimation_tpu_torch.ops.image_warp import crop_resize_cubic_mxu
     from satellite_pose_estimation_tpu_torch.ops.precision import highest_precision
     from satellite_pose_estimation_tpu_torch.train.steps import make_eval_step
@@ -5169,13 +5306,8 @@ def int8_core_phase(torch, card, dev, g):
     iq = _k6_module()
     bf16, f32 = torch.bfloat16, torch.float32
     t_phase = time.perf_counter()
-    result = {"launches": {}, "max_abs_err": 0.0}
-
-    def with_core(model):
-        for m in model.modules():
-            if isinstance(m, _Attention) and m.quant:
-                m.quant_core = True
-        return model
+    result = {"launches": {}, "quantize_launches": {}, "max_abs_err": 0.0,
+              "quantize_max_abs_err": 0.0}
 
     def inputs(B, H, Tq, Tk, D, dtype):
         """(B, H, T, D) views of (B, T, H, D) buffers, as the projections
@@ -5183,18 +5315,16 @@ def int8_core_phase(torch, card, dev, g):
         return [torch.randn(B, T, H, D, generator=g, device=dev).to(dtype).transpose(1, 2)
                 for T in (Tq, Tk, Tk)]
 
-    def codes_of(q, k, v, scales, sm):
-        (qq, qs), (kq, ks), (vq, vs) = (iq._act_quantize(t, s)
-                                        for t, s in zip((q, k, v), scales))
-        return qq, kq, vq, qs * ks * sm, iq._div127(vs)
+    def used_scales(q, k, v, scales):
+        return [iq._act_scale(t, s).float().reshape(()) for t, s in zip((q, k, v), scales)]
 
-    # -- K6 against its plain version ---------------------------------------
+    # -- K6 and the quantize launch against their plain versions ------------
     # (B, H, Tq, Tk): the encoder (256, 8, 784), RT-DETR's AIFI (64, 8, 256),
     # the decoder's cross attention 20 x 784, one token and a 7 x 7 map.
     shapes = [(256, 8, 784, 784), (64, 8, 256, 256), (256, 8, 20, 784), (256, 8, 1, 1),
               (256, 8, 49, 49)]
     worst = {str(d)[6:]: {"err": 0.0, "rel": 0.0} for d in (bf16, f32)}
-    flips = {"moved": 0, "codes": 0, "max_apart": 0}
+    flips = {"moved": 0, "codes": 0, "outputs_differ": 0, "quantize_differ": 0}
     scores_equal = True
     for B, H, Tq, Tk in shapes:
         for D in (16, 32, 48, 64, 128):
@@ -5203,10 +5333,13 @@ def int8_core_phase(torch, card, dev, g):
                     q, k, v = inputs(B, H, Tq, Tk, D, dtype)
                     scales = [t.float().abs().amax() * 0.8 if static else None
                               for t in (q, k, v)]
-                    codes = codes_of(q, k, v, scales, D ** -0.5)
-                    probes = dtype == f32
-                    got = iq._launch(*codes, dtype, probes=probes)
-                    out = got[0] if probes else got
+                    codes = iq.quantize_qkv_plain(q, k, v, D ** -0.5, scales)
+                    got_q = iq._quantize_kernel(q, k, v, used_scales(q, k, v, scales),
+                                                D ** -0.5, iq.kernel_head_dim(D))
+                    q_gap = k6_quantize_gap(iq, q, k, v, scales, D ** -0.5, got_q)
+                    q_equal = q_gap == 0.0
+                    result["quantize_max_abs_err"] = max(result["quantize_max_abs_err"], q_gap)
+                    out, s, p = iq._launch(*codes, dtype, probes=True)
                     s_ref = iq.int8_scores(*codes[:2])
                     p_ref = iq.probability_codes(s_ref, codes[3], dtype)
                     ref = iq.int8_av(p_ref, codes[2], codes[4], dtype)
@@ -5216,41 +5349,40 @@ def int8_core_phase(torch, card, dev, g):
                     w = worst[str(dtype)[6:]]
                     w["err"], w["rel"] = max(w["err"], err), max(w["rel"], rel)
                     result["max_abs_err"] = max(result["max_abs_err"], raw)
-                    require(err <= tol and rel <= rel_tol,
+                    moved = int((p != p_ref).sum())
+                    scores_equal &= torch.equal(s, s_ref)
+                    flips["moved"] += moved
+                    flips["codes"] += p.numel()
+                    flips["outputs_differ"] += int(not torch.equal(out, ref))
+                    flips["quantize_differ"] += int(not q_equal)
+                    require(err <= tol and rel <= rel_tol and torch.equal(out, ref) and moved == 0
+                            and torch.equal(s, s_ref) and q_equal,
                             f"K6 at {(B, H, Tq, Tk, D)} {dtype} static={static}: {err:.3e} of "
-                            f"1 + max|plain| (limit {tol:g}), relative L2 {rel:.3e} "
-                            f"(limit {rel_tol:g})")
-                    if probes:
-                        _, s, p = got
-                        scores_equal &= torch.equal(s, s_ref)
-                        apart = (p - p_ref).abs()  # codes in [0, 127]: no int8 overflow
-                        moved = int((apart > 0).sum())
-                        require(torch.equal(s, s_ref) and int(apart.max()) <= 1
-                                and moved <= 1e-3 * p.numel(),
-                                f"K6 at {(B, H, Tq, Tk, D)} float32: scores or codes")
-                        flips["moved"] += moved
-                        flips["codes"] += p.numel()
-                        flips["max_apart"] = max(flips["max_apart"], int(apart.max()))
-                        del s, p, apart
-                    del q, k, v, codes, got, out, s_ref, p_ref, ref
+                            f"1 + max|plain| (limit {tol:g}), relative L2 {rel:.3e} (limit "
+                            f"{rel_tol:g}), codes moved {moved}, scores equal "
+                            f"{torch.equal(s, s_ref)}, quantize launch equal {q_equal}")
+                    del q, k, v, codes, got_q, out, s, p, s_ref, p_ref, ref
     torch.cuda.empty_cache()
+    sections = {"sweep": time.perf_counter() - t_phase}
     result["sweep"] = {"worst": worst, "codes_moved": flips["moved"],
-                       "codes_checked": flips["codes"]}
-    log(f"  K6 vs plain over (B, H, Tq, Tk) {shapes} x D 16 / 32 / 48 / 64 / 128 x static and "
-        f"dynamic scales: bf16 worst {worst['bfloat16']['err']:.3e} of 1 + max|plain| (limit 2e-2), "
-        f"relative L2 {worst['bfloat16']['rel']:.3e} (limit 1e-2); float32 worst "
-        f"{worst['float32']['err']:.3e}, relative L2 {worst['float32']['rel']:.3e} (limit 1e-4), "
-        f"int32 scores equal: {scores_equal}, probability codes moved {flips['moved']} of "
-        f"{flips['codes']} ({flips['moved'] / flips['codes']:.3e}; limit 1e-3 a call), by at most "
-        f"{flips['max_apart']}")
+                       "codes_checked": flips["codes"], "cases": 100,
+                       "outputs_differ": flips["outputs_differ"],
+                       "quantize_launches_differ": flips["quantize_differ"]}
+    log(f"  K6 and the quantize launch vs plain over (B, H, Tq, Tk) {shapes} x D 16 / 32 / 48 / "
+        f"64 / 128 x bf16 / float32 x static and dynamic scales (100 cases): int32 scores equal: "
+        f"{scores_equal}, probability codes moved {flips['moved']} of {flips['codes']}, outputs "
+        f"differing {flips['outputs_differ']}, quantize launches differing "
+        f"{flips['quantize_differ']}; bf16 worst {worst['bfloat16']['err']:.3e} of 1 + "
+        f"max|plain| (limit 2e-2), relative L2 {worst['bfloat16']['rel']:.3e} (limit 1e-2); "
+        f"float32 worst {worst['float32']['err']:.3e}, relative L2 "
+        f"{worst['float32']['rel']:.3e} (limit 1e-4)")
 
     # -- the full-width int8 eval with the core -------------------------------
-    base = dict(backbone="resnet50s8", hidden_dim=256, nheads=8, enc_layers=4, dec_layers=4,
-                dim_feedforward=2048, num_queries=20, dropout=0.0, quantize_int8=True)
+    base = K6_EVAL_CONFIG
     size, EB, steps, windows = 224, 256, 5, 3
     held = k6_checker(torch)
     scope = os.environ.get("SPE_INT8_SCOPE", "conv,ffn")
-    core = with_core(build_detr_model(DETRConfig(**base), seed=0, device=dev))
+    core = with_int8_core(build_detr_model(DETRConfig(**base), seed=0, device=dev))
     plain = build_detr_model(DETRConfig(**base), seed=0, device=dev)  # phase 12's route
     pool = [eval_batch(torch, dev, EB, g) for _ in range(steps * windows + 3)]
     warp = [crop_resize_cubic_mxu(b["image"], b["clip_bbox_buf"], size, True) for b in pool[:2]]
@@ -5271,16 +5403,26 @@ def int8_core_phase(torch, card, dev, g):
     with held() as recs:
         results = [step_core(core, b) for b in pool[:3]]
     seen, got = counts(), launches_by_shape(recs)
+    moved = sum(r[6] for r in recs)
     log(f"  int8 eval with the core, scope {scope}, B={EB} @224: {len(quant)} sites "
         f"({len(core_keys)} amax_q / amax_k / amax_v), calibrated in {calib_s:.3f} s; launches in "
-        f"3 steps {seen}, by shape {got}, each held to plain: worst {worst_launch(recs)[0]:.3e} "
-        f"of 1 + max|plain|, relative L2 {worst_launch(recs)[1]:.3e}")
-    require(seen == expected(k6=3 * base["enc_layers"])
-            and got == [(("K6", (EB, 8, 784, 784, 32), "bfloat16"), 3 * base["enc_layers"])],
-            "the int8 eval with the core did not launch K6 once per encoder layer")
+        f"3 steps {seen}, by shape {got}, each held to plain: K6 output and codes bit for bit "
+        f"(codes moved {moved}), the quantize launch bit for bit; worst "
+        f"{worst_launch(recs)[0]:.3e} of 1 + max|plain|, relative L2 {worst_launch(recs)[1]:.3e}")
+    n_core = 3 * base["enc_layers"]
+    require(seen == expected(k6=n_core, k6q=n_core) and moved == 0
+            and got == [(("K6", (EB, 8, 784, 784, 32), "bfloat16"), n_core),
+                        (("K6q", (EB, 8, 784, 784, 32), "bfloat16"), n_core)],
+            "the int8 eval with the core did not launch the quantize launch and K6 once per "
+            "encoder layer")
     result["launches"]["eval_int8_core_static"] = seen["k6"]
+    result["quantize_launches"]["eval_int8_core_static"] = seen["k6q"]
+    result["held_codes_moved"] = moved
     result["per_step"] = seen["k6"] // 3
-    result["max_abs_err"] = max(result["max_abs_err"], max(r[5] for r in recs))
+    sections["eval_held"] = time.perf_counter() - t_phase - sum(sections.values())
+    result["max_abs_err"] = max(result["max_abs_err"], max(r[5] for r in recs if r[0] == "K6"))
+    result["quantize_max_abs_err"] = max(result["quantize_max_abs_err"],
+                                         max(r[5] for r in recs if r[0] == "K6q"))
     for res in results:
         for key_, val in res.items():
             if val.is_floating_point():
@@ -5298,7 +5440,7 @@ def int8_core_phase(torch, card, dev, g):
         return rates
 
     imgs = crop_resize_cubic_mxu(pool[3]["image"], pool[3]["clip_bbox_buf"], size, True)
-    rates, spans = {}, {}
+    rates, spans, ops = {}, {}, {}
     for name, step, net, q_ in (("without the core (phase 12's route)", step_plain, plain,
                                  quant_plain), ("with the core", step_core, core, quant)):
         rates[name] = rate(step, net)
@@ -5309,40 +5451,83 @@ def int8_core_phase(torch, card, dev, g):
             torch.cuda.synchronize()
             spans[name] = statistics.median(cuda_ms(lambda: net(imgs), 1, torch)
                                             for _ in range(3))
+        ops[name] = span_ops(torch, net, imgs, static)
         r = rates[name]
         log(f"  int8 static eval step {name}, B={EB} @224: median {statistics.median(r):.2f} "
             f"img/s (min {min(r):.2f}, max {max(r):.2f}; 3 windows of {steps} steps), \"model\" "
-            f"span {spans[name]:.3f} ms on {card}")
+            f"span {spans[name]:.3f} ms on {card}; profiled span's device time "
+            f"{sum(t for t, _ in ops[name].values()):.3f} ms in "
+            f"{sum(c for _, c in ops[name].values())} kernels")
+    profiled_in = "this process"
+    if not any("int8_attn_kernel" in k for k in ops["with the core"]):
+        # this process's profiler no longer sees the ctypes kernels: profile
+        # the same spans in a fresh process
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "k6_profile.json")
+            subprocess.run([sys.executable, os.path.abspath(__file__), "--child", "k6_profile",
+                            path], check=True, timeout=600)
+            with open(path) as f:
+                child = json.load(f)
+        ops = {"with the core": child["with the core"],
+               "without the core (phase 12's route)": child["without the core"]}
+        profiled_in = "a child process (this process's profiler missed the ctypes kernels)"
+        require(any("int8_attn_kernel" in k for k in ops["with the core"]),
+                "the profile of the with-core span shows no K6 launch")
+    with_ops, without_ops = ops["with the core"], ops["without the core (phase 12's route)"]
+    top = sorted(with_ops.items(), key=lambda kv: -kv[1][0])[:12]
+    log(f"  the with-core \"model\" span by device operation (profiler, one call, in "
+        f"{profiled_in}), top 12: "
+        + "; ".join(f"{t:.3f} ms {c}x {k}" for k, (t, c) in top))
+    gap = sorted(((with_ops.get(k, (0.0, 0))[0] - without_ops.get(k, (0.0, 0))[0], k)
+                  for k in set(with_ops) | set(without_ops)), key=lambda x: -abs(x[0]))[:10]
+    log("  with minus without the core, by device operation: "
+        + "; ".join(f"{d:+.3f} ms {k}" for d, k in gap))
     result["img_s"], result["model_ms"] = rates, spans
+    result["model_ops_with_core_top"] = [[k, t, c] for k, (t, c) in top]
+    result["model_ops_gap"] = [[k, d] for d, k in gap]
+    result["model_ops_profiled_in"] = profiled_in
+    sections["rates_spans_profiles"] = time.perf_counter() - t_phase - sum(sections.values())
     del plain, imgs, results
 
     # float32: the card (K6, TF32 off) against the CPU (plain version) on the
     # card's calibrated ranges; every site's static scale, the core's
     # included, equal bit for bit.
-    cpu = with_core(build_detr_model(DETRConfig(**base), seed=0, device="cpu"))
+    cpu = with_int8_core(build_detr_model(DETRConfig(**base), seed=0, device="cpu"))
     small = {k: v[:2] for k, v in pool[0].items()}
+
+    def recorded_scales(fn):
+        """fn() and the scale of every quantized activation, in call order
+        (``_act_scale``, on both routes of the core)."""
+        rec, real = [], iq._act_scale
+        iq._act_scale = lambda x, scale=None: rec.append(real(x, scale)) or rec[-1]
+        try:
+            return fn(), [r.cpu() for r in rec]
+        finally:
+            iq._act_scale = real
+
     with highest_precision():
-        out_gpu, rec_gpu = recorded_quantize(
-            iq, lambda: make_eval_step(out_size=size, quant=quant)(core, small))
-        out_cpu, rec_cpu = recorded_quantize(
-            iq, lambda: make_eval_step(out_size=size, quant={k: v.cpu() for k, v in quant.items()})(
+        out_gpu, rec_gpu = recorded_scales(
+            lambda: make_eval_step(out_size=size, quant=quant)(core, small))
+        out_cpu, rec_cpu = recorded_scales(
+            lambda: make_eval_step(out_size=size, quant={k: v.cpu() for k, v in quant.items()})(
                 cpu, {k: v.cpu() for k, v in small.items()}))
     d = (out_gpu["probs"].cpu() - out_cpu["probs"]).abs()
     scales_equal = (len(rec_gpu) == len(rec_cpu) == len(quant)
-                    and all(torch.equal(rec_gpu[i][1], rec_cpu[i][1]) for i in rec_gpu))
+                    and all(torch.equal(a, b) for a, b in zip(rec_gpu, rec_cpu)))
     log(f"  float32 int8 model with the core, card vs CPU, B=2: probabilities median "
         f"{d.median().item():.3e} (limit 1e-3), max {d.max().item():.3e} (limit 1e-2); "
         f"{len(rec_gpu)} sites quantized, every static scale equal: {scales_equal}")
     require(d.median().item() <= 1e-3 and d.max().item() <= 1e-2 and scales_equal,
             "the float32 int8 model with the core disagrees with the CPU")
     result["card_vs_cpu"] = {"median": d.median().item(), "max": d.max().item()}
+    sections["card_vs_cpu"] = time.perf_counter() - t_phase - sum(sections.values())
     del cpu, core, pool
 
     # The decoder's attentions under conv,ffn,dec: K6 at (20, 20) and (20, 784).
     prev = os.environ.get("SPE_INT8_SCOPE")
     os.environ["SPE_INT8_SCOPE"] = "conv,ffn,dec"  # read when the model is built
     try:
-        dec = with_core(build_detr_model(DETRConfig(**base), seed=0, device=dev))
+        dec = with_int8_core(build_detr_model(DETRConfig(**base), seed=0, device=dev))
     finally:
         if prev is None:
             del os.environ["SPE_INT8_SCOPE"]
@@ -5353,45 +5538,75 @@ def int8_core_phase(torch, card, dev, g):
     with held() as recs:
         make_eval_step(out_size=size, compute_dtype=bf16)(dec, batch)
     got = launches_by_shape(recs)
-    want = [(("K6", (8, 8, T, Tk, 32), "bfloat16"), 4) for T, Tk in ((20, 20), (20, 784),
-                                                                      (784, 784))]
-    log(f"  scope conv,ffn,dec, B=8, dynamic scales: K6 launches by shape {got}, each held to "
-        f"plain: worst {worst_launch(recs)[0]:.3e} of 1 + max|plain|")
-    require(counts() == expected(k6=12) and got == want,
-            "the decoder's attentions did not launch K6 under conv,ffn,dec")
+    want = sorted(((name, (8, 8, T, Tk, 32), "bfloat16"), 4) for name in ("K6", "K6q")
+                  for T, Tk in ((20, 20), (20, 784), (784, 784)))
+    moved = sum(r[6] for r in recs)
+    log(f"  scope conv,ffn,dec, B=8, dynamic scales: launches by shape {got}, each held to "
+        f"plain bit for bit (K6 codes moved {moved}): worst {worst_launch(recs)[0]:.3e} of 1 + "
+        f"max|plain|")
+    require(counts() == expected(k6=12, k6q=12) and got == want and moved == 0,
+            "the decoder's attentions did not launch the quantize launch and K6 under "
+            "conv,ffn,dec")
     result["launches"]["eval_int8_core_dec_scope"] = counts()["k6"]
-    result["max_abs_err"] = max(result["max_abs_err"], max(r[5] for r in recs))
+    result["quantize_launches"]["eval_int8_core_dec_scope"] = counts()["k6q"]
+    result["held_codes_moved"] += moved
+    result["max_abs_err"] = max(result["max_abs_err"], max(r[5] for r in recs if r[0] == "K6"))
+    result["quantize_max_abs_err"] = max(result["quantize_max_abs_err"],
+                                         max(r[5] for r in recs if r[0] == "K6q"))
+    sections["dec_scope"] = time.perf_counter() - t_phase - sum(sections.values())
     del dec
 
-    # -- K6's time, by CUDA events and from a CUDA graph ----------------------
+    # -- the times, by CUDA events and from a CUDA graph ----------------------
     sdpa = torch.nn.functional.scaled_dot_product_attention
     result["times"] = []
     for B, H, Tq, Tk in ((EB, 8, 784, 784), (64, 8, 256, 256), (EB, 8, 20, 784)):
         q, k, v = inputs(B, H, Tq, Tk, 32, bf16)
-        codes = codes_of(q, k, v, (None, None, None), 32 ** -0.5)
-        scales = torch.stack([codes[3].float(), codes[4].float()])
-        kernel = lambda: iq._kernel(*codes[:3], scales, bf16)  # noqa: E731
-        rec, runs = timed(torch, kernel, lambda: iq.int8_attention_plain(*codes, bf16), iters=10)
-        rec.update(k6_bound(codes[0], codes[1], kernel()), graph_ms=graph_ms(torch, kernel),
+        amax = [t.float().abs().amax() / 127 for t in (q, k, v)]  # static scales
+        used = used_scales(q, k, v, amax)
+        *codes, factors = iq._quantize_kernel(q, k, v, used, 32 ** -0.5, 32)
+        plain_codes = iq.quantize_qkv_plain(q, k, v, 32 ** -0.5, amax)
+        kernel = lambda: iq._kernel(*codes, factors, bf16)  # noqa: E731
+        rec, runs = timed(torch, kernel, lambda: iq.int8_attention_plain(*plain_codes, bf16),
+                          iters=10)
+        graph = graph_ms(torch, kernel)
+        rec.update(k6_bound(codes[0], codes[1], kernel()), graph_ms=graph,
                    shape=[B, H, Tq, Tk, 32], dtype="bfloat16",
-                   core_ms=statistics.median(cuda_ms(
+                   core_static_ms=statistics.median(cuda_ms(
+                       lambda: iq.int8_attention_core(q, k, v, 32 ** -0.5, amax), 10, torch)
+                       for _ in range(3)),
+                   core_dynamic_ms=statistics.median(cuda_ms(
                        lambda: iq.int8_attention_core(q, k, v, 32 ** -0.5), 10, torch)
                        for _ in range(3)),
                    sdpa_float_core_ms=statistics.median(cuda_ms(
                        lambda: sdpa(q, k, v, scale=32 ** -0.5), 10, torch) for _ in range(3)))
+        quantize = lambda: iq._quantize_kernel(q, k, v, used, 32 ** -0.5, 32)  # noqa: E731
+        q_rec, q_runs = timed(torch, quantize,
+                              lambda: iq.quantize_qkv_plain(q, k, v, 32 ** -0.5, amax), iters=10)
+        q_rec.update(quantize_bound(q, k, v, codes), graph_ms=graph_ms(torch, quantize),
+                     shape=[B, H, Tq, Tk, 32], dtype="bfloat16")
+        rec["quantize"] = q_rec
         result["times"].append(rec)
         log(f"  K6 ({B},{H},{Tq},{Tk},32) bf16 codes: kernel {rec['ms']:.4f} ms "
             f"({rec['graph_ms']:.4f} ms replayed from a CUDA graph), plain {rec['plain_ms']:.4f} "
             f"ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}; "
-            f"{100 * rec['bound_ms'] / rec['ms']:.1f}% of it); the whole core with its "
-            f"quantization {rec['core_ms']:.4f} ms; no PyTorch call computes this function "
-            f"(SDPA's float core, another function: {rec['sdpa_float_core_ms']:.4f} ms) (runs "
-            f"plain, kernel, kernel, plain: {runs}) on {card}")
-        del q, k, v, codes, scales
+            f"{100 * rec['bound_ms'] / rec['ms']:.1f}% of the events' time, "
+            f"{100 * rec['bound_ms'] / graph:.1f}% of the graph's); no PyTorch call computes this "
+            f"function (SDPA's float core, another function: {rec['sdpa_float_core_ms']:.4f} ms) "
+            f"(runs plain, kernel, kernel, plain: {runs}) on {card}")
+        log(f"    the quantize launch: {q_rec['ms']:.4f} ms ({q_rec['graph_ms']:.4f} ms from a "
+            f"graph), plain (3 x _act_quantize and the products) {q_rec['plain_ms']:.4f} ms, "
+            f"bound {q_rec['bound_ms']:.4f} ms ({q_rec['bound_by']}; "
+            f"{100 * q_rec['bound_ms'] / q_rec['graph_ms']:.1f}% of the graph's) (runs {q_runs}); "
+            f"the whole core: static scales {rec['core_static_ms']:.4f} ms, dynamic (3 "
+            f"torch.aminmax before the launch) {rec['core_dynamic_ms']:.4f} ms")
+        del q, k, v, codes, factors, plain_codes, used, amax
     torch.cuda.empty_cache()
+    sections["times"] = time.perf_counter() - t_phase - sum(sections.values())
     result["seconds"] = time.perf_counter() - t_phase
-    log(f"phase 35 ok: K6 matches its plain version and ran 4 times an int8 eval step with the "
-        f"core ({result['seconds']:.1f} s)")
+    result["section_seconds"] = sections
+    log("  phase 35's sections, seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in sections.items()))
+    log(f"phase 35 ok: K6 and the quantize launch match their plain versions bit for bit and "
+        f"ran 4 times each an int8 eval step with the core ({result['seconds']:.1f} s)")
     return result
 
 

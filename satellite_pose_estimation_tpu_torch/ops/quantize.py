@@ -21,10 +21,13 @@ Its output is an NCHW view of channels-last memory, which the next
 convolution reads with no copy.
 
 ``int8_attention_core`` runs both products of an attention core on int8
-codes: on CUDA tensors through K6, the hand-written kernel
-``csrc/int8_attention.cu`` (int8 ``mma.sync``, built with nvcc at first use;
-``launch_count`` counts its launches), on CPU tensors through its plain
-version ``int8_attention_plain``. On a CUDA tensor it never falls back.
+codes: on CUDA tensors through two launches of the hand-written library
+``csrc/int8_attention.cu`` (built with nvcc at first use), the quantize
+launch (q, k and v to int8 codes and the two scale factors;
+``quantize_launch_count`` counts it) and K6 (int8 ``mma.sync``;
+``launch_count``), on CPU tensors through their plain versions
+``quantize_qkv_plain`` and ``int8_attention_plain``. On a CUDA tensor it
+never falls back.
 """
 from __future__ import annotations
 
@@ -41,10 +44,11 @@ from .precision import highest_precision
 
 _build = threading.local()
 
-SOURCES = ["int8_attention.cu"]  # K6
+SOURCES = ["int8_attention.cu"]  # K6 and the q / k / v quantize launch
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128
-launch_count = 0
+launch_count = 0  # K6 launches
+quantize_launch_count = 0  # launches of the q / k / v quantize
 _lib = None
 
 
@@ -95,14 +99,21 @@ def amax_to_scale(amax):
     return _div127(torch.clamp_min(amax.float(), 1e-8))
 
 
+def _act_scale(x, act_scale=None):
+    """The per-tensor int8 scale of ``x``: ``act_scale`` (a calibrated amax /
+    127) when given, else the dynamic max |x| / 127."""
+    if act_scale is None:
+        lo, hi = torch.aminmax(x)
+        act_scale = amax_to_scale(torch.maximum(-lo, hi))
+    return act_scale
+
+
 def _act_quantize(x, act_scale=None):
     """Per-tensor symmetric int8 codes of ``x`` -> (int8 codes, float32
     scale). ``act_scale`` (a calibrated amax / 127) skips the max over x."""
     if x.dtype == torch.float64:
         x = x.float()
-    if act_scale is None:
-        lo, hi = torch.aminmax(x)
-        act_scale = amax_to_scale(torch.maximum(-lo, hi))
+    act_scale = _act_scale(x, act_scale)
     # A one-element (not 0-d) scale makes the quotient float32 from a bf16 x
     # in one pass: float32(x) / scale, JAX's x.astype(f32) / scale.
     q = torch.div(x, act_scale.reshape(1)).round_().clamp_(-127, 127).to(torch.int8)
@@ -192,19 +203,24 @@ def int8_attention_core(qh, kh, vh, sm_scale, act_scales=(None, None, None)):
     fixed scale 1/127 (round half to even), the AV product is exact int32 and
     is rescaled by v_scale / 127 into qh's dtype. Autocast does not reach
     inside: the roundings are those of qh's dtype. CUDA tensors (float32 or
-    bf16, D <= 128) go through K6; CPU tensors through the plain version."""
+    bf16, D <= 128) go through the quantize launch and K6; CPU tensors
+    through their plain versions."""
     dev = qh.device.type
     if dev not in ("cpu", "cuda"):
         raise ValueError(f"the int8 attention core runs on cpu or cuda, not {qh.device}")
     with torch.autocast(dev, enabled=False):
-        sq, sk, sv = act_scales
-        qq, qs = _act_quantize(qh, sq)
-        kq, ks = _act_quantize(kh, sk)
-        vq, vs = _act_quantize(vh, sv)
-        score_scale, out_scale = qs * ks * sm_scale, _div127(vs)
         if dev == "cuda":
-            return _launch(qq, kq, vq, score_scale, out_scale, qh.dtype)
-        return int8_attention_plain(qq, kq, vq, score_scale, out_scale, qh.dtype)
+            return _launch_core(qh, kh, vh, sm_scale, act_scales)
+        return int8_attention_plain(*quantize_qkv_plain(qh, kh, vh, sm_scale, act_scales),
+                                    qh.dtype)
+
+
+def quantize_qkv_plain(qh, kh, vh, sm_scale, act_scales=(None, None, None)):
+    """The quantize launch's plain version: the codes of q, k and v
+    (``_act_quantize``) and the factors ``score_scale`` = q_scale * k_scale *
+    sm_scale and ``out_scale`` = v_scale / 127 that K6 takes."""
+    (qq, qs), (kq, ks), (vq, vs) = (_act_quantize(t, s) for t, s in zip((qh, kh, vh), act_scales))
+    return qq, kq, vq, qs * ks * sm_scale, _div127(vs)
 
 
 def int8_attention_plain(qq, kq, vq, score_scale, out_scale, dtype):
@@ -249,13 +265,18 @@ def int8_av(pq, vq, out_scale, dtype):
 
 
 def load_library() -> ctypes.CDLL:
-    """Build (first use only) and load K6's library."""
+    """Build (first use only) and load K6's library (K6 and the quantize
+    launch)."""
     global _lib
     if _lib is None:
         lib = build_library("int8_attention", SOURCES)
         lib.spe_int8_attention.argtypes = (
             [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 4)
         lib.spe_int8_attention.restype = ctypes.c_int
+        lib.spe_int8_quantize_qkv.argtypes = (
+            [ctypes.c_void_p] * 10 + [ctypes.c_float] + [ctypes.c_int] * 7
+            + [ctypes.c_void_p] * 2)
+        lib.spe_int8_quantize_qkv.restype = ctypes.c_int
         lib.spe_int8_attention_error_string.argtypes = [ctypes.c_int]
         lib.spe_int8_attention_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -270,23 +291,74 @@ def kernel_head_dim(D: int) -> int:
     return -(-D // 32) * 32
 
 
+def _check_core(q, k, v, dtype):
+    """Raise on what the launches do not take: ``dtype`` (the output's) other
+    than float32 or bf16, q (B, H, Tq, D) and k, v (B, H, Tk, D) of other
+    ranks or mismatched B, H, D, or tensors on several devices."""
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(f"the int8 attention kernel outputs float32 or bfloat16, not {dtype}")
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"expected q (B, H, Tq, D) and k, v (B, H, Tk, D), got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    if k.shape[:2] != q.shape[:2] or k.shape[3] != q.shape[3]:
+        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} differ in B, H or D")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError("q, k and v lie on different devices")
+
+
+def _launch_core(qh, kh, vh, sm_scale, act_scales):
+    """The core on CUDA tensors: the per-tensor scales (``_act_scale``; a
+    dynamic one costs a ``torch.aminmax``), the quantize launch, K6, and the
+    output sliced back to D."""
+    _check_core(qh, kh, vh, qh.dtype)
+    if kh.dtype != qh.dtype or vh.dtype != qh.dtype:
+        raise TypeError(f"q, k and v differ in dtype: {qh.dtype}, {kh.dtype}, {vh.dtype}")
+    D = qh.shape[3]
+    width = kernel_head_dim(D)
+    scales = [_act_scale(t, s).float().reshape(()) for t, s in zip((qh, kh, vh), act_scales)]
+    if any(s.device != qh.device for s in scales):
+        raise ValueError("the static scales of the int8 attention core lie on another device")
+    qq, kq, vq, factors = _quantize_kernel(qh, kh, vh, scales, sm_scale, width)
+    return _kernel(qq, kq, vq, factors, qh.dtype)[..., :D]
+
+
+def _quantize_kernel(qh, kh, vh, scales, sm_scale, width):
+    """One quantize launch: the int8 codes of the (B, H, T, D) views q, k and
+    v at the float32 device scalars ``scales``, each a contiguous (B, H, T,
+    ``width``) buffer zero past D, and float32 [score_scale, out_scale] on
+    the device."""
+    global quantize_launch_count
+    B, H, Tq, D = qh.shape
+    Tk = kh.shape[2]
+    codes = [torch.empty((B, H, t.shape[2], width), dtype=torch.int8, device=qh.device)
+             for t in (qh, kh, vh)]
+    factors = torch.empty(2, dtype=torch.float32, device=qh.device)
+    strides = (ctypes.c_longlong * 12)(*(s for t in (qh, kh, vh) for s in t.stride()))
+    lib = load_library()
+    with torch.cuda.device(qh.device):
+        stream = torch.cuda.current_stream(qh.device).cuda_stream
+        err = lib.spe_int8_quantize_qkv(
+            qh.data_ptr(), kh.data_ptr(), vh.data_ptr(), *(s.data_ptr() for s in scales),
+            *(c.data_ptr() for c in codes), factors.data_ptr(), sm_scale,
+            _DTYPE_CODES[qh.dtype], B, H, Tq, Tk, D, width, ctypes.addressof(strides), stream)
+    if err != 0:
+        msg = lib.spe_int8_attention_error_string(err).decode()
+        raise RuntimeError(f"int8 quantize launch failed: CUDA error {err} ({msg})")
+    quantize_launch_count += 1
+    return (*codes, factors)
+
+
 def _launch(qq, kq, vq, score_scale, out_scale, dtype, probes=False):
-    """K6 on the codes: checks, zero-pads the head dim to the instance's
+    """K6 on given codes: checks, zero-pads the head dim to the instance's
     (exact: zero codes add nothing) and slices the output back. Returns the
     (B, H, Tq, D) output, a view of a (B, Tq, H, D') buffer, and with
     ``probes`` also the int32 scores and the int8 probability codes."""
-    if dtype not in _DTYPE_CODES:
-        raise TypeError(f"the int8 attention kernel outputs float32 or bfloat16, not {dtype}")
-    if qq.dim() != 4 or kq.dim() != 4 or vq.shape != kq.shape:
-        raise ValueError(f"expected q (B, H, Tq, D) and k, v (B, H, Tk, D) codes, got "
-                         f"{tuple(qq.shape)}, {tuple(kq.shape)}, {tuple(vq.shape)}")
-    B, H, Tq, D = qq.shape
-    if kq.shape[:2] != (B, H) or kq.shape[3] != D:
-        raise ValueError(f"q {tuple(qq.shape)} and k {tuple(kq.shape)} differ in B, H or D")
-    if any(t.dtype != torch.int8 or t.device != qq.device for t in (qq, kq, vq)):
-        raise TypeError("the int8 attention kernel takes int8 codes on one device")
+    _check_core(qq, kq, vq, dtype)
+    if any(t.dtype != torch.int8 for t in (qq, kq, vq)):
+        raise TypeError("the int8 attention kernel takes int8 codes")
+    D = qq.shape[3]
     width = kernel_head_dim(D)
-    codes = [_rows4(x, width) for x in (qq, kq, vq)]
+    codes = [_rows16(x, width) for x in (qq, kq, vq)]
     scales = torch.stack([score_scale.float(), out_scale.float()])
     out = _kernel(*codes, scales, dtype, probes)
     if probes:
@@ -294,19 +366,19 @@ def _launch(qq, kq, vq, score_scale, out_scale, dtype, probes=False):
     return out[..., :D]
 
 
-def _rows4(x, width):
-    """int8 codes zero-padded to ``width`` head dims, with rows on 4 bytes
-    and a unit stride on the head dim (K6 loads 4 codes at a time)."""
+def _rows16(x, width):
+    """int8 codes zero-padded to ``width`` head dims, with rows on 16 bytes
+    and a unit stride on the head dim (K6 stages rows with 16-byte copies)."""
     if x.shape[-1] != width:
         return F.pad(x, (0, width - x.shape[-1]))
-    if x.stride(-1) != 1 or x.data_ptr() % 4 or any(s % 4 for s in x.stride()[:3]):
-        return x.contiguous()
+    if x.stride(-1) != 1 or x.data_ptr() % 16 or any(s % 16 for s in x.stride()[:3]):
+        return x.clone(memory_format=torch.contiguous_format)
     return x
 
 
 def _kernel(qq, kq, vq, scales, dtype, probes=False):
     """One K6 launch on codes whose head dim is a multiple of 32 (at most
-    128) and whose rows are on 4 bytes; ``scales`` holds score_scale and
+    128) and whose rows are on 16 bytes; ``scales`` holds score_scale and
     out_scale (float32, on the device)."""
     global launch_count
     B, H, Tq, D = qq.shape

@@ -9,7 +9,9 @@ deformable sampling, the query selection, the sigma solvers and the int8
 RT-DETR against the CPU), and the RT-DETR train step at 512 (K1 and K2 on
 its AIFI layer, with and without CDN), the host-to-device prefetch,
 the solver's default device, the classification train step, K1 in the
-inference-timing tool and the batched point-count ablation.
+inference-timing tool, the batched point-count ablation, and K6, the int8
+attention core, with its q / k / v quantize launch (both bit for bit
+against their plain versions).
 These tests need a CUDA device and skip without one. The file imports no
 JAX, so on a machine without JAX it runs on its own:
 
@@ -1102,9 +1104,12 @@ def test_cuda_val_p_which_p_matches_the_cpu(cuda_device, tmp_path):
 # -- K6, the int8 attention core ---------------------------------------------
 
 # (B, H, Tq, Tk): one token, the DETR decoder's self and cross shapes, a
-# 7 x 7 map, the RT-DETR AIFI shape and the encoder's 784 tokens.
+# 7 x 7 map, the RT-DETR AIFI shape, the encoder's 784 tokens, and shapes
+# past the kernel's edges: 113 rows (one past 7 groups of 16) against 785
+# keys (one past 49 groups of 16, a tile of 17 keys), 20 rows against 33
+# keys (one past a 32-key group).
 K6_SHAPES = [(2, 2, 1, 1), (4, 8, 20, 20), (4, 8, 20, 784), (2, 4, 49, 49), (4, 8, 256, 256),
-             (2, 8, 784, 784)]
+             (2, 8, 784, 784), (2, 4, 113, 785), (4, 8, 20, 33)]
 
 
 def _k6_inputs(dev, B, H, Tq, Tk, D, dtype, seed):
@@ -1125,46 +1130,86 @@ def _k6_codes(q, k, v, scales, sm):
 @pytest.mark.parametrize("D", [16, 32, 48, 64, 128])
 @pytest.mark.parametrize("B,H,Tq,Tk", K6_SHAPES)
 def test_cuda_int8_attention_matches_plain(cuda_device, B, H, Tq, Tk, D, dtype, static):
-    """K6 against its plain version on the same codes: the int32 scores bit
-    for bit; in float32 the probability codes at most one apart on at most
-    0.1% of them (exp's rounding at a .5 boundary) and the output within
-    1e-4 relative L2; in bf16 K1's limits (2e-2 of 1 + max|plain|, 1e-2
-    relative L2). A second launch gives the same bits."""
+    """The core on the card (the quantize launch, then K6) against the plain
+    version on the same codes, bit for bit in both dtypes: the int32 scores,
+    the probability codes and the output. A launch on the codes gives the
+    same bits."""
     q, k, v = _k6_inputs(cuda_device, B, H, Tq, Tk, D, dtype, seed=Tq * D + Tk)
     sm = D ** -0.5
     scales = [t.float().abs().amax() * 0.8 if static else None for t in (q, k, v)]
-    before = tq.launch_count
+    before = (tq.launch_count, tq.quantize_launch_count)
     out = tq.int8_attention_core(q, k, v, sm, scales)
     torch.cuda.synchronize()
-    assert tq.launch_count == before + 1 and out.dtype == dtype and out.shape == (B, H, Tq, D)
+    assert (tq.launch_count, tq.quantize_launch_count) == (before[0] + 1, before[1] + 1)
+    assert out.dtype == dtype and out.shape == (B, H, Tq, D)
     codes = _k6_codes(q, k, v, scales, sm)
     again, s, p = tq._launch(*codes, dtype, probes=True)
     torch.cuda.synchronize()
-    assert torch.equal(again, out)
     s_ref = tq.int8_scores(*codes[:2])
     p_ref = tq.probability_codes(s_ref, codes[3], dtype)
     ref = tq.int8_attention_plain(*codes, dtype)
     assert torch.equal(s, s_ref)
-    apart = (p.int() - p_ref.int()).abs()
-    err = (out.float() - ref.float()).abs().max().item()
-    if dtype == torch.float32:
-        assert apart.max().item() <= 1 and (apart > 0).float().mean().item() <= 1e-3
-        _assert_rel_l2(out, ref, 1e-4)
+    assert torch.equal(p, p_ref), int((p != p_ref).sum())
+    assert torch.equal(out, ref) and torch.equal(again, ref)
+
+
+def _on_half_steps(x, scale, dtype):
+    """x with a third of its values moved onto (k + 1/2) * scale for integers
+    k from -200 to 199: past the clamp, and ties of the rounding (exact in
+    bf16 for |k + 1/2| < 128 when ``scale`` is a power of two)."""
+    g = torch.Generator(device=x.device).manual_seed(x.numel())
+    steps = (torch.randint(-200, 200, x.shape, generator=g, device=x.device) + 0.5) * scale
+    pick = torch.rand(x.shape, generator=g, device=x.device) < 1 / 3
+    return torch.where(pick, steps.to(dtype), x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scales", ["dynamic", "static", "halves"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,H,Tq,Tk,D", [(4, 8, 20, 784, 32), (2, 4, 113, 785, 48),
+                                         (3, 2, 7, 9, 128), (2, 2, 1, 1, 16)])
+def test_cuda_int8_quantize_matches_act_quantize(cuda_device, B, H, Tq, Tk, D, dtype, scales):
+    """The quantize launch against ``_act_quantize`` and the products of the
+    scales, bit for bit: the codes of (B, T, H, D)-transposed views of q, k
+    and v, zero past D in rows of the instance's head dim, and the factors
+    score_scale = q_scale * k_scale * sm_scale and out_scale = v_scale / 127;
+    with dynamic scales, with static ones below the tensors' max (codes past
+    the clamp), and with values on the .5 steps of a power-of-two scale."""
+    q, k, v = _k6_inputs(cuda_device, B, H, Tq, Tk, D, dtype, seed=B * Tk + D)
+    if scales == "halves":
+        act = [torch.tensor(2.0 ** -5, device=cuda_device) for _ in range(3)]
+        q, k, v = (_on_half_steps(t, 2.0 ** -5, dtype) for t in (q, k, v))
     else:
-        assert err <= 2e-2 * (1.0 + ref.float().abs().max().item())
-        _assert_rel_l2(out, ref, 1e-2)
+        act = [t.float().abs().amax() * 0.7 if scales == "static" else None for t in (q, k, v)]
+    sm = D ** -0.5
+    width = tq.kernel_head_dim(D)
+    used = [tq._act_scale(t, s).float().reshape(()) for t, s in zip((q, k, v), act)]
+    before = tq.quantize_launch_count
+    *codes, factors = tq._quantize_kernel(q, k, v, used, sm, width)
+    torch.cuda.synchronize()
+    assert tq.quantize_launch_count == before + 1
+    ref = tq.quantize_qkv_plain(q, k, v, sm, act)
+    for c, r in zip(codes, ref[:3]):
+        assert c.shape == r.shape[:3] + (width,) and c.is_contiguous()
+        assert torch.equal(c[..., :D], r) and not c[..., D:].any()
+    assert torch.equal(factors, torch.stack([ref[3].float(), ref[4].float()]))
+    if scales == "halves":
+        assert (codes[0][..., :D].abs() == 127).any()  # past the clamp
 
 
 @pytest.mark.cuda
 def test_cuda_int8_attention_never_falls_back(cuda_device, monkeypatch):
-    """On CUDA tensors the core launches K6 and never reaches the plain
-    version; a launch the kernel refuses (B * H past the grid's 65535) and a
-    head dim past 128 raise."""
-    monkeypatch.setattr(tq, "int8_attention_plain", None)  # any call would raise
+    """On CUDA tensors the core launches the quantize kernel and K6, once
+    each, and never reaches a plain version; a launch the kernel refuses
+    (B * H past the grid's 65535) and a head dim past 128 raise."""
+    for name in ("int8_attention_plain", "quantize_qkv_plain", "_act_quantize"):
+        monkeypatch.setattr(tq, name, None)  # any call would raise
     q = torch.randn(2, 4, 49, 32, device=cuda_device)
+    before = (tq.launch_count, tq.quantize_launch_count)
     out = tq.int8_attention_core(q, q, q, 0.2)
     torch.cuda.synchronize()
     assert torch.isfinite(out).all()
+    assert (tq.launch_count, tq.quantize_launch_count) == (before[0] + 1, before[1] + 1)
     wide = torch.randn(65536, 1, 1, 32, device=cuda_device)
     with pytest.raises(RuntimeError, match="CUDA error"):
         tq.int8_attention_core(wide, wide, wide, 0.2)
@@ -1176,9 +1221,10 @@ def test_cuda_int8_attention_never_falls_back(cuda_device, monkeypatch):
 @pytest.mark.cuda
 def test_cuda_int8_core_detr_matches_cpu(cuda_device, monkeypatch):
     """A small int8 DETR (scope conv,ffn,dec) whose attentions all take the
-    int8 core, calibrated on the card: K6 three times a forward (encoder,
-    decoder self and cross), every static scale, the core's included, equal
-    to the CPU's, and the float32 probabilities within 1e-2 of the CPU's."""
+    int8 core, calibrated on the card: the quantize launch and K6 three times
+    a forward each (encoder, decoder self and cross), every static scale, the
+    core's included, equal to the CPU's, and the float32 probabilities within
+    1e-2 of the CPU's."""
     monkeypatch.setenv("SPE_INT8_SCOPE", "conv,ffn,dec")
     cfg = DETRConfig(backbone="resnet18", hidden_dim=32, nheads=4, enc_layers=1, dec_layers=1,
                      dim_feedforward=64, num_queries=20, dropout=0.0, quantize_int8=True)
@@ -1198,22 +1244,22 @@ def test_cuda_int8_core_detr_matches_cpu(cuda_device, monkeypatch):
     quant = calibrate_act_scales(models[0], [warp])
     assert set(quant) == set(layers.int8_sites(models[0]))
     assert sum(k.endswith(("amax_q", "amax_k", "amax_v")) for k in quant) == 9
-    scales, real = [], tq._act_quantize
+    scales, real = [], tq._act_scale
 
-    def spy(x, scale=None):
-        q, sc = real(x, scale)
+    def spy(x, scale=None):  # every site's scale, on both routes of the core
+        sc = real(x, scale)
         scales.append(sc.cpu())
-        return q, sc
+        return sc
 
-    monkeypatch.setattr(tq, "_act_quantize", spy)
-    before = tq.launch_count
+    monkeypatch.setattr(tq, "_act_scale", spy)
+    before = (tq.launch_count, tq.quantize_launch_count)
     with highest_precision():
         out_gpu = make_eval_step(out_size=64, quant=quant)(models[0], gpu_batch)
         torch.cuda.synchronize()
-        launches = tq.launch_count - before
+        launches = (tq.launch_count - before[0], tq.quantize_launch_count - before[1])
         out_cpu = make_eval_step(out_size=64, quant={k: v.cpu() for k, v in quant.items()})(
             models[1], batch)
     n = len(quant)
-    assert launches == 3 and len(scales) == 2 * n
+    assert launches == (3, 3) and len(scales) == 2 * n
     assert all(torch.equal(a, b) for a, b in zip(scales[:n], scales[n:]))
     assert (out_gpu["probs"].cpu() - out_cpu["probs"]).abs().max().item() <= 1e-2

@@ -14,6 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from satellite_pose_estimation_tpu.models import transformer as jtransformer
 from satellite_pose_estimation_tpu.models.detr import DETRConfig as JaxDETRConfig
@@ -116,17 +117,29 @@ def test_core_error_bound_and_static_scales(B, H, Tq, Tk, D):
 @pytest.mark.parametrize("D", [16, 40, 48, 128])
 def test_padded_kernel_route_equals_the_plain_version(D, dtype, monkeypatch):
     """K6's wrapper zero-pads the head dim to a multiple of 32 and hands the
-    kernel 4-byte rows; with the kernel replaced by the plain version on the
-    padded codes (the CPU has no kernel), the route gives the plain result
-    bit for bit, in the head-major layout."""
+    kernel rows on 16 bytes; the core's CUDA route hands the quantize launch
+    the projections' views and float32 scalar scales and K6 its padded codes
+    and factors. With both launches replaced by their plain versions (the CPU
+    has no kernel), the routes give the plain result bit for bit, in the
+    head-major layout, with dynamic and static scales."""
     def kernel(qq, kq, vq, scales, out_dtype, probes=False):
         assert qq.shape[-1] % 32 == 0 and all(t.stride(-1) == 1 for t in (qq, kq, vq))
-        assert all(s % 4 == 0 for t in (qq, kq, vq) for s in t.stride()[:3])
+        assert all(t.data_ptr() % 16 == 0 and all(s % 16 == 0 for s in t.stride()[:3])
+                   for t in (qq, kq, vq))
+        assert scales.dtype == torch.float32 and scales.shape == (2,)
         out = tq.int8_attention_plain(qq, kq, vq, scales[0], scales[1], out_dtype)
         B, H, T, W = out.shape
         return torch.empty(B, T, H, W, dtype=out_dtype).transpose(1, 2).copy_(out)
 
+    def quantize(qh, kh, vh, scales, sm, width):
+        assert width == tq.kernel_head_dim(qh.shape[-1]) and isinstance(sm, float)
+        assert all(s.shape == () and s.dtype == torch.float32 for s in scales)
+        qq, kq, vq, score_scale, out_scale = tq.quantize_qkv_plain(qh, kh, vh, sm, scales)
+        codes = [F.pad(c, (0, width - c.shape[-1])) for c in (qq, kq, vq)]
+        return (*codes, torch.stack([score_scale, out_scale]))
+
     monkeypatch.setattr(tq, "_kernel", kernel)
+    monkeypatch.setattr(tq, "_quantize_kernel", quantize)
     g = torch.Generator().manual_seed(D)
     # (B, T, H, D) projection views, as the attention hands them over.
     qh, kh, vh = (torch.randn(2, T, 3, D, generator=g).to(dtype).transpose(1, 2)
@@ -134,11 +147,16 @@ def test_padded_kernel_route_equals_the_plain_version(D, dtype, monkeypatch):
     sm = D ** -0.5
     ref = tq.int8_attention_core(qh, kh, vh, sm)
     (qq, qs), (kq, ks), (vq, vs) = (tq._act_quantize(t) for t in (qh, kh, vh))
-    before = tq.launch_count
+    before = (tq.launch_count, tq.quantize_launch_count)
     out = tq._launch(qq, kq, vq, qs * ks * sm, tq._div127(vs), dtype)
-    assert tq.launch_count == before  # the replaced kernel counts nothing
     assert out.dtype == dtype and out.shape == (2, 3, 7, D)
     assert torch.equal(out, ref)
+    assert torch.equal(tq._launch_core(qh, kh, vh, sm, (None, None, None)), ref)
+    static = tuple(t.float().abs().amax() * 0.8 / 127 for t in (qh, kh, vh))
+    assert torch.equal(tq._launch_core(qh, kh, vh, sm, static),
+                       tq.int8_attention_core(qh, kh, vh, sm, static))
+    # the replaced launches count nothing
+    assert (tq.launch_count, tq.quantize_launch_count) == before
 
 
 def test_kernel_route_refuses_what_the_kernel_does_not_take():
