@@ -9,7 +9,7 @@ _tpu_torch/csrc`` with nvcc (K1, the fused attention forward; K2, its
 backward; K3, the rotation; K4, the fused photometric chain; K5, flash
 attention; K6, the int8 attention core, and its q / k / v quantize
 launch -- one nvcc per source, all started together), then runs
-thirty-five phases and exits non-zero if any fails:
+thirty-six phases and exits non-zero if any fails:
 
 1. the card's name and power limit, the kernel build time, and each
    kernel's registers, shared memory and spills (ptxas's own lines);
@@ -192,10 +192,13 @@ thirty-five phases and exits non-zero if any fails:
    padded to 100) at B = 4: K1 and K2 7 times a step at 640 and 6 at 480
    (AIFI's 225 tokens on the plain core), float32 and bf16, each launch
    held to its plain version; finite losses, the FrozenBN buffers
-   untouched, the loss falling over 10 steps on one fixed batch, float32
+   untouched, the loss falling over 6 steps on one fixed batch, float32
    gradients at B = 2 (ill-conditioned at random init: the card within 3x
    the CPU float32's distance to the CPU's float64, the encoder's top-k
-   heads card vs CPU within 1e-3 relative L2); rates with forward /
+   heads card vs CPU within 1e-3 relative L2; the gaps broken down by
+   tensor and module group beside a control, the CPU on the input moved by
+   one ulp, and a card run with K1 / K2 replaced by their plain versions);
+   rates with forward /
    match / loss / backward / optimizer spans (read in the rate windows'
    own steps) and peak memory, the stacked
    Hungarian's device kernels a call; K2's time at both shapes beside its
@@ -248,7 +251,8 @@ thirty-five phases and exits non-zero if any fails:
    scaling figure: the ranks share a card);
 33. the R2 CLI under ``python -m torch.distributed.run --standalone
    --nproc_per_node=1`` (NCCL, world 1) on configs/speed/
-   rtdetr_r50vd_kl_1_512.yml at B = 16 over 48 rendered frames: one epoch
+   rtdetr_r50vd_kl_1_512.yml with its backbone cut to PResNet-18-vd
+   (``-u PResNet.depth=18``) at B = 16 over 48 rendered frames: one epoch
    (2 train steps, 1 eval step: K1 3, K2 2 in the launched process),
    log.txt written once, then ``-r checkpoint`` resuming epoch 1;
 34. TP=2 over gloo on the card: the DETR r50s8 eval step at B = 256 bf16
@@ -276,7 +280,17 @@ thirty-five phases and exits non-zero if any fails:
    the decoder's (20, 20) and (20, 784); K6's and the quantize launch's
    times (CUDA events and a CUDA graph) beside their plain versions and
    bounds at the encoder, AIFI and cross shapes, and the whole core with
-   static and with dynamic scales.
+   static and with dynamic scales;
+36. the synthetic self-check CLI (``tools/synthetic_selfcheck.py``'s
+   ``main``) through its parser on 200 SPEED frames rendered into a
+   temporary directory: its defaults (the small preset, r18 / hidden 64,
+   B=18 @128 float32, seed 0; no kernel: 16 AIFI tokens) for 50 epochs
+   (``SELFCHECK_EPOCHS``), each epoch's val SPEED score and train loss
+   printed, the best at most 2.07 (half the untrained anchor 1 + pi), the
+   seconds and loader-wait shares, JAX's TPU history beside it; then one
+   epoch of ``--preset flagship --resize 512 --dtype bfloat16`` on 40 of
+   the frames: K1 3 and K2 2 times at (18, 8, 256, 32), each launch held to
+   its plain version, finite losses and scores.
 Phase 23 also runs ``--parallel_ensemble`` (the three models on the one
 card), whose CSV must equal the serial route's. The child processes of
 phases 32-34 reuse the kernels built in phase 1 (``--child`` runs one).
@@ -893,6 +907,7 @@ def main() -> int:
     tools = tool_phases(torch, card, dev, spans5)
     par = parallel_phases(torch, card, dev, g)
     k6 = int8_core_phase(torch, card, dev, g)
+    sc = selfcheck_phase(torch, card, dev)
 
     def head_dims(name):
         """Each new head-dim instance's record for the kernels line: its
@@ -922,7 +937,7 @@ def main() -> int:
                      + s9["ghost_k1"] + s9["ensemble_k1"] + s9["export_k1"]
                      + sum(det["k1"].values()) + sum(tools["k1"].values())
                      + s9["ensemble_parallel_k1"] + 2 * par["ddp"]["k1_per_rank"]
-                     + par["r2_cli"]["k1"] + 2 * par["tp"]["k1_per_rank"]),
+                     + par["r2_cli"]["k1"] + 2 * par["tp"]["k1_per_rank"] + sc["k1"]),
         "launches_by_path": {"eval": main_path_launches, "train": train["k1_launches"],
                              "train_state_eval_bf16": train["k1_eval_bf16_launches"],
                              "train_pallas_augment": routes["b"]["k1"],
@@ -948,7 +963,8 @@ def main() -> int:
                              "ddp_dp2_train_rank1": par["ddp"]["k1_per_rank"],
                              "r2_cli_torchrun_nccl": par["r2_cli"]["k1"],
                              "tp2_eval_rank0": par["tp"]["k1_per_rank"],
-                             "tp2_eval_rank1": par["tp"]["k1_per_rank"]},
+                             "tp2_eval_rank1": par["tp"]["k1_per_rank"],
+                             "selfcheck_flagship_512": sc["k1"]},
         "max_abs_err": k1_err,
         **k1_times,
         "head_dims": head_dims("k1"),
@@ -959,6 +975,7 @@ def main() -> int:
         "det": {"max_abs_err": det["k1_err"], "shapes": det["k1_times"]},
         "tools": {"max_abs_err": tools["k1_err"], "launches_by_shape": tools["k1_shapes"]},
         "parallel": parallel_held(par, "K1"),
+        "selfcheck_flagship_512": sc["held"]["K1"],
     }, {
         "name": "fused_attention_bwd",
         "route": "cuda",
@@ -968,7 +985,7 @@ def main() -> int:
                      + sum(rt_train[p]["k2"] for p in ("train", "cdn", "bench"))
                      + cli["r2"]["launches"]["k2"] + paths_k["k2"] + s9["train"]["k2"]
                      + sum(det["k2"].values()) + 2 * par["ddp"]["k2_per_rank"]
-                     + par["r2_cli"]["k2"]),
+                     + par["r2_cli"]["k2"] + sc["k2"]),
         "launches_by_path": {"train": train["k2_launches"],
                              "train_pallas_augment": routes["b"]["k2"],
                              "rtdetr_train_512": rt_train["train"]["k2"],
@@ -980,7 +997,8 @@ def main() -> int:
                              **det["k2"],
                              "ddp_dp2_train_rank0": par["ddp"]["k2_per_rank"],
                              "ddp_dp2_train_rank1": par["ddp"]["k2_per_rank"],
-                             "r2_cli_torchrun_nccl": par["r2_cli"]["k2"]},
+                             "r2_cli_torchrun_nccl": par["r2_cli"]["k2"],
+                             "selfcheck_flagship_512": sc["k2"]},
         "max_abs_err": train["k2_err"],
         **train["k2_times"],
         "head_dims": head_dims("k2"),
@@ -988,6 +1006,7 @@ def main() -> int:
                         **rt_train["k2_aifi"]},
         "det": {"max_abs_err": det["k2_err"], "shapes": det["k2_times"]},
         "parallel": parallel_held(par, "K2"),
+        "selfcheck_flagship_512": sc["held"]["K2"],
     }, {
         "name": "rotate_shear3",
         "route": "cuda",
@@ -3750,6 +3769,30 @@ ATTN_GATES = {"K1": {"torch.float32": (1e-5, 1e-5), "torch.bfloat16": (2e-2, 1e-
               "K2": {"torch.float32": (1e-4, 1e-5), "torch.bfloat16": (2e-2, 1e-2)}}
 
 
+@contextlib.contextmanager
+def plain_attention():
+    """K1 and K2 replaced by their plain versions on CUDA tensors too (the
+    CPU branch of the custom operators), so that a card run's float32
+    arithmetic can be told apart from the kernels' own rounding. Launches
+    nothing and counts nothing."""
+    from satellite_pose_estimation_tpu_torch.ops import fused_attention as fa
+
+    real = fa._launch_fwd, fa._launch_bwd
+
+    def fwd(q, k, v, s):
+        scores = fa._plain_scores(q, k, s)
+        return fa._head_major(fa._plain_output(scores, v)), scores.logsumexp(dim=-1)
+
+    def bwd(q, k, v, o, lse, g, s):
+        return tuple(fa._head_major(x) for x in fa.attention_plain_bwd(q, k, v, g, s))
+
+    fa._launch_fwd, fa._launch_bwd = fwd, bwd
+    try:
+        yield
+    finally:
+        fa._launch_fwd, fa._launch_bwd = real
+
+
 def launch_checker(torch):
     """A context manager ``held()``: the launch counts set to 0, and every K1
     / K2 launch inside the block held to its plain version on its own
@@ -3838,6 +3881,86 @@ def parallel_held(par, name):
         out[path]["launches_by_shape"] = [[list(k[1]), k[2], n]
                                           for k, n in launches_by_shape(mine)]
     return out
+
+
+def det_grad_group(name: str) -> str:
+    """The module group of a det RT-DETR parameter: the backbone, the
+    encoder's input projections / AIFI / CCFM, the decoder's input
+    projections, its encoder-output (top-k) heads, each decoder layer and
+    each layer's heads."""
+    top, sub = name.split(".")[:2]
+    if top == "encoder":
+        return "encoder." + ("aifi" if sub.startswith("encoder_") else
+                             "input_proj" if sub.startswith("input_proj") else "ccfm")
+    if top != "decoder":
+        return top
+    if sub.startswith("decoder_layer_"):
+        return "decoder.layer_" + sub.rsplit("_", 1)[1]
+    if sub.startswith(("dec_", "sigma_embed_")):
+        return "decoder.heads_" + sub.rsplit("_", 1)[1]
+    if sub.startswith("enc_"):
+        return "decoder.enc_heads"
+    return "decoder." + ("input_proj" if sub.startswith("input_proj") else sub)
+
+
+def det_grad_breakdown(grads, top=10) -> dict:
+    """Phase 26's float32 gradients against the CPU's float64 ones, tensor by
+    tensor and module group by group: the relative L2 distances of the card
+    (e_card), the CPU float32 run (e_cpu), the control (e_ctl: the CPU run on
+    the input moved by one ulp) and the card with K1 / K2 replaced by their
+    plain versions (e_plain), and the ratios of each to e_cpu. The
+    control's spread of ratios is what float32 rounding alone gives; a
+    fault on the card would show as ratios past it. Tensors whose float64
+    gradient is zero up to rounding (below 1e-6 of the largest tensor's
+    norm: the attention key biases, whose shift leaves a softmax unchanged)
+    are counted apart and left out of the ranking. Prints the breakdown and
+    returns its figures."""
+    ref = grads["cpu float64"]
+    runs = {"card": "card", "cpu": "cpu", "ctl": "cpu input 1 ulp",
+            "plain": "card plain attention"}
+    floor = 1e-12 * max(float(r.norm()) for r in ref.values())
+    zero = {n for n, r in ref.items() if float(r.norm()) < 1e6 * floor}
+
+    def dists(names):
+        den = max(sum(float(ref[n].pow(2).sum()) for n in names) ** 0.5, floor)
+        e = {k: sum(float((grads[r][n] - ref[n]).pow(2).sum()) for n in names) ** 0.5 / den
+             for k, r in runs.items()}
+        ratio = {f"{k}_ratio": (e[k] / e["cpu"] if e["cpu"] > 0 else
+                                1.0 if e[k] == 0 else float("inf"))
+                 for k in ("card", "ctl", "plain")}
+        return {**{f"e_{k}": v for k, v in e.items()}, **ratio}
+
+    ranked = [{"name": n, "group": det_grad_group(n), "size": ref[n].numel(), **dists([n])}
+              for n in ref if n not in zero]
+    groups = {}
+    for t in ranked:
+        groups.setdefault(t["group"], []).append(t["name"])
+    by_group = {grp: {"tensors": len(names), **dists(names)} for grp, names in groups.items()}
+    kinds = ("card_ratio", "ctl_ratio", "plain_ratio")
+    past = {k: sum(t[k] > 3 for t in ranked) for k in kinds}
+    largest = {k: max(t[k] for t in ranked) for k in kinds}
+    worst = sorted(ranked, key=lambda t: -t["card_ratio"])[:top]
+    worst_ctl = sorted(ranked, key=lambda t: -t["ctl_ratio"])[:top]
+    log(f"  det gradients by tensor, from the CPU's float64 (relative L2; ratio = e / e_cpu): "
+        f"{len(ranked)} tensors ranked ({len(zero)} zero up to rounding apart); largest ratio "
+        f"and count past 3: card {largest['card_ratio']:.3f}, {past['card_ratio']}; control "
+        f"(the CPU on the input moved by one ulp) {largest['ctl_ratio']:.3f}, "
+        f"{past['ctl_ratio']}; the card with K1 / K2 replaced by their plain versions "
+        f"{largest['plain_ratio']:.3f}, {past['plain_ratio']}")
+    log(f"  the {top} tensors with the largest card ratio (group, name, elements, e_card, e_cpu, "
+        "e_ctl, e_plain; card, control and plain-attention card ratios):")
+    for t in worst:
+        log(f"    {t['group']:<18} {t['name']:<58} {t['size']:>6} {t['e_card']:.3e} "
+            f"{t['e_cpu']:.3e} {t['e_ctl']:.3e} {t['e_plain']:.3e} {t['card_ratio']:6.3f} "
+            f"{t['ctl_ratio']:6.3f} {t['plain_ratio']:6.3f}")
+    log(f"  the {top} largest control ratios: " + ", ".join(
+        f"{t['ctl_ratio']:.3f} {t['name']} (card {t['card_ratio']:.3f})" for t in worst_ctl))
+    log("  by module group (e_card / e_cpu / e_ctl; card, control, plain-attention card ratios): "
+        + "; ".join(f"{k} [{v['tensors']}] {v['e_card']:.3e} / {v['e_cpu']:.3e} / "
+                    f"{v['e_ctl']:.3e}; {v['card_ratio']:.3f}, {v['ctl_ratio']:.3f}, "
+                    f"{v['plain_ratio']:.3f}" for k, v in by_group.items()))
+    return {"tensors": len(ranked), "zero": sorted(zero), "past_3": past, "largest": largest,
+            "worst": worst, "worst_control": worst_ctl, "by_group": by_group}
 
 
 def det_phases(torch, card, dev, g):
@@ -4123,8 +4246,10 @@ def det_phases(torch, card, dev, g):
     fixed_model = build_rtdetr_train_model(mcfg, seed=1, device=dev)
     fixed_state = create_train_state(fixed_model, tcfg, cfg.build_tx(fixed_model))
     fixed = det_batch(TB, size, gen)
-    trace = [step(fixed_state, *fixed, gen)["loss_total"].item() for _ in range(10)]
-    log("  fixed-batch loss over 10 float32 steps: " + ", ".join(f"{v:.4f}" for v in trace))
+    # 6 steps (10 until the script outgrew its budget): each takes ~3.4 s,
+    # nearly all the match, and the loss falls within the first 4
+    trace = [step(fixed_state, *fixed, gen)["loss_total"].item() for _ in range(6)]
+    log("  fixed-batch loss over 6 float32 steps: " + ", ".join(f"{v:.4f}" for v in trace))
     require(statistics.mean(trace[-3:]) < statistics.mean(trace[:3]),
             "the det loss does not fall (the last 3 steps' mean against the first 3's)")
     del fixed_state, fixed_model
@@ -4154,20 +4279,35 @@ def det_phases(torch, card, dev, g):
         return q4ts
 
     rtdetr_decoder.topk, det_criterion.match_levels = topk_spy(card_pick, on_cpu, gaps), spy_match
-    grads = {}
+    # Two more runs tell a fault from conditioning. The control: the CPU
+    # float32 run on the input moved by one ulp, element by element (a
+    # seeded sign), which is how far float32 rounding alone moves each
+    # tensor's gradient once it has passed through the model. And a card
+    # run with K1 and K2 replaced by their plain versions, which tells the
+    # kernels' rounding from the rest of the card's arithmetic.
+    grads, run_s = {}, {}
     try:
-        for name, where, dtype in (("card", dev, f32), ("cpu", "cpu", f32),
+        for name, where, dtype in (("card", dev, f32), ("card plain attention", dev, f32),
+                                   ("cpu", "cpu", f32), ("cpu input 1 ulp", "cpu", f32),
                                    ("cpu float64", "cpu", torch.float64)):
-            on_cpu[0] = name != "card"
+            on_cpu[0] = not name.startswith("card")
+            t0 = time.perf_counter()
             m = build_rtdetr_train_model(mcfg, seed=2, device=where).to(dtype)
             x, lab, box = (t.to(where) for t in small)
-            with highest_precision():
+            if name == "cpu input 1 ulp":
+                up = torch.rand(x.shape, generator=torch.Generator().manual_seed(26)) < 0.5
+                x = torch.nextafter(x, torch.where(up, torch.inf, -torch.inf))
+            with highest_precision(), (plain_attention() if name == "card plain attention"
+                                       else contextlib.nullcontext()):
                 total, _ = set_criterion_boxes(m(x.to(dtype)), {"labels": lab, "boxes": box},
                                                crit)
                 total.backward()
             grads[name] = {n: p.grad.detach().cpu().double() for n, p in m.named_parameters()
                            if p.grad is not None}
-            del m
+            if where != "cpu":
+                torch.cuda.synchronize()
+            run_s[name] = time.perf_counter() - t0
+            del m, total
     finally:
         rtdetr_decoder.topk, det_criterion.match_levels = real_topk, real_match
 
@@ -4190,6 +4330,8 @@ def det_phases(torch, card, dev, g):
         "target slots")
     require(gap <= 1e-3 and card64 <= 3 * cpu64 and head_rel <= 1e-3,
             "det card and CPU gradients disagree")
+    result["grad_breakdown"] = det_grad_breakdown(grads)
+    log("  the gradient runs took " + ", ".join(f"{k} {v:.1f} s" for k, v in run_s.items()))
     del grads
     log("phase 26 ok: the det train step ran K1 and K2 7 times a step at 640 and 6 at 480")
 
@@ -5035,6 +5177,9 @@ def parallel_phases(torch, card, dev, g):
     log(f"phase 32 ok: DDP dp=2 matches dp=1 ({time.perf_counter() - t_phase:.1f} s)")
 
     # -- 33. the R2 CLI under torch.distributed.run, NCCL, world 1 -------------
+    # The backbone cut to PResNet-18-vd (phases 16 and 19 run the r50vd
+    # recipe; hidden 256 and 8 heads keep K1 / K2 at (16, 8, 256, 32)), so
+    # that each launch builds, steps and checkpoints a smaller model.
     t_phase = time.perf_counter()
     here = os.path.dirname(os.path.abspath(__file__))
     with tempfile.TemporaryDirectory() as tmp:
@@ -5049,7 +5194,8 @@ def parallel_phases(torch, card, dev, g):
             cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
                    "--nproc_per_node=1", os.path.join(here, "chip_smoke.py"), "--child",
                    "r2_cli", record, "-c", yml, "--data_root", root, *extra, "-u",
-                   f"epoches={epochs}", f"output_dir={out}", "compute_dtype=bfloat16"]
+                   f"epoches={epochs}", f"output_dir={out}", "compute_dtype=bfloat16",
+                   "PResNet.depth=18"]
             proc = subprocess.run(cmd, timeout=600, capture_output=True, text=True)
             require(proc.returncode == 0,
                     f"the torchrun R2 CLI exited {proc.returncode}: {proc.stderr[-3000:]}")
@@ -5607,6 +5753,161 @@ def int8_core_phase(torch, card, dev, g):
     log("  phase 35's sections, seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in sections.items()))
     log(f"phase 35 ok: K6 and the quantize launch match their plain versions bit for bit and "
         f"ran 4 times each an int8 eval step with the core ({result['seconds']:.1f} s)")
+    return result
+
+
+# Phase 36: the synthetic self-check CLI at its defaults (the small preset:
+# 200 frames, batch 18, input 128, float32, seed 0) for SELFCHECK_EPOCHS
+# epochs, gated at half the untrained anchor 1 + pi; then one epoch of the
+# flagship preset at 512 in bf16 on 40 of the same frames.
+SELFCHECK_EPOCHS, SELFCHECK_GATE, SELFCHECK_FLAGSHIP_FRAMES = 50, 2.07, 40
+# JAX's self-check on one TPU v5e, for the record (history, not a target):
+# ROUND2.md:46, assets/cdn_hw_ab_r4.json and assets/cdn_hw_ab_r5.jsonl, ROUND2.md:63.
+SELFCHECK_JAX_HISTORY = ("best 0.019 (800 frames, 120 epochs, batch 24); 1.04 / 1.82 / 1.31 at "
+                         "3 seeds after 12 epochs of batch 24 without CDN on a set with a "
+                         "500-frame val split; the flagship at 256 4.1416 -> 1.002 by epoch 11")
+
+
+def selfcheck_phase(torch, card, dev, epochs=SELFCHECK_EPOCHS):
+    """Phase 36: ``tools/synthetic_selfcheck.py``'s ``main`` through its
+    parser, twice, on one SPEED set rendered into a temporary directory:
+    run 1 with the CLI's defaults (the small preset at 128, which launches
+    no kernel: its AIFI level has 16 tokens) for ``epochs`` epochs, its best
+    val SPEED score at most ``SELFCHECK_GATE``; run 2 with ``--preset
+    flagship --resize 512 --dtype bfloat16`` for one epoch on 40 of the
+    frames (36 train, 4 val), K1 once a train and an eval step and K2 once
+    a train step at (18, 8, 256, 32), every launch held to its plain
+    version, its losses and scores finite."""
+    import shutil
+    import tempfile
+
+    from satellite_pose_estimation_tpu_torch.tools import synthetic_selfcheck as selfcheck
+    from satellite_pose_estimation_tpu_torch.train.solver import SpeedSolver
+
+    t_phase = time.perf_counter()
+    held = launch_checker(torch)
+    parse = selfcheck.get_args_parser().parse_args
+    loops = []  # (loop kind, its timings, the solver's device) per epoch loop
+    real_train, real_eval = SpeedSolver.train_one_epoch, SpeedSolver.evaluate
+
+    def recorded(kind, real):
+        def run(self, *args, **kwargs):
+            out = real(self, *args, **kwargs)
+            loops.append((kind, dict(self.timings[kind]), self.device.type))
+            return out
+        return run
+
+    def wait_share(kind):
+        recs = [t for k, t, _ in loops if k == kind]
+        wait, secs = sum(t["loader_wait_s"] for t in recs), sum(t["seconds"] for t in recs)
+        return (f"{kind} {sum(t['images'] for t in recs)} images in {secs:.2f} s, loader wait "
+                f"{wait:.2f} s = {100 * wait / secs:.1f}%")
+
+    def read_log(out):
+        with open(os.path.join(out, "log.txt")) as f:
+            return [json.loads(line) for line in f]
+
+    def finite(v):
+        return v == v and abs(v) != float("inf")
+
+    result = {}
+    SpeedSolver.train_one_epoch = recorded("train", real_train)
+    SpeedSolver.evaluate = recorded("val", real_eval)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            # -- run 1: the CLI's defaults, the small preset -----------------
+            root, out = os.path.join(tmp, "speed"), os.path.join(tmp, "small")
+            args = parse(["--root", root, "--out", out, "--epochs", str(epochs)])
+            require((args.n_images, args.batch, args.resize, args.dtype, args.seed, args.preset,
+                     args.aug, args.ema, args.device) == (200, 18, 128, "float32", 0, "small",
+                                                           "full", False, "cuda"),
+                    f"the self-check CLI's defaults moved: {args}")
+            t0 = time.perf_counter()
+            info = selfcheck.render_dataset(root, args.n_images, args.seed)
+            render_s = time.perf_counter() - t0
+            log(f"  rendered {args.n_images} SPEED frames at 1920x1200 ({info['fmt']}) in "
+                f"{render_s:.2f} s: train 0-{info['n_train'] - 1}, val {info['n_train']}-"
+                f"{args.n_images - 1}")
+            zero_counts()
+            t0 = time.perf_counter()
+            best = selfcheck.main(args)
+            torch.cuda.synchronize()
+            fit_s = time.perf_counter() - t0
+            launches, entries = counts(), read_log(out)
+            log(f"  small preset (r18, hidden 64, 4 heads, 30 queries, 3 decoder layers), "
+                f"B={args.batch} @{args.resize} {args.dtype}, {epochs} epochs of "
+                f"{info['n_train'] // args.batch} steps:")
+            for e in entries:
+                log(f"    epoch {e['epoch']:>2}: test_score {e['test_score']:.4f} (tvec "
+                    f"{e['test_score_tvec']:.4f}, quat {e['test_score_quat']:.4f}), train loss "
+                    f"{e['train_loss_total']:.4f}")
+            log(f"  best SPEED score {best:.4f} (untrained anchor {selfcheck.UNTRAINED_ANCHOR}, "
+                f"gate {SELFCHECK_GATE}) in {fit_s:.1f} s; {wait_share('train')}; "
+                f"{wait_share('val')}; launches {launches} on {card}")
+            log(f"  JAX's self-check on a TPU v5e, history only: {SELFCHECK_JAX_HISTORY}")
+            require({d for _, _, d in loops} == {"cuda"}, "the self-check did not run on the card")
+            require(launches == expected(), "the small preset at 128 launched a kernel (its AIFI "
+                                            "level's 16 tokens take the plain core)")
+            require([e["epoch"] for e in entries] == list(range(epochs))
+                    and all(finite(e["train_loss_total"]) and finite(e["test_score"])
+                            for e in entries), "the small preset's log.txt is not finite")
+            require(best == min(e["test_score"] for e in entries),
+                    "main's best is not the minimum test_score of log.txt")
+            require(best <= SELFCHECK_GATE, f"the self-check did not learn: best SPEED score "
+                                            f"{best:.4f} > {SELFCHECK_GATE}")
+            result.update(best=best, scores=[e["test_score"] for e in entries],
+                          losses=[e["train_loss_total"] for e in entries], fit_s=fit_s,
+                          render_s=render_s)
+
+            # -- run 2: the flagship preset at 512, bf16, one epoch ----------
+            n = SELFCHECK_FLAGSHIP_FRAMES
+            root40, out = os.path.join(tmp, "speed40"), os.path.join(tmp, "flagship")
+            os.makedirs(os.path.join(root40, "annos"))
+            os.symlink(os.path.join(root, "images"), os.path.join(root40, "images"))
+            shutil.copy(os.path.join(root, "annos", "wz_train.json"),
+                        os.path.join(root40, "annos"))
+            n_train = int(n * 0.9)
+            for split, idx in (("train", range(n_train)), ("val", range(n_train, n))):
+                with open(os.path.join(root40, "annos", f"{split}_s.txt"), "w") as f:
+                    f.write("".join(f"{i}\n" for i in idx))
+            args = parse(["--root", root40, "--out", out, "--preset", "flagship", "--resize",
+                          "512", "--dtype", "bfloat16", "--epochs", "1", "--n_images", str(n)])
+            loops.clear()
+            t0 = time.perf_counter()
+            with held() as recs:
+                best2 = selfcheck.main(args)
+            fit2_s = time.perf_counter() - t0
+            got, (err, rel) = launches_by_shape(recs), worst_launch(recs)
+            entries = read_log(out)
+            shape = (args.batch, 8, (512 // 32) ** 2, 32)
+            log(f"  flagship preset (r50vd, hidden 256, 8 heads, FFN 1024), B={args.batch} "
+                f"@{args.resize} {args.dtype}, 1 epoch on {n} frames ({n_train // args.batch} "
+                f"train steps, 1 val step): "
+                f"launches {counts()}, by shape {got}; each launch against its plain version: "
+                f"worst {err:.3e} of 1 + max|plain|, relative L2 {rel:.3e}; train loss "
+                f"{entries[0]['train_loss_total']:.4f}, test_score {best2:.4f}; {fit2_s:.1f} s; "
+                f"{wait_share('train')}; {wait_share('val')}")
+            require({d for _, _, d in loops} == {"cuda"}, "the flagship run was not on the card")
+            require(counts() == expected(k1=3, k2=2)
+                    and got == [(("K1", shape, "bfloat16"), 3), (("K2", shape, "bfloat16"), 2)],
+                    f"the flagship epoch did not launch K1 3 and K2 2 times at {shape}")
+            require(len(entries) == 1 and finite(entries[0]["train_loss_total"])
+                    and finite(best2) and all(finite(v) for k, v in entries[0].items()
+                                              if k.startswith(("train_", "test_loss"))),
+                    "the flagship epoch's losses or score are not finite")
+            held_by = {name: [r for r in recs if r[0] == name] for name in ("K1", "K2")}
+            result.update(k1=3, k2=2, flagship_s=fit2_s, held={
+                name: {"max_abs_err": max((r[5] for r in mine), default=0.0),
+                       "err_of_1_plus_max_plain": worst_launch(mine)[0],
+                       "rel_l2": worst_launch(mine)[1],
+                       "launches_by_shape": [[list(k[1]), k[2], c]
+                                             for k, c in launches_by_shape(mine)]}
+                for name, mine in held_by.items()})
+    finally:
+        SpeedSolver.train_one_epoch, SpeedSolver.evaluate = real_train, real_eval
+    result["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 36 ok: the self-check learned on the card (best {result['best']:.4f}) and its "
+        f"flagship epoch ran K1 and K2 at 256 tokens ({result['seconds']:.1f} s)")
     return result
 
 

@@ -177,6 +177,40 @@ def public_detr_r50_surface(seed=0):
     return surface(seed)
 
 
+def jax_selfcheck(args, monkeypatch):
+    """JAX's ``tools/synthetic_selfcheck.main`` on ``args`` (the port's
+    parsed flags; JAX's ``main`` reads the same names) with its
+    ``SpeedSolver`` replaced by a stand-in: ``args.root`` gets an
+    ``annos/wz_train.json`` first, so that JAX's cv2 renderer is skipped,
+    and the stand-in's ``fit`` writes two ``log.txt`` lines (scores 2.5,
+    then 1.5) so that JAX's tail runs. Returns (JAX's ``YAMLConfig``, what
+    ``main`` returned, the stand-in's (data_root, seed))."""
+    import json
+    import os
+
+    from satellite_pose_estimation_tpu.tools import synthetic_selfcheck as jax_selfcheck_mod
+    from satellite_pose_estimation_tpu.train import solver as jax_solver
+
+    seen = {}
+
+    class StandIn:
+        def __init__(self, cfg, data_root, seed):
+            seen.update(cfg=cfg, solver=(data_root, seed))
+
+        def fit(self):
+            os.makedirs(args.out, exist_ok=True)
+            with open(os.path.join(args.out, "log.txt"), "w") as f:
+                for score, loss in ((2.5, 9.0), (1.5, 7.0)):
+                    f.write(json.dumps({"test_score": score, "train_loss_total": loss}) + "\n")
+
+    os.makedirs(os.path.join(args.root, "annos"), exist_ok=True)
+    with open(os.path.join(args.root, "annos", "wz_train.json"), "w") as f:
+        f.write("[]")
+    monkeypatch.setattr(jax_solver, "SpeedSolver", StandIn)
+    best = jax_selfcheck_mod.main(args)
+    return seen["cfg"], best, seen["solver"]
+
+
 def r1_detr_state_dict(backbone, hidden, nheads, enc_layers, dec_layers, ffn, queries, rng,
                        pre_norm=False):
     """A seeded state dict with the key surface of an R1 DETR keypoint model

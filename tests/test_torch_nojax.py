@@ -645,6 +645,55 @@ def test_port_runs_the_classification_task_and_the_tools_with_jax_blocked():
     assert proc.stdout.splitlines()[-1] == "OK"
 
 
+_TINY_SELFCHECK = r"""
+import sys
+for name in ("jax", "jaxlib", "flax", "optax", "satellite_pose_estimation_tpu",
+             "tensorboardX"):  # tensorboardX: optional, and seconds to import
+    sys.modules[name] = None  # any import of these now raises ImportError
+
+import contextlib, io, json, os, runpy, tempfile
+import torch
+torch.set_num_threads(1)
+
+MODULE = "satellite_pose_estimation_tpu_torch.tools.synthetic_selfcheck"
+out = io.StringIO()
+sys.argv = [MODULE, "--help"]
+with contextlib.redirect_stdout(out):
+    try:
+        runpy.run_module(MODULE, run_name="__main__")
+    except SystemExit as e:
+        assert e.code == 0, e.code
+for flag in ("--root", "--out", "--n_images", "--epochs", "--batch", "--resize", "--lr",
+             "--dtype", "--ema", "--seed", "--aug", "--preset", "--device"):
+    assert flag in out.getvalue(), flag
+with tempfile.TemporaryDirectory() as tmp:
+    sys.argv = [MODULE, "--root", os.path.join(tmp, "data"), "--out", os.path.join(tmp, "out"),
+                "--n_images", "3", "--epochs", "1", "--batch", "2", "--resize", "32",
+                "--device", "cpu"]
+    runpy.run_module(MODULE, run_name="__main__")
+    with open(os.path.join(tmp, "out", "log.txt")) as f:
+        entry = json.loads(f.read())
+    assert entry["epoch"] == 0 and entry["test_score"] == entry["test_score"]
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
+                                       "satellite_pose_estimation_tpu")
+                and sys.modules[m] is not None)
+assert not loaded, loaded
+print("OK")
+"""
+
+
+def test_port_runs_the_selfcheck_cli_with_jax_blocked():
+    """``python -m ...tools.synthetic_selfcheck``: ``--help`` lists JAX's
+    flags and ``--device``, and the CLI renders 3 frames and fits one epoch
+    of the small preset at 32 on the CPU, with jax, flax, the JAX package
+    and tensorboardX blocked."""
+    proc = subprocess.run([sys.executable, "-c", _TINY_SELFCHECK], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.splitlines()[-1] == "OK"
+
+
 def _imported_roots(path):
     roots = set()
     for node in ast.walk(ast.parse(path.read_text(), str(path))):

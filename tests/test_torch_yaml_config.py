@@ -1,5 +1,6 @@
 """The port's YAML config loader against the JAX package's, over every
-shipped ``configs/speed/*.yml``: the merged dict, the dataloader,
+shipped ``configs/speed/*.yml`` and the synthetic self-check CLI's
+config dict (JAX's as its ``main`` builds it): the merged dict, the dataloader,
 criterion, train, augmentation and model settings, the compute dtype, the
 lr schedule and the optimizer's parameter groups (names, lr, weight decay)
 must be equal, exactly. Also the port's binary-PPM reader against PIL and
@@ -8,6 +9,7 @@ missing) against ``load_config``."""
 import dataclasses
 import pathlib
 import sys
+import tempfile
 
 import jax.numpy as jnp
 import numpy as np
@@ -23,7 +25,10 @@ from satellite_pose_estimation_tpu_torch.core.yaml_utils import load_config
 from satellite_pose_estimation_tpu_torch.data.dataset import _decode
 from satellite_pose_estimation_tpu_torch.models.detr import DETRKeypointModel
 from satellite_pose_estimation_tpu_torch.models.rtdetr import RTDETR
+from satellite_pose_estimation_tpu_torch.tools import synthetic_selfcheck as selfcheck
 from satellite_pose_estimation_tpu_torch.train.state import make_optimizer
+
+from _torch_parity import jax_selfcheck
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 CONFIGS = sorted((ROOT / "configs/speed").glob("*.yml"))
@@ -76,9 +81,43 @@ def _port_groups(optimizer, model):
             for g in optimizer.param_groups for p in g["params"]}
 
 
-@pytest.mark.parametrize("path", CONFIGS, ids=lambda p: p.stem)
-def test_config_reads_as_jax_reads_it(path, monkeypatch):
-    cfg, jcfg = YAMLConfig(str(path)), JaxYAMLConfig(str(path))
+def _selfcheck_configs(case, monkeypatch):
+    """The port's and JAX's ``YAMLConfig`` of the synthetic self-check CLI for
+    ``case`` = "selfcheck-<preset>-<aug>": the port's from ``build_config``,
+    JAX's as its ``main`` builds it (over a stand-in solver, in a temporary
+    directory)."""
+    _, preset, aug = case.split("-")
+    with tempfile.TemporaryDirectory() as tmp:
+        args = selfcheck.get_args_parser().parse_args([
+            "--root", f"{tmp}/data", "--out", f"{tmp}/out", "--preset", preset, "--aug", aug,
+            "--dtype", "bfloat16", "--ema", "--epochs", "3", "--lr", "1e-4"])
+        jcfg, _, _ = jax_selfcheck(args, monkeypatch)
+    return YAMLConfig(cfg=selfcheck.build_config(args)), jcfg
+
+
+SELFCHECK_CASES = [f"selfcheck-{preset}-{aug}" for preset in ("small", "flagship")
+                   for aug in ("full", "r1")]
+
+
+@pytest.mark.parametrize("case", CONFIGS + SELFCHECK_CASES,
+                         ids=lambda c: c.stem if isinstance(c, pathlib.Path) else c)
+def test_config_reads_as_jax_reads_it(case, monkeypatch):
+    """Every shipped speed config, and the self-check CLI's config dict for
+    both presets and both ``--aug`` recipes, read the same by both
+    packages (tests/test_torch_det_configs.py calls this on the det
+    configs' paths)."""
+    if isinstance(case, pathlib.Path):
+        cfg, jcfg = YAMLConfig(str(case)), JaxYAMLConfig(str(case))
+    else:
+        cfg, jcfg = _selfcheck_configs(case, monkeypatch)
+    _reads_as_jax(cfg, jcfg, monkeypatch)
+
+
+def _reads_as_jax(cfg, jcfg, monkeypatch):
+    """Hold the port's ``YAMLConfig`` to JAX's: the merged dict, the runtime
+    options, the dataloader, criterion, train, augment and model configs,
+    the lr schedule and the optimizer's groups on the model's parameter
+    names (a meta-device model)."""
     assert cfg.yaml_cfg == jcfg.yaml_cfg
     for attr in ("task", "num_classes", "epoches", "checkpoint_step", "log_step", "output_dir",
                  "use_ema", "model_name"):
