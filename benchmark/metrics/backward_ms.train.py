@@ -1,0 +1,7 @@
+"""``backward_ms.train``: mean ms a step of the backward pass (``on_stage`` events), over every step of the traced run's window."""
+
+
+def read(record):
+    if record.get("mode") != "train":
+        return None
+    return record["stage_ms"].get("backward")

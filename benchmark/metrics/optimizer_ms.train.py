@@ -1,0 +1,7 @@
+"""``optimizer_ms.train``: mean ms a step of clipping, the optimizer step, the schedule and the EMA update (``on_stage`` events), over every step of the traced run's window."""
+
+
+def read(record):
+    if record.get("mode") != "train":
+        return None
+    return record["stage_ms"].get("optimizer")
