@@ -20,6 +20,7 @@ import dataclasses
 import torch
 
 from ..ops.precision import highest_precision
+from ..utils.profiling import span
 from .camera import Camera
 from .epnp import epnp
 from .projection import project_points
@@ -83,13 +84,16 @@ def solve_pose_simple(world, points, probs, config: SolverConfig = SolverConfig(
     """
     K = Camera.K_torch(world.dtype, world.device)
     kp, mask, _ = select_keypoints(points, probs, None, config.num_keypoints)
-    ransac = ransac_p3p(world, kp, K, mask, config.reproj_threshold,
-                        max_points=config.num_keypoints)
-    rvec0 = inverse_rodrigues(ransac["R"])
-    rvec, tvec = gauss_newton_pnp(world, kp, K, rvec0, ransac["t"],
-                                  ransac["inliers"], iters=config.refine_iters)
+    with span("solver.init"):
+        ransac = ransac_p3p(world, kp, K, mask, config.reproj_threshold,
+                            max_points=config.num_keypoints)
+        rvec0 = inverse_rodrigues(ransac["R"])
+    with span("solver.refine"):
+        rvec, tvec = gauss_newton_pnp(world, kp, K, rvec0, ransac["t"],
+                                      ransac["inliers"], iters=config.refine_iters)
+        R = rodrigues(rvec)
     valid = ransac["valid"]
-    quat, tvec = _finalize(rodrigues(rvec), tvec, valid)
+    quat, tvec = _finalize(R, tvec, valid)
     return quat, tvec, valid
 
 
@@ -106,13 +110,16 @@ def solve_pose_sigma(world, points, probs, sigmas, config: SolverConfig = Solver
     """
     K = Camera.K_torch(world.dtype, world.device)
     kp, mask, sig = select_keypoints(points, probs, sigmas, config.num_keypoints)
-    ransac = ransac_p3p(world, kp, K, mask, config.sigma_reproj_threshold,
-                        max_points=config.num_keypoints)
-    rvec, tvec = huber_weighted_pnp(world, kp, K, sig, inverse_rodrigues(ransac["R"]),
-                                    ransac["t"], ransac["inliers"],
-                                    huber_delta=config.huber_delta)
+    with span("solver.init"):
+        ransac = ransac_p3p(world, kp, K, mask, config.sigma_reproj_threshold,
+                            max_points=config.num_keypoints)
+        rvec0 = inverse_rodrigues(ransac["R"])
+    with span("solver.refine"):
+        rvec, tvec = huber_weighted_pnp(world, kp, K, sig, rvec0, ransac["t"],
+                                        ransac["inliers"], huber_delta=config.huber_delta)
+        R = rodrigues(rvec)
     valid = ransac["valid"]
-    quat, tvec = _finalize(rodrigues(rvec), tvec, valid)
+    quat, tvec = _finalize(R, tvec, valid)
     return quat, tvec, valid
 
 
@@ -129,24 +136,27 @@ def solve_pose_self_assessed(world, points, probs, sigmas, bbox_area,
     """
     K = Camera.K_torch(world.dtype, world.device)
     kp, mask, sig = select_keypoints(points, probs, sigmas, config.num_keypoints)
-    th = torch.clamp(torch.floor(bbox_area.to(world.dtype) / config.input_size * 10.0),
-                     1.5, 20.0)
 
     def total_err(R, t):
         proj, _ = project_points(world, K, R, t)
         err = torch.linalg.norm(proj - kp, dim=-1)
         return err, torch.sum(torch.where(mask, err, 0.0), dim=-1)
 
-    R0, t0 = epnp(world, kp, K, mask)
-    err0, rep_err_init = total_err(R0, t0)
-    inliers = (err0 < th[:, None]) & mask
-    rvec, tvec = huber_weighted_pnp(world, kp, K, sig, inverse_rodrigues(R0), t0, inliers,
-                                    huber_delta=0.001)
-    R1 = rodrigues(rvec)
-    _, rep_err_ref = total_err(R1, tvec)
-    use_refined = rep_err_ref <= rep_err_init
-    R = torch.where(use_refined[:, None, None], R1, R0)
-    t = torch.where(use_refined[:, None], tvec, t0)
+    with span("solver.init"):
+        th = torch.clamp(torch.floor(bbox_area.to(world.dtype) / config.input_size * 10.0),
+                         1.5, 20.0)
+        R0, t0 = epnp(world, kp, K, mask)
+        err0, rep_err_init = total_err(R0, t0)
+        inliers = (err0 < th[:, None]) & mask
+        rvec0 = inverse_rodrigues(R0)
+    with span("solver.refine"):
+        rvec, tvec = huber_weighted_pnp(world, kp, K, sig, rvec0, t0, inliers,
+                                        huber_delta=0.001)
+        R1 = rodrigues(rvec)
+        _, rep_err_ref = total_err(R1, tvec)
+        use_refined = rep_err_ref <= rep_err_init
+        R = torch.where(use_refined[:, None, None], R1, R0)
+        t = torch.where(use_refined[:, None], tvec, t0)
     valid = torch.sum(mask, dim=-1) >= 4
     quat, t = _finalize(R, t, valid)
     return quat, t, valid

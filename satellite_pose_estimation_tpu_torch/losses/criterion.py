@@ -19,6 +19,7 @@ import torch
 
 from ..ops.precision import to_loss_dtype
 from ..parallel.mesh import all_mean
+from ..utils.profiling import span
 from .matcher import hungarian_match
 
 
@@ -121,12 +122,13 @@ def set_criterion(outputs, targets, cfg: CriterionConfig = CriterionConfig(), ax
     if cfg.aux_loss and "aux_outputs" in outputs:
         levels += list(outputs["aux_outputs"])
     L = len(levels)
-    q4t = hungarian_match(
-        torch.cat([lv["pred_logits"] for lv in levels]),
-        torch.cat([lv["pred_points"] for lv in levels]),
-        targets["labels"].repeat(L, 1), targets["landmarks"].repeat(L, 1, 1),
-        cost_class=cfg.cost_class, cost_pts=cfg.cost_pts, use_focal=cfg.use_focal,
-    ).reshape(L, B, T)
+    with span("loss.match"):
+        q4t = hungarian_match(
+            torch.cat([lv["pred_logits"] for lv in levels]),
+            torch.cat([lv["pred_points"] for lv in levels]),
+            targets["labels"].repeat(L, 1), targets["landmarks"].repeat(L, 1, 1),
+            cost_class=cfg.cost_class, cost_pts=cfg.cost_pts, use_focal=cfg.use_focal,
+        ).reshape(L, B, T)
 
     losses = _one_level(outputs, targets, cfg, num_points, log=True, q4t=q4t[0])
     total = cfg.weight_ce * losses["loss_ce"] + cfg.weight_points * losses["loss_points"]

@@ -29,8 +29,11 @@ from ..models.layers import site_scales, static_scales
 from ..models.postprocess import collect_aux_points
 from ..ops.image_warp import crop_resize_cubic_mxu
 from ..parallel.mesh import data_parallel, ddp_module, group_mean_losses
+from ..utils.profiling import Stages, span
 from .ema import ema_update
 from .state import TrainConfig, TrainState, clip_by_global_norm_
+
+TRAIN_STAGES = ("augment", "forward", "loss", "backward", "optimizer")
 
 
 def make_train_step(criterion_cfg: CriterionConfig, train_cfg: TrainConfig,
@@ -71,8 +74,12 @@ def make_train_step(criterion_cfg: CriterionConfig, train_cfg: TrainConfig,
     def train_step(state: TrainState, batch, generator, on_stage=None):
         """``on_stage(name)``, if given, is called as each stage ends
         (augment, forward, loss, backward, optimizer), e.g. to record a CUDA
-        event for a per-stage breakdown."""
-        mark = on_stage or (lambda name: None)
+        event for a per-stage breakdown; the spans ``train.<stage>`` end at
+        the same points."""
+        with span("train.step"), Stages("train", TRAIN_STAGES, on_stage) as mark:
+            return run(state, batch, generator, mark)
+
+    def run(state: TrainState, batch, generator, mark):
         model = state.model
         with data_parallel(axis_name, batch["image"].shape[0]):
             images, kp_norm = augment(generator, batch["image"], batch["clip_bbox_buf"],
@@ -176,25 +183,41 @@ def make_eval_step(criterion_cfg: Optional[CriterionConfig] = None,
     def eval_step(model_or_state, batch):
         state = model_or_state if isinstance(model_or_state, TrainState) else None
         model = state.model if state is not None else model_or_state
-        images = crop_resize_cubic_mxu(batch["image"], batch["clip_bbox_buf"],
-                                       out_size, True)
-        dtype = next(model.parameters()).dtype
-        if compute_dtype is None:
-            images = images.to(dtype)
-        was_training = model.training
-        model.eval()
-        try:
-            with torch.autocast(images.device.type, dtype=compute_dtype,
-                                enabled=compute_dtype is not None), \
-                    quant_context(model, images.device):
-                if use_ema and state is not None and state.ema is not None:
-                    weights = {k: v.to(dtype) for k, v in state.ema.items()}
-                    outputs = torch.func.functional_call(model, weights, (images,))
-                else:
-                    outputs = model(images)
-        finally:
-            model.train(was_training)
+        with span("eval.step"):
+            with span("eval.warp"):
+                images = crop_resize_cubic_mxu(batch["image"], batch["clip_bbox_buf"],
+                                               out_size, True)
+                dtype = next(model.parameters()).dtype
+                if compute_dtype is None:
+                    images = images.to(dtype)
+            with span("eval.model"):
+                was_training = model.training
+                model.eval()
+                try:
+                    with torch.autocast(images.device.type, dtype=compute_dtype,
+                                        enabled=compute_dtype is not None), \
+                            quant_context(model, images.device):
+                        if use_ema and state is not None and state.ema is not None:
+                            weights = {k: v.to(dtype) for k, v in state.ema.items()}
+                            outputs = torch.func.functional_call(model, weights, (images,))
+                        else:
+                            outputs = model(images)
+                finally:
+                    model.train(was_training)
+            with span("eval.solver"):
+                result = solve(outputs, batch)
+            if criterion_cfg is not None and "landmarks_buf" in batch:
+                bb = batch["clip_bbox_buf"]
+                kp_norm = (batch["landmarks_buf"] - bb[:, None, 0:2]) / (
+                    bb[:, None, 2:4] - bb[:, None, 0:2])
+                total, losses = set_criterion(
+                    outputs, {"labels": batch["labels"], "landmarks": kp_norm}, criterion_cfg)
+                result["eval_losses"] = {"loss_total": total, **losses}
+        return result
 
+    def solve(outputs, batch):
+        """Softmax, pixel de-normalisation, the pose solver and the SPEED
+        score of the model's ``outputs``."""
         probs = torch.softmax(outputs["pred_logits"], dim=-1)
         pts = outputs["pred_points"]  # (B, Q, 2) normalised to the crop
         clip = batch["clip_bbox"].to(torch.float32)
@@ -227,13 +250,6 @@ def make_eval_step(criterion_cfg: Optional[CriterionConfig] = None,
             result[f"aux_points_{i}"] = logits
         if "quat_gt" in batch:
             result.update(speed_score_batch(quat, tvec, batch["quat_gt"], batch["tvec_gt"]))
-        if criterion_cfg is not None and "landmarks_buf" in batch:
-            bb = batch["clip_bbox_buf"]
-            kp_norm = (batch["landmarks_buf"] - bb[:, None, 0:2]) / (
-                bb[:, None, 2:4] - bb[:, None, 0:2])
-            total, losses = set_criterion(
-                outputs, {"labels": batch["labels"], "landmarks": kp_norm}, criterion_cfg)
-            result["eval_losses"] = {"loss_total": total, **losses}
         return result
 
     return eval_step

@@ -1,5 +1,5 @@
-"""PyTorch port, utils/profiling.py on the CPU (the trace file, the timer,
-the meter, no card's memory) and utils/native.py: the library built with
+"""PyTorch port, utils/profiling.py on the CPU (the trace file, a span's
+time, no card's memory) and utils/native.py: the library built with
 g++ from native/src/geometry_ref.cc, its wrappers against the JAX
 package's on the same inputs, and the port's float64 ``hungarian`` and
 ``huber_weighted_pnp`` against it, as tests/test_native_oracle.py holds
@@ -32,16 +32,19 @@ def test_trace_writes_a_chrome_trace_on_the_cpu(tmp_path):
     assert "aten::mm" in trace.read_text()
 
 
-def test_device_timer_meter_and_memory_stats_on_the_cpu(capsys):
-    results = {}
-    with profiling.device_timer("mm", results) as holder:
-        holder["value"] = {"out": [torch.ones(8, 8) @ torch.ones(8, 8)]}
-    assert results["mm"] > 0
-    assert capsys.readouterr().out.startswith("[timer] mm: ")
-    meter = profiling.ThroughputMeter()
-    meter.update(10)
-    time.sleep(0.01)
-    assert 0 < meter.images_per_sec < 10 / 0.01
+def test_device_timer_meter_and_memory_stats_on_the_cpu():
+    """The span recorder took the timer's and the meter's place (both are
+    gone): a span inside ``record_spans()`` times its block a step."""
+    assert not hasattr(profiling, "device_timer") and not hasattr(profiling, "ThroughputMeter")
+    profiling.reset_spans()
+    try:
+        with profiling.record_spans(), profiling.span("mm"):
+            torch.ones(8, 8) @ torch.ones(8, 8)
+            time.sleep(0.01)
+        (mm,) = profiling.span_summary()["spans"].values()
+        assert mm["ms_per_step"] >= 10.0 and mm["calls_per_step"] == 1.0
+    finally:
+        profiling.reset_spans()
     if not torch.cuda.is_available():
         assert profiling.device_memory_stats() == {}
 
