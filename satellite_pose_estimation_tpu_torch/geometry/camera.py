@@ -13,6 +13,8 @@ import os
 import numpy as np
 import torch
 
+from ..utils.constants import device_constant
+
 
 class Camera:
     """SPEED dataset camera intrinsics (static constants)."""
@@ -36,7 +38,8 @@ class Camera:
 
     @classmethod
     def K_torch(cls, dtype=torch.float32, device=None) -> torch.Tensor:
-        return torch.as_tensor(cls.K, dtype=dtype, device=device)
+        """K on ``device`` in ``dtype``, built once and shared (read only)."""
+        return device_constant("camera.K", lambda: cls.K, device, dtype)
 
 
 _ASSET_PATH = os.path.join(
@@ -55,3 +58,9 @@ def load_world_points(path: str | None = None) -> np.ndarray:
 
 WORLD_POINTS = load_world_points()
 NUM_KEYPOINTS = WORLD_POINTS.shape[0]  # 11
+
+
+def world_points(device=None, dtype=torch.float32) -> torch.Tensor:
+    """``WORLD_POINTS`` on ``device`` in ``dtype``, built once and shared
+    (read only)."""
+    return device_constant("camera.world_points", lambda: WORLD_POINTS, device, dtype)

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from ..ops.precision import highest_precision
+from ..utils.constants import device_constant
 from .camera import Camera
 from .epnp import epnp
 from .projection import project_points
@@ -40,7 +41,8 @@ def exhaustive_pnp(world, image_pix, mask, max_points=11, refine_iters=15):
     B, N = image_pix.shape[:2]
     mask = mask.bool()
     K = Camera.K_torch(world.dtype, world.device)
-    quads = torch.as_tensor(_all_quads(max_points), device=world.device)  # (S, 4)
+    quads = device_constant(f"exhaustive.quads.{max_points}", lambda: _all_quads(max_points),
+                            world.device)  # (S, 4)
     S = quads.shape[0]
     sample_ok = torch.all(mask[:, quads], dim=-1)  # (B, S)
     keep = torch.zeros(S, N, dtype=torch.bool, device=world.device).scatter_(1, quads, True)

@@ -14,6 +14,7 @@ from itertools import combinations
 import numpy as np
 import torch
 
+from ..utils.constants import device_constant
 from .p3p import p3p_solutions
 from .projection import project_points
 
@@ -36,7 +37,8 @@ def ransac_p3p(world, image_pix, K, mask, reproj_threshold, max_points=11):
         valid (B,) bool (False with < 4 valid points or no candidate).
     """
     B = image_pix.shape[0]
-    triples = torch.as_tensor(_all_triples(max_points), device=world.device)
+    triples = device_constant(f"ransac.triples.{max_points}",
+                              lambda: _all_triples(max_points), world.device)
     n_tri = triples.shape[0]
 
     w3 = world[triples]  # (T, 3, 3)

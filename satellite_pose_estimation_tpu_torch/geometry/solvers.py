@@ -12,6 +12,13 @@ batch of images and runs without a branch on data or a host round trip:
 
 An unsolvable image yields the zero pose with ``valid = False`` instead of
 raising.
+
+Each solver runs as stages: the keypoint selection, the pose init (span
+``solver.init``), the refine (span ``solver.refine``) and the
+finalisation. On a card each stage but EPnP's init replays a CUDA graph
+(``utils/graphs.py``); EPnP's ``eigh`` / ``svd`` / ``pinv`` check their
+status on the host, which a graph cannot capture, so that init runs
+eagerly.
 """
 from __future__ import annotations
 
@@ -20,6 +27,7 @@ import dataclasses
 import torch
 
 from ..ops.precision import highest_precision
+from ..utils.graphs import graphed
 from ..utils.profiling import span
 from .camera import Camera
 from .epnp import epnp
@@ -75,6 +83,75 @@ def _finalize(R, t, valid):
     return quat, tvec
 
 
+def _p3p_init(world, kp, K, mask, threshold, max_points):
+    ransac = ransac_p3p(world, kp, K, mask, threshold, max_points=max_points)
+    return inverse_rodrigues(ransac["R"]), ransac["t"], ransac["inliers"], ransac["valid"]
+
+
+def _gauss_newton_refine(world, kp, K, rvec0, t0, inliers, iters):
+    rvec, tvec = gauss_newton_pnp(world, kp, K, rvec0, t0, inliers, iters=iters)
+    return rodrigues(rvec), tvec
+
+
+def _huber_refine(world, kp, K, sig, rvec0, t0, inliers, huber_delta):
+    rvec, tvec = huber_weighted_pnp(world, kp, K, sig, rvec0, t0, inliers,
+                                    huber_delta=huber_delta)
+    return rodrigues(rvec), tvec
+
+
+def _total_err(world, K, kp, mask, R, t):
+    proj, _ = project_points(world, K, R, t)
+    err = torch.linalg.norm(proj - kp, dim=-1)
+    return err, torch.sum(torch.where(mask, err, 0.0), dim=-1)
+
+
+def _epnp_init(world, kp, K, mask, bbox_area, input_size):
+    th = torch.clamp(torch.floor(bbox_area.to(world.dtype) / input_size * 10.0), 1.5, 20.0)
+    R0, t0 = epnp(world, kp, K, mask)
+    err0, rep_err_init = _total_err(world, K, kp, mask, R0, t0)
+    inliers = (err0 < th[:, None]) & mask
+    valid = torch.sum(mask, dim=-1) >= 4
+    return inverse_rodrigues(R0), R0, t0, rep_err_init, inliers, valid
+
+
+def _self_assessed_refine(world, kp, K, sig, mask, rvec0, R0, t0, rep_err_init, inliers):
+    rvec, tvec = huber_weighted_pnp(world, kp, K, sig, rvec0, t0, inliers, huber_delta=0.001)
+    R1 = rodrigues(rvec)
+    _, rep_err_ref = _total_err(world, K, kp, mask, R1, tvec)
+    use_refined = rep_err_ref <= rep_err_init
+    return (torch.where(use_refined[:, None, None], R1, R0),
+            torch.where(use_refined[:, None], tvec, t0))
+
+
+def _solve(solver, world, points, probs, sigmas, bbox_area, config):
+    """The stages of ``solver`` ("simple", "sigma" or "self_assessed")."""
+    K = Camera.K_torch(world.dtype, world.device)
+    kp, mask, sig = graphed("solver.select", select_keypoints, points, probs, sigmas,
+                            config.num_keypoints)
+    if solver == "self_assessed":
+        with span("solver.init"):
+            rvec0, R0, t0, rep_err_init, inliers, valid = _epnp_init(
+                world, kp, K, mask, bbox_area, config.input_size)
+        with span("solver.refine"):
+            R, t = graphed("solver.refine", _self_assessed_refine, world, kp, K, sig, mask,
+                           rvec0, R0, t0, rep_err_init, inliers)
+    else:
+        threshold = (config.reproj_threshold if solver == "simple"
+                     else config.sigma_reproj_threshold)
+        with span("solver.init"):
+            rvec0, t0, inliers, valid = graphed("solver.init", _p3p_init, world, kp, K, mask,
+                                                threshold, config.num_keypoints)
+        with span("solver.refine"):
+            if solver == "simple":
+                R, t = graphed("solver.refine", _gauss_newton_refine, world, kp, K, rvec0, t0,
+                               inliers, config.refine_iters)
+            else:
+                R, t = graphed("solver.refine", _huber_refine, world, kp, K, sig, rvec0, t0,
+                               inliers, config.huber_delta)
+    quat, tvec = graphed("solver.finalize", _finalize, R, t, valid)
+    return quat, tvec, valid
+
+
 @highest_precision()
 def solve_pose_simple(world, points, probs, config: SolverConfig = SolverConfig()):
     """P3P-RANSAC init + pixel LM refine on the inliers, for a batch.
@@ -82,19 +159,7 @@ def solve_pose_simple(world, points, probs, config: SolverConfig = SolverConfig(
     Args: world (N, 3), points (B, Q, 2) pixels, probs (B, Q, C).
     Returns (quat (B, 4), tvec (B, 3), valid (B,)).
     """
-    K = Camera.K_torch(world.dtype, world.device)
-    kp, mask, _ = select_keypoints(points, probs, None, config.num_keypoints)
-    with span("solver.init"):
-        ransac = ransac_p3p(world, kp, K, mask, config.reproj_threshold,
-                            max_points=config.num_keypoints)
-        rvec0 = inverse_rodrigues(ransac["R"])
-    with span("solver.refine"):
-        rvec, tvec = gauss_newton_pnp(world, kp, K, rvec0, ransac["t"],
-                                      ransac["inliers"], iters=config.refine_iters)
-        R = rodrigues(rvec)
-    valid = ransac["valid"]
-    quat, tvec = _finalize(R, tvec, valid)
-    return quat, tvec, valid
+    return _solve("simple", world, points, probs, None, None, config)
 
 
 @highest_precision()
@@ -108,19 +173,7 @@ def solve_pose_sigma(world, points, probs, sigmas, config: SolverConfig = Solver
     (B, Q, 2) variances in pixel^2. Returns (quat (B, 4), tvec (B, 3),
     valid (B,)).
     """
-    K = Camera.K_torch(world.dtype, world.device)
-    kp, mask, sig = select_keypoints(points, probs, sigmas, config.num_keypoints)
-    with span("solver.init"):
-        ransac = ransac_p3p(world, kp, K, mask, config.sigma_reproj_threshold,
-                            max_points=config.num_keypoints)
-        rvec0 = inverse_rodrigues(ransac["R"])
-    with span("solver.refine"):
-        rvec, tvec = huber_weighted_pnp(world, kp, K, sig, rvec0, ransac["t"],
-                                        ransac["inliers"], huber_delta=config.huber_delta)
-        R = rodrigues(rvec)
-    valid = ransac["valid"]
-    quat, tvec = _finalize(R, tvec, valid)
-    return quat, tvec, valid
+    return _solve("sigma", world, points, probs, sigmas, None, config)
 
 
 @highest_precision()
@@ -134,29 +187,4 @@ def solve_pose_self_assessed(world, points, probs, sigmas, bbox_area,
     Args: as ``solve_pose_sigma``, plus bbox_area (B,). Returns (quat
     (B, 4), tvec (B, 3), valid (B,): at least 4 selected points).
     """
-    K = Camera.K_torch(world.dtype, world.device)
-    kp, mask, sig = select_keypoints(points, probs, sigmas, config.num_keypoints)
-
-    def total_err(R, t):
-        proj, _ = project_points(world, K, R, t)
-        err = torch.linalg.norm(proj - kp, dim=-1)
-        return err, torch.sum(torch.where(mask, err, 0.0), dim=-1)
-
-    with span("solver.init"):
-        th = torch.clamp(torch.floor(bbox_area.to(world.dtype) / config.input_size * 10.0),
-                         1.5, 20.0)
-        R0, t0 = epnp(world, kp, K, mask)
-        err0, rep_err_init = total_err(R0, t0)
-        inliers = (err0 < th[:, None]) & mask
-        rvec0 = inverse_rodrigues(R0)
-    with span("solver.refine"):
-        rvec, tvec = huber_weighted_pnp(world, kp, K, sig, rvec0, t0, inliers,
-                                        huber_delta=0.001)
-        R1 = rodrigues(rvec)
-        _, rep_err_ref = total_err(R1, tvec)
-        use_refined = rep_err_ref <= rep_err_init
-        R = torch.where(use_refined[:, None, None], R1, R0)
-        t = torch.where(use_refined[:, None], tvec, t0)
-    valid = torch.sum(mask, dim=-1) >= 4
-    quat, t = _finalize(R, t, valid)
-    return quat, t, valid
+    return _solve("self_assessed", world, points, probs, sigmas, bbox_area, config)

@@ -39,7 +39,7 @@ def timeit(fn, arg_pool, iters, device):
 
 @torch.inference_mode()
 def main(args):
-    from ..geometry.camera import WORLD_POINTS
+    from ..geometry.camera import world_points
     from ..geometry.solvers import SolverConfig, solve_pose_simple
     from ..models.detr import DETRConfig, build_detr_model
     from ..ops.image_warp import crop_resize_cubic_mxu
@@ -55,7 +55,7 @@ def main(args):
     img_pool = [torch.from_numpy(rng.randint(0, 255, (B, 256, 256, 3)).astype(np.uint8))
                 .to(device) for _ in range(n_pool)]
     bbs = torch.tensor([[8.0, 8.0, 248.0, 248.0]], device=device).repeat(B, 1)
-    world = torch.as_tensor(WORLD_POINTS, dtype=torch.float32, device=device)
+    world = world_points(device)
 
     def warp(im, bb):
         return crop_resize_cubic_mxu(im, bb, S, True)
@@ -71,6 +71,9 @@ def main(args):
         o = model(x)
         solver_pool.append((o["pred_points"].float() * 400 + 700,
                             torch.softmax(o["pred_logits"].float(), -1)))
+    # On the card the solver's first call with a shape runs eagerly and the
+    # second captures its graphs (timeit's warm-up), so the timed calls replay.
+    solver(*solver_pool[0])
     t_solver, _ = timeit(solver, solver_pool, args.test_num, device)
 
     total = t_warp + t_model + t_solver

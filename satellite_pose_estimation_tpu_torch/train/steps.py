@@ -16,7 +16,7 @@ from typing import Optional
 import torch
 
 from ..data.augment import AugmentConfig, augment_batch, augment_batch_pallas
-from ..geometry.camera import WORLD_POINTS
+from ..geometry.camera import world_points
 from ..geometry.scoring import speed_score_batch
 from ..geometry.solvers import (
     SolverConfig,
@@ -29,6 +29,7 @@ from ..models.layers import site_scales, static_scales
 from ..models.postprocess import collect_aux_points
 from ..ops.image_warp import crop_resize_cubic_mxu
 from ..parallel.mesh import data_parallel, ddp_module, group_mean_losses
+from ..utils.graphs import graphed
 from ..utils.profiling import Stages, span
 from .ema import ema_update
 from .state import TrainConfig, TrainState, clip_by_global_norm_
@@ -217,27 +218,20 @@ def make_eval_step(criterion_cfg: Optional[CriterionConfig] = None,
 
     def solve(outputs, batch):
         """Softmax, pixel de-normalisation, the pose solver and the SPEED
-        score of the model's ``outputs``."""
-        probs = torch.softmax(outputs["pred_logits"], dim=-1)
-        pts = outputs["pred_points"]  # (B, Q, 2) normalised to the crop
-        clip = batch["clip_bbox"].to(torch.float32)
-        wh = clip[:, 2:4] - clip[:, 0:2]
-        pts_pix = pts * wh[:, None, :] + clip[:, None, 0:2]
-
-        world = torch.as_tensor(WORLD_POINTS, dtype=pts_pix.dtype, device=pts.device)
+        score of the model's ``outputs``; on a card the first and the last
+        replay a graph each (``utils/graphs.py``), as the solver's stages
+        do."""
+        probs, pts_pix, sigmas_pix = graphed(
+            "eval.solver.prepare", _prepare, outputs["pred_logits"], outputs["pred_points"],
+            None if solver == "simple" else outputs["pred_sigmas"], batch["clip_bbox"])
+        world = world_points(pts_pix.device, pts_pix.dtype)
         if solver == "simple":
             quat, tvec, valid = solve_pose_simple(world, pts_pix, probs, solver_cfg)
-            sigmas_pix = torch.ones_like(pts_pix)
+        elif solver == "sigma":
+            quat, tvec, valid = solve_pose_sigma(world, pts_pix, probs, sigmas_pix, solver_cfg)
         else:
-            # Sigmas are predicted in normalised crop units: variances scale
-            # to original pixels^2 with the square of the crop extent.
-            sigmas_pix = torch.exp(outputs["pred_sigmas"]) * wh[:, None, :] ** 2
-            if solver == "sigma":
-                quat, tvec, valid = solve_pose_sigma(world, pts_pix, probs, sigmas_pix,
-                                                     solver_cfg)
-            else:
-                quat, tvec, valid = solve_pose_self_assessed(
-                    world, pts_pix, probs, sigmas_pix, batch["bbox_area"], solver_cfg)
+            quat, tvec, valid = solve_pose_self_assessed(
+                world, pts_pix, probs, sigmas_pix, batch["bbox_area"], solver_cfg)
         result = {
             "quat_pr": quat,
             "tvec_pr": tvec,
@@ -249,7 +243,23 @@ def make_eval_step(criterion_cfg: Optional[CriterionConfig] = None,
         for i, logits in collect_aux_points(outputs):
             result[f"aux_points_{i}"] = logits
         if "quat_gt" in batch:
-            result.update(speed_score_batch(quat, tvec, batch["quat_gt"], batch["tvec_gt"]))
+            result.update(graphed("eval.solver.score", speed_score_batch, quat, tvec,
+                                  batch["quat_gt"], batch["tvec_gt"]))
         return result
 
     return eval_step
+
+
+def _prepare(logits, points, log_sigmas, clip):
+    """Probabilities, and the points (normalised to the crop) and sigmas in
+    original-image pixels, from the model's outputs; ``log_sigmas`` None
+    (the simple solver): sigmas are ones."""
+    probs = torch.softmax(logits, dim=-1)
+    clip = clip.to(torch.float32)
+    wh = clip[:, 2:4] - clip[:, 0:2]
+    pts_pix = points * wh[:, None, :] + clip[:, None, 0:2]
+    if log_sigmas is None:
+        return probs, pts_pix, torch.ones_like(pts_pix)
+    # Sigmas are predicted in normalised crop units: variances scale to
+    # original pixels^2 with the square of the crop extent.
+    return probs, pts_pix, torch.exp(log_sigmas) * wh[:, None, :] ** 2

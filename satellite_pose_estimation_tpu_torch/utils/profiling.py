@@ -22,6 +22,13 @@ SURVEY.md section 5). On PyTorch:
   step's ``on_stage`` callback is called.
 * ``span_summary()`` / ``reset_spans()`` — the recorded spans a step (a
   step is one run of the outermost span), and clearing them.
+* ``count_graph(stage, kind)`` — one call of a graphed stage
+  (``utils/graphs.py``) counted as an "eager" run, a "capture" or a
+  "replay", for the summary's ``graphs``.
+* nothing records while the current CUDA stream is being captured into a
+  graph: a span there is the null context and a stage call is not counted,
+  so a capture neither breaks on an event or a sync check nor leaves
+  events that never ran.
 * ``trace(logdir)`` — ``torch.profiler`` over the enclosed block (CPU
   activity, and CUDA where there is a card), written into ``logdir`` as a
   Chrome trace (TensorBoard / Perfetto); spans record inside it;
@@ -59,6 +66,7 @@ class _Recorder:
         self.outer = Counter()  # name -> calls with no other span open
         self.syncs = Counter()
         self.sites = defaultdict(Counter)  # name -> {"<file>:<line>": syncs}
+        self.graphs = defaultdict(Counter)  # stage -> {"eager" / "capture" / "replay": calls}
 
 
 _rec = _Recorder()
@@ -83,6 +91,18 @@ def record_spans():
 def reset_spans() -> None:
     """Forget every recorded span."""
     _rec.reset()
+
+
+def capturing() -> bool:
+    """Whether the current CUDA stream is being captured into a graph."""
+    return torch.cuda.is_initialized() and torch.cuda.is_current_stream_capturing()
+
+
+def count_graph(stage: str, kind: str) -> None:
+    """Count one call of the graphed stage ``stage`` as ``kind`` ("eager",
+    "capture" or "replay") while recording, outside a capture."""
+    if recording() and not capturing():
+        _rec.graphs[stage][kind] += 1
 
 
 def _program_site() -> str:
@@ -175,8 +195,9 @@ class _Span:
 
 def span(name: str):
     """The stage ``name`` of the program, recorded as the module's docstring
-    says; a shared null context when recording is off."""
-    if not (_rec.forced or torch.autograd._profiler_enabled()):
+    says; a shared null context when recording is off or the current stream
+    is being captured."""
+    if not (_rec.forced or torch.autograd._profiler_enabled()) or capturing():
         return _NULL
     return _Span(name)
 
@@ -219,13 +240,15 @@ class Stages:
 
 def span_summary() -> dict:
     """``{"steps": n, "spans": {name: {"ms_per_step", "calls_per_step",
-    "syncs_per_step", "sync_sites"}}}`` over what was recorded since the
-    last reset, after waiting for the card. A step is one run of the
-    outermost span (``n`` counts the most frequent one); ``ms`` is device
-    time on a card, host time elsewhere; a sync is put down to the innermost
-    open span, and ``sync_sites`` gives the program's lines that made them
-    (``<file in the package>:<line>``: syncs a step). Empty spans and no
-    steps when nothing was recorded."""
+    "syncs_per_step", "sync_sites"}}, "graphs": {stage: {"eager",
+    "captures", "replays", "replays_per_step"}}}`` over what was recorded
+    since the last reset, after waiting for the card. A step is one run of
+    the outermost span (``n`` counts the most frequent one); ``ms`` is
+    device time on a card, host time elsewhere; a sync is put down to the
+    innermost open span, and ``sync_sites`` gives the program's lines that
+    made them (``<file in the package>:<line>``: syncs a step); ``graphs``
+    counts the calls of each graphed stage by how they ran. Empty spans and
+    no steps when nothing was recorded."""
     if _rec.pending:
         torch.cuda.synchronize()
         for name, start, end in _rec.pending:
@@ -238,7 +261,10 @@ def span_summary() -> dict:
         name: {"ms_per_step": _rec.ms[name] / steps, "calls_per_step": calls / steps,
                "syncs_per_step": _rec.syncs[name] / steps,
                "sync_sites": {s: n / steps for s, n in _rec.sites[name].items()}}
-        for name, calls in _rec.calls.items()}}
+        for name, calls in _rec.calls.items()},
+        "graphs": {stage: {"eager": c["eager"], "captures": c["capture"],
+                           "replays": c["replay"], "replays_per_step": c["replay"] / steps}
+                   for stage, c in _rec.graphs.items()}}
 
 
 @contextlib.contextmanager
