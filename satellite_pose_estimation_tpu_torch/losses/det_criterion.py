@@ -6,13 +6,22 @@ losses, as the upstream RT-DETR that the reference's det configs name
 cost_giou 2).
 
 Targets are padded to a fixed count: boxes (B, T, 4) normalised cxcywh,
-labels (B, T) with -1 for padding. Padded targets cost 1e6 in the match and
-are masked out of every loss. The levels that are matched (the last layer,
-the earlier layers and the encoder's top-k) share one shape, so their cost
-matrices go through ``ops.hungarian`` as one (levels * B, Q, T) batch; each
-image's search is independent, so the assignments are those of one call per
-level. The CDN levels take the fixed assignment of each positive dn query
+labels (B, T) with -1 for padding. Padded targets cost 0 in the match and
+are masked out of every loss. Any cost constant over the queries leaves the
+real targets' optimal assignment as it is; JAX pads with 1e6, but in a
+float32 Hungarian the potentials near 1e6 move in steps of 0.0625, enough
+to miss the real targets' optimum. The levels that are matched (the last
+layer, the earlier layers and the encoder's top-k) share one shape, so
+their cost matrices go through ``ops.hungarian`` as one (levels * B, Q, T)
+batch; each image's search is independent, so the assignments are those of
+one call per level. The CDN levels take the fixed assignment of each positive dn query
 to its source target.
+
+While spans record (``utils/profiling.py``) the match is the span
+``loss.match``, and each call of ``match_levels`` reads the counter
+``match.fill``: T_max (T_max + 1) / (T (T + 1)), the share of the
+Hungarian's fixed loop iterations (T (T + 1) for T padded targets) that
+the call's largest real target count T_max needs, kept on the device.
 """
 from __future__ import annotations
 
@@ -24,6 +33,7 @@ import torch
 from ..ops.box_ops import box_cxcywh_to_xyxy, generalized_box_iou
 from ..ops.hungarian import hungarian
 from ..parallel.mesh import all_mean
+from ..utils.profiling import record_value, span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,7 +55,7 @@ class DetCriterionConfig:
 
 
 def _cost(logits, boxes, tgt_labels, tgt_boxes, tgt_mask, cfg: DetCriterionConfig):
-    """The (B, Q, T) float32 matching cost; padded targets cost 1e6."""
+    """The (B, Q, T) float32 matching cost; padded targets cost 0."""
     B, Q, _ = logits.shape
     T = tgt_labels.shape[1]
     prob = torch.sigmoid(logits)
@@ -58,8 +68,16 @@ def _cost(logits, boxes, tgt_labels, tgt_boxes, tgt_mask, cfg: DetCriterionConfi
     c_bbox = (boxes[:, :, None, :] - tgt_boxes[:, None, :, :]).abs().sum(-1)
     giou = generalized_box_iou(box_cxcywh_to_xyxy(boxes), box_cxcywh_to_xyxy(tgt_boxes))
     C = cfg.cost_class * (pos - neg) + cfg.cost_bbox * c_bbox + cfg.cost_giou * (1.0 - giou)
-    C = torch.where(tgt_mask[:, None, :], C, torch.full_like(C, 1e6))
+    C = torch.where(tgt_mask[:, None, :], C, torch.zeros_like(C))
     return C.to(torch.float32)
+
+
+def _fill(mask):
+    """T_max (T_max + 1) / (T (T + 1)) of the (B, T) real-target ``mask``,
+    a float32 tensor on its device."""
+    T = mask.shape[1]
+    t_max = mask.sum(1).amax().to(torch.float32)
+    return t_max * (t_max + 1) / (T * (T + 1))
 
 
 @torch.no_grad()
@@ -69,6 +87,7 @@ def match_levels(levels, targets, cfg: DetCriterionConfig):
     Hungarian over the stacked costs."""
     labels, boxes = targets["labels"], targets["boxes"]
     mask = labels >= 0
+    record_value("match.fill", lambda: _fill(mask))
     costs = torch.cat([_cost(lv["pred_logits"], lv["pred_points"], labels, boxes, mask, cfg)
                        for lv in levels])
     return list(hungarian(costs).split(labels.shape[0]))
@@ -131,7 +150,8 @@ def set_criterion_boxes(outputs, targets, cfg: DetCriterionConfig = DetCriterion
                 + cfg.weight_giou * lv["loss_giou"])
 
     aux = outputs["aux_outputs"] if cfg.aux_loss and "aux_outputs" in outputs else []
-    q4ts = match_levels([outputs] + list(aux), targets, cfg)
+    with span("loss.match"):
+        q4ts = match_levels([outputs] + list(aux), targets, cfg)
     if on_match is not None:
         on_match()
     losses = _one_level(outputs, targets, cfg, num_boxes, q4ts[0])

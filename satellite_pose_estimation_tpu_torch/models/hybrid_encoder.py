@@ -113,7 +113,7 @@ class HybridEncoder(nn.Module):
     def __init__(self, in_channels=(512, 1024, 2048), hidden_dim=256, nhead=8,
                  dim_feedforward=1024, dropout=0.0, enc_act="gelu", use_encoder_idx=(2,),
                  num_encoder_layers=1, pe_temperature=10000.0, expansion=1.0, act="silu",
-                 deploy=False, generator=None):
+                 deploy=False, generator=None, num_blocks=1):
         super().__init__()
         g = generator
         self.hidden_dim = hidden_dim
@@ -133,10 +133,10 @@ class HybridEncoder(nn.Module):
         for j in range(n - 1):
             self.add_module(f"lateral_convs_{j}", ConvNormLayer(hidden_dim, hidden_dim, 1, 1,
                                                                 act=act, generator=g))
-            self.add_module(f"fpn_blocks_{j}", CSPRepLayer(2 * hidden_dim, hidden_dim, 1,
-                                                           expansion, act, deploy, g))
-            self.add_module(f"pan_blocks_{j}", CSPRepLayer(2 * hidden_dim, hidden_dim, 1,
-                                                           expansion, act, deploy, g))
+            self.add_module(f"fpn_blocks_{j}", CSPRepLayer(2 * hidden_dim, hidden_dim,
+                                                           num_blocks, expansion, act, deploy, g))
+            self.add_module(f"pan_blocks_{j}", CSPRepLayer(2 * hidden_dim, hidden_dim,
+                                                           num_blocks, expansion, act, deploy, g))
 
     def _project(self, feats):
         if len(feats) != self.n:

@@ -59,8 +59,13 @@ class RTDETRConfig:
 
 
 class RTDETR(nn.Module):
+    """``csp_blocks``: the RepVGG blocks in each of the encoder's FPN and PAN
+    CSPRepLayers, upstream's ``round(3 * depth_mult)`` (3 in its published
+    configs); 1, as the JAX package builds, whose fields ``RTDETRConfig``
+    keeps."""
+
     def __init__(self, config: RTDETRConfig = RTDETRConfig(),
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, csp_blocks: int = 1):
         super().__init__()
         self.config = cfg = config
         g = generator
@@ -74,7 +79,7 @@ class RTDETR(nn.Module):
         self.encoder = HybridEncoder(
             in_channels=tuple(self.backbone.out_channels), hidden_dim=cfg.hidden_dim,
             nhead=cfg.nhead, dim_feedforward=cfg.dim_feedforward, dropout=cfg.dropout,
-            expansion=cfg.expansion, deploy=cfg.deploy, generator=g)
+            expansion=cfg.expansion, deploy=cfg.deploy, generator=g, num_blocks=csp_blocks)
         self.decoder = RTDETRTransformer(
             num_classes=cfg.num_classes, hidden_dim=cfg.hidden_dim, num_queries=cfg.num_queries,
             feat_channels=(cfg.hidden_dim,) * len(cfg.return_idx), num_levels=len(cfg.return_idx),

@@ -25,7 +25,7 @@ def hungarian(cost):
     B, Q, T = cost.shape
     costT = cost.transpose(1, 2)  # (B, T, Q): rows are targets
     dev, dtype = cost.device, cost.dtype
-    inf = torch.tensor(float("inf"), dtype=dtype, device=dev)
+    inf = torch.full((), float("inf"), dtype=dtype, device=dev)  # a fill: no host copy
     ar_b = torch.arange(B, device=dev)
     ar_t = torch.arange(T, device=dev)
     u = torch.zeros(B, T, dtype=dtype, device=dev)

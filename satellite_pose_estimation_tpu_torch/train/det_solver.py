@@ -24,6 +24,7 @@ from ..data.prefetch import prefetch_to_device
 from ..data.transforms import Compose
 from ..losses.det_criterion import DetCriterionConfig, set_criterion_boxes
 from ..ops.image_warp import IMAGENET_MEAN, IMAGENET_STD
+from ..utils.profiling import Stages, span
 from .ema import ema_update
 from .solver import CheckpointMixin, count_parameters
 from ..parallel.mesh import (
@@ -65,6 +66,11 @@ def _parse_multi_scale(yaml_cfg) -> Optional[list]:
     return [int(s) for s in ms] if ms else None
 
 
+# The spans of the det train step's stages, in order (``train.<stage>``);
+# ``on_stage("match")`` is called inside ``loss``, once the levels are matched.
+DET_TRAIN_STAGES = ("forward", "loss", "backward", "optimizer")
+
+
 def make_det_train_step(crit_cfg: DetCriterionConfig, train_cfg: TrainConfig,
                         denoising: bool = False, compute_dtype: Optional[torch.dtype] = None,
                         axis_name=None):
@@ -77,6 +83,11 @@ def make_det_train_step(crit_cfg: DetCriterionConfig, train_cfg: TrainConfig,
     called as each stage ends (forward, match, loss, backward, optimizer).
     The state is updated in place; the losses are detached tensors.
 
+    While spans record (``utils/profiling.py``) the step is the span
+    ``train.step`` and its stages ``train.forward``, ``train.loss`` (the
+    match, ``loss.match``, included), ``train.backward`` and
+    ``train.optimizer``, each ending where ``on_stage`` is called.
+
     ``axis_name``: a data ``parallel.mesh.Mesh``, as ``train.steps.
     make_train_step`` takes it: each rank passes its rows of the global
     batch and the same seeded ``generator``; the CDN draws and the
@@ -86,47 +97,48 @@ def make_det_train_step(crit_cfg: DetCriterionConfig, train_cfg: TrainConfig,
     replicas: dict = {}
 
     def train_step(state: TrainState, images, labels, boxes, generator, on_stage=None):
-        mark = on_stage or (lambda name: None)
-        model = state.model
-        model.train()
-        # the sigma heads are read by no loss
-        forward = (model if axis_name is None
-                   else ddp_module(model, axis_name, replicas, find_unused_parameters=True))
-        with data_parallel(axis_name, images.shape[0]):
-            with torch.autocast(images.device.type, dtype=compute_dtype,
-                                enabled=compute_dtype is not None):
-                if denoising:
-                    # padded labels (-1) embed as the table's last row; the
-                    # criterion masks them
-                    outputs = forward(images, {"labels": labels, "points": boxes}, generator)
-                else:
-                    outputs = forward(images)
-            mark("forward")
-            total, losses = set_criterion_boxes(outputs, {"labels": labels, "boxes": boxes},
-                                                crit_cfg, on_match=lambda: mark("match"),
-                                                axis_name=axis_name)
-        mark("loss")
-        state.optimizer.zero_grad(set_to_none=True)
-        total.backward()
-        for p in model.parameters():
-            if p.grad is None:
-                # the heads no loss reads (the sigma heads) get a zero
-                # gradient, so that AdamW still decays them, as optax does
-                p.grad = torch.zeros_like(p)
-        mark("backward")
-        if state.clip_max_norm > 0:
-            clip_by_global_norm_(model.parameters(), state.clip_max_norm)
-        state.optimizer.step()
-        state.scheduler.step()
-        if state.ema is not None:
-            # the reference's ModelEMA averages the BN buffers too
-            ema_update(state.ema, model, state.step, train_cfg.ema_decay,
-                       tau=train_cfg.ema_warmups)
-        state.step += 1
-        mark("optimizer")
-        if axis_name is not None:
-            return group_mean_losses(losses, axis_name)
-        return {k: v.detach() for k, v in losses.items()}
+        on_match = (lambda: on_stage("match")) if on_stage is not None else None
+        with span("train.step"), Stages("train", DET_TRAIN_STAGES, on_stage) as mark:
+            model = state.model
+            model.train()
+            # the sigma heads are read by no loss
+            forward = (model if axis_name is None
+                       else ddp_module(model, axis_name, replicas, find_unused_parameters=True))
+            with data_parallel(axis_name, images.shape[0]):
+                with torch.autocast(images.device.type, dtype=compute_dtype,
+                                    enabled=compute_dtype is not None):
+                    if denoising:
+                        # padded labels (-1) embed as the table's last row; the
+                        # criterion masks them
+                        outputs = forward(images, {"labels": labels, "points": boxes}, generator)
+                    else:
+                        outputs = forward(images)
+                mark("forward")
+                total, losses = set_criterion_boxes(outputs, {"labels": labels, "boxes": boxes},
+                                                    crit_cfg, on_match=on_match,
+                                                    axis_name=axis_name)
+            mark("loss")
+            state.optimizer.zero_grad(set_to_none=True)
+            total.backward()
+            for p in model.parameters():
+                if p.grad is None:
+                    # the heads no loss reads (the sigma heads) get a zero
+                    # gradient, so that AdamW still decays them, as optax does
+                    p.grad = torch.zeros_like(p)
+            mark("backward")
+            if state.clip_max_norm > 0:
+                clip_by_global_norm_(model.parameters(), state.clip_max_norm)
+            state.optimizer.step()
+            state.scheduler.step()
+            if state.ema is not None:
+                # the reference's ModelEMA averages the BN buffers too
+                ema_update(state.ema, model, state.step, train_cfg.ema_decay,
+                           tau=train_cfg.ema_warmups)
+            state.step += 1
+            mark("optimizer")
+            if axis_name is not None:
+                return group_mean_losses(losses, axis_name)
+            return {k: v.detach() for k, v in losses.items()}
 
     return train_step
 

@@ -7,7 +7,8 @@ SURVEY.md section 5). On PyTorch:
 
 * ``span(name)`` — one named stage of the program (``eval.step``,
   ``eval.warp``, ``eval.model``, ``eval.solver``, ``solver.init``,
-  ``solver.refine``, ``train.step`` and its five stages, ``loss.match``).
+  ``solver.refine``, ``train.step`` and its stages, ``loss.match``; the
+  keypoint and the det train steps both).
   Recording is off unless the code runs inside ``record_spans()`` or while a
   ``torch.profiler`` session runs; while it is off a span costs one check
   and does nothing else. When recording, a span opens the profiler range
@@ -25,6 +26,10 @@ SURVEY.md section 5). On PyTorch:
 * ``count_graph(stage, kind)`` — one call of a graphed stage
   (``utils/graphs.py``) counted as an "eager" run, a "capture" or a
   "replay", for the summary's ``graphs``.
+* ``record_value(name, make)`` — one reading of the counter ``name``
+  (``match.fill``): ``make()`` is called only while recording and may
+  return a device tensor, which stays on the device until
+  ``span_summary()`` resolves it, so a reading adds no host sync.
 * nothing records while the current CUDA stream is being captured into a
   graph: a span there is the null context and a stage call is not counted,
   so a capture neither breaks on an event or a sync check nor leaves
@@ -67,6 +72,7 @@ class _Recorder:
         self.syncs = Counter()
         self.sites = defaultdict(Counter)  # name -> {"<file>:<line>": syncs}
         self.graphs = defaultdict(Counter)  # stage -> {"eager" / "capture" / "replay": calls}
+        self.values = defaultdict(list)  # counter -> readings (numbers or device tensors)
 
 
 _rec = _Recorder()
@@ -103,6 +109,14 @@ def count_graph(stage: str, kind: str) -> None:
     "capture" or "replay") while recording, outside a capture."""
     if recording() and not capturing():
         _rec.graphs[stage][kind] += 1
+
+
+def record_value(name: str, make) -> None:
+    """One reading of the counter ``name``, ``make()``, while recording and
+    outside a capture; nothing is computed otherwise. A tensor reading is
+    kept as it is until ``span_summary()`` resolves it."""
+    if recording() and not capturing():
+        _rec.values[name].append(make())
 
 
 def _program_site() -> str:
@@ -241,19 +255,23 @@ class Stages:
 def span_summary() -> dict:
     """``{"steps": n, "spans": {name: {"ms_per_step", "calls_per_step",
     "syncs_per_step", "sync_sites"}}, "graphs": {stage: {"eager",
-    "captures", "replays", "replays_per_step"}}}`` over what was recorded
-    since the last reset, after waiting for the card. A step is one run of
+    "captures", "replays", "replays_per_step"}}, "counters": {name:
+    {"mean", "calls", "calls_per_step"}}}`` over what was recorded since
+    the last reset, after waiting for the card. A step is one run of
     the outermost span (``n`` counts the most frequent one); ``ms`` is
     device time on a card, host time elsewhere; a sync is put down to the
     innermost open span, and ``sync_sites`` gives the program's lines that
     made them (``<file in the package>:<line>``: syncs a step); ``graphs``
-    counts the calls of each graphed stage by how they ran. Empty spans and
-    no steps when nothing was recorded."""
+    counts the calls of each graphed stage by how they ran; ``counters``
+    gives the mean of each counter's readings (``record_value``). Empty
+    spans and no steps when nothing was recorded."""
     if _rec.pending:
         torch.cuda.synchronize()
         for name, start, end in _rec.pending:
             _rec.ms[name] += start.elapsed_time(end)
         _rec.pending = []
+    for name, readings in _rec.values.items():
+        _rec.values[name] = [float(v) for v in readings]
     steps = max(_rec.outer.values(), default=0)
     if not steps:
         return {"steps": 0, "spans": {}}
@@ -264,7 +282,10 @@ def span_summary() -> dict:
         for name, calls in _rec.calls.items()},
         "graphs": {stage: {"eager": c["eager"], "captures": c["capture"],
                            "replays": c["replay"], "replays_per_step": c["replay"] / steps}
-                   for stage, c in _rec.graphs.items()}}
+                   for stage, c in _rec.graphs.items()},
+        "counters": {name: {"mean": sum(v) / len(v), "calls": len(v),
+                            "calls_per_step": len(v) / steps}
+                     for name, v in _rec.values.items() if v}}
 
 
 @contextlib.contextmanager

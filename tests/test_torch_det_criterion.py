@@ -134,3 +134,34 @@ def test_perfect_predictions_cost_less():
     assert q4t.tolist() == [[5, 6, 7]]
     bad = dict(good, pred_points=torch.from_numpy(np.roll(pred, 2, axis=1)))
     assert tdc.set_criterion_boxes(good, tgt, cfg)[0] < tdc.set_criterion_boxes(bad, tgt, cfg)[0]
+
+
+def test_match_is_optimal_at_cell_size_in_float32():
+    """At the benchmark det cell's size (300 queries, 100 targets of which
+    20 real) the criterion's float32 match is scipy's optimum of its own
+    costs over the real targets. Padded at JAX's 1e6 instead of 0, the
+    Hungarian missed it on this image by 0.0059: its float32 potentials
+    near 1e6 move in steps of 0.0625."""
+    from scipy.optimize import linear_sum_assignment
+
+    g = torch.Generator().manual_seed(0)
+    n_img, q, t = 112, 300, 100  # one image is drawn as the 73rd of 112
+    n = torch.randint(5, 40, (n_img,), generator=g)
+    mask = torch.arange(t)[None] < n[:, None]
+    labels = torch.where(mask, torch.randint(0, 80, (n_img, t), generator=g), -1)
+    wh = 0.02 + 0.3 * torch.rand(n_img, t, 2, generator=g)
+    boxes = torch.cat([wh / 2 + (1 - wh) * torch.rand(n_img, t, 2, generator=g), wh], -1)
+    logits = torch.randn(n_img, q, 80, generator=g) * 1.5 - 2
+    points = torch.sigmoid(torch.randn(n_img, q, 4, generator=g))
+    pick = slice(72, 73)
+    tgt = {"labels": labels[pick], "boxes": boxes[pick]}
+    cfg = tdc.DetCriterionConfig()
+    (q4t,) = tdc.match_levels([{"pred_logits": logits[pick], "pred_points": points[pick]}],
+                              tgt, cfg)
+    real = int(n[72])
+    cost = tdc._cost(logits[pick], points[pick], tgt["labels"], tgt["boxes"], mask[pick],
+                     cfg)[0, :, :real].double().numpy()
+    rows, cols = linear_sum_assignment(cost)
+    got = cost[q4t[0, :real].numpy(), np.arange(real)].sum()
+    assert len(set(q4t[0].tolist())) == t
+    assert got == pytest.approx(cost[rows, cols].sum(), abs=1e-9)

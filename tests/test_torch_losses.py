@@ -1,6 +1,6 @@
 """PyTorch port, the matching and the loss: the batched Hungarian solver
-against scipy (total cost, ties included) and the JAX solver (tie-free
-costs), then ``hungarian_match`` and ``set_criterion`` (every key, aux
+against scipy (total cost, ties included; padded batches as the det
+criterion builds them) and the JAX solver (tie-free costs), then ``hungarian_match`` and ``set_criterion`` (every key, aux
 levels included, each point-loss kind) against the JAX package on the
 same model outputs."""
 import jax.numpy as jnp
@@ -32,6 +32,46 @@ def test_hungarian_total_cost_matches_scipy(Q, T):
         assert len(set(got.tolist())) == T  # a matching
         r, c = linear_sum_assignment(cost)
         np.testing.assert_allclose(_cost_of(cost, got), cost[r, c].sum(), rtol=1e-12)
+
+
+PAD_B, PAD_Q, PAD_T = 5, 12, 7
+PAD_COST = 0.0  # the det criterion's cost of a padded target
+
+
+def _padded_case(seed, ties: bool):
+    rng = np.random.RandomState(seed)
+    shape = (PAD_B, PAD_Q, PAD_T)
+    cost = rng.randint(0, 3, shape).astype(np.float64) if ties else rng.randn(*shape) * 3
+    counts = rng.randint(0, PAD_T + 1, PAD_B)
+    counts[0] = PAD_T  # one image without padding
+    for b, n in enumerate(counts):
+        cost[b, :, n:] = PAD_COST
+    return cost, counts
+
+
+def _scipy_real(cost, n):
+    rows, cols = linear_sum_assignment(cost[:, :n])
+    out = np.empty(n, np.int64)
+    out[cols] = rows
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("seed", range(3))
+def test_hungarian_matches_scipy_on_padded_batches(seed, ties, dtype):
+    """Padded as the det criterion pads (real targets first, the rest at a
+    constant 0): on continuous costs scipy's query for every real target,
+    on integer costs (ties) scipy's optimal total; float64 and float32."""
+    cost, counts = _padded_case(seed, ties)
+    got = hungarian(torch.tensor(cost, dtype=dtype)).numpy()
+    for b, n in enumerate(counts):
+        assert len(set(got[b])) == PAD_T
+        want = _scipy_real(cost[b], n)
+        total = cost[b, got[b, :n], np.arange(n)].sum()
+        assert total == pytest.approx(cost[b, want, np.arange(n)].sum(), abs=1e-9)
+        if not ties:
+            assert (got[b, :n] == want).all()
 
 
 def test_hungarian_assignment_matches_jax():

@@ -2,8 +2,12 @@
 profiler session and ``record_spans()``, nesting and per-step means inside,
 the ``spe.*`` ranges in a profiler's trace, the spans the eval and train
 steps of both model families emit, the train step's ``on_stage`` left as
-it was, other warnings passed on, and (on a card) the host syncs counted.
-The file imports no JAX; on the card:
+it was, other warnings passed on, and (on a card) the host syncs counted;
+the det train step's spans (its ``on_stage`` still called at forward,
+match, loss, backward, optimizer) and the counter ``match.fill``
+(T_max (T_max + 1) / (T (T + 1)) of each ``match_levels`` call, a tensor
+until ``span_summary()`` resolves it), with no sync in the match on a card
+under sync debug mode "error". The file imports no JAX; on the card:
 
     python -m pytest --noconftest -q tests/test_torch_spans.py
 """
@@ -14,9 +18,13 @@ import pytest
 import torch
 
 from satellite_pose_estimation_tpu_torch.data.augment import AugmentConfig
+from satellite_pose_estimation_tpu_torch.losses import det_criterion
 from satellite_pose_estimation_tpu_torch.losses.criterion import CriterionConfig
 from satellite_pose_estimation_tpu_torch.models.detr import DETRConfig, build_detr_model
-from satellite_pose_estimation_tpu_torch.models.rtdetr import RTDETRConfig, build_rtdetr_model
+from satellite_pose_estimation_tpu_torch.models.rtdetr import (RTDETRConfig, build_rtdetr_model,
+                                                              build_rtdetr_train_model)
+from satellite_pose_estimation_tpu_torch.train.det_solver import (DET_TRAIN_STAGES,
+                                                                  make_det_train_step)
 from satellite_pose_estimation_tpu_torch.train.state import TrainConfig, create_train_state
 from satellite_pose_estimation_tpu_torch.train.steps import make_eval_step, make_train_step
 from satellite_pose_estimation_tpu_torch.utils import profiling
@@ -26,6 +34,9 @@ EVAL_SPANS = ["eval.step", "eval.warp", "eval.model", "eval.solver", "solver.ini
 TRAIN_SPANS = ["train.step", "train.augment", "train.forward", "train.loss", "loss.match",
                "train.backward", "train.optimizer"]
 STAGES = ["augment", "forward", "loss", "backward", "optimizer"]
+DET_SPANS = ["train.step", "train.forward", "train.loss", "loss.match", "train.backward",
+             "train.optimizer"]
+DET_T = 5
 FAMILIES = {
     "detr": (lambda: build_detr_model(DETRConfig(backbone="resnet18", hidden_dim=32, nheads=4,
                                                  enc_layers=1, dec_layers=2,
@@ -287,3 +298,111 @@ def test_span_summary_times_the_card(card):
     spans = profiling.span_summary()["spans"]
     assert spans["mm"]["ms_per_step"] > 0
     assert spans["step"]["ms_per_step"] >= spans["mm"]["ms_per_step"]
+
+
+# -- the det train step and the match counter ---------------------------------
+
+def _det_targets(counts, device="cpu"):
+    g = torch.Generator().manual_seed(1)
+    n = torch.tensor(counts)
+    labels = torch.where(torch.arange(DET_T)[None] < n[:, None],
+                         torch.randint(0, 3, (len(counts), DET_T), generator=g), -1)
+    wh = 0.1 + 0.3 * torch.rand(len(counts), DET_T, 2, generator=g)
+    boxes = torch.cat([wh / 2 + (1 - wh) * torch.rand(len(counts), DET_T, 2, generator=g), wh], -1)
+    return labels.to(torch.int32).to(device), boxes.to(device)
+
+
+def _det_step(device="cpu"):
+    torch.manual_seed(0)
+    model = build_rtdetr_train_model(RTDETRConfig(
+        depth=18, num_classes=3, hidden_dim=32, nhead=4, dim_feedforward=64, num_queries=8,
+        num_decoder_layers=2, box_dim=4, num_denoising=5), seed=0, device=device)
+    cfg = TrainConfig(use_ema=True)
+    return create_train_state(model, cfg), make_det_train_step(
+        det_criterion.DetCriterionConfig(num_classes=3), cfg, denoising=True)
+
+
+def _det_fill(t_max):
+    return t_max * (t_max + 1) / (DET_T * (DET_T + 1))
+
+
+def test_det_step_spans_stages_and_fill():
+    state, step = _det_step()
+    labels, boxes = _det_targets([3, 1])
+    g = torch.Generator().manual_seed(0)
+    images = torch.randn(2, 32, 32, 3)
+    seen = []
+    with profiling.record_spans():
+        step(state, images, labels, boxes, g, on_stage=seen.append)
+        assert isinstance(profiling._rec.values["match.fill"][0], torch.Tensor)
+        step(state, images, labels, boxes, g)
+    assert seen == ["forward", "match", "loss", "backward", "optimizer"]
+    assert tuple(DET_TRAIN_STAGES) == ("forward", "loss", "backward", "optimizer")
+    s = profiling.span_summary()
+    assert s["steps"] == 2 and list(s["spans"]) == DET_SPANS
+    assert all(v["calls_per_step"] == 1.0 for v in s["spans"].values())
+    assert s["spans"]["loss.match"]["ms_per_step"] <= s["spans"]["train.loss"]["ms_per_step"]
+    assert sum(v["syncs_per_step"] for v in s["spans"].values()) == 0  # no card, no sync
+    fill = s["counters"]["match.fill"]
+    assert fill["calls"] == 2 and fill["calls_per_step"] == 1.0
+    assert fill["mean"] == pytest.approx(_det_fill(3))
+
+
+@pytest.mark.parametrize("counts", [[5, 0], [2, 1, 1], [0, 0]])
+def test_det_fill_counter_formula(counts):
+    labels, boxes = _det_targets(counts)
+    Q, C = 8, 4
+    level = {"pred_logits": torch.randn(len(counts), Q, C),
+             "pred_points": torch.rand(len(counts), Q, 4) * 0.5 + 0.25}
+    with profiling.record_spans():
+        det_criterion.match_levels([level, level], {"labels": labels, "boxes": boxes},
+                                   det_criterion.DetCriterionConfig(num_classes=C))
+        with profiling.span("step"):
+            pass
+    assert profiling.span_summary()["counters"]["match.fill"]["mean"] == pytest.approx(
+        _det_fill(max(counts)))
+
+
+def test_det_step_records_nothing_outside_recording():
+    state, step = _det_step()
+    labels, boxes = _det_targets([2, 2])
+    step(state, torch.randn(2, 32, 32, 3), labels, boxes, torch.Generator().manual_seed(0))
+    assert profiling.span_summary() == {"steps": 0, "spans": {}}
+    assert not profiling._rec.values
+
+
+@pytest.mark.cuda
+def test_det_match_and_counter_make_no_sync_on_the_card(card):
+    labels, boxes = _det_targets([4, 2], card)
+    level = {"pred_logits": torch.randn(2, 8, 4, device=card),
+             "pred_points": torch.rand(2, 8, 4, device=card) * 0.5 + 0.25}
+    crit = det_criterion.DetCriterionConfig(num_classes=4)
+    torch.cuda.synchronize()
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with profiling.record_spans(), profiling.span("loss.match"):
+            q4t = det_criterion.match_levels([level], {"labels": labels, "boxes": boxes}, crit)
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    s = profiling.span_summary()
+    assert s["spans"]["loss.match"]["syncs_per_step"] == 0
+    assert s["counters"]["match.fill"]["mean"] == pytest.approx(_det_fill(4))
+    assert q4t[0].shape == (2, DET_T)
+
+
+@pytest.mark.cuda
+def test_det_step_spans_on_the_card(card):
+    state, step = _det_step(card)
+    labels, boxes = _det_targets([3, 5], card)
+    g = torch.Generator(device=card).manual_seed(0)
+    images = torch.randn(2, 64, 64, 3, device=card)
+    step(state, images, labels, boxes, g)
+    torch.cuda.synchronize()
+    with profiling.record_spans():
+        step(state, images, labels, boxes, g)
+    s = profiling.span_summary()
+    assert list(s["spans"]) == DET_SPANS
+    assert s["spans"]["loss.match"]["syncs_per_step"] == 0
+    assert s["counters"]["match.fill"]["mean"] == pytest.approx(1.0)
+    assert all(v["ms_per_step"] > 0 for v in s["spans"].values())
